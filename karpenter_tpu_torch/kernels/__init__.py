@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels of the pack (K1 feasibility, K2 pack_scan,
+K3 sparsify) and their wrappers. Each wrapper launches its kernel for CUDA
+tensors and runs its plain PyTorch version for CPU tensors."""
