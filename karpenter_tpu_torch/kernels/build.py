@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("feasibility.cu", "pack_scan.cu", "sparsify.cu")
+SOURCES = ("feasibility.cu", "pack_scan.cu", "sparsify.cu", "recredit.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # no --use_fast_math: the pack floors f32 quotients and needs IEEE division;
 # -fmad=false keeps a*b-c from contracting into an FMA (bit-parity)
@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel launches per wrapper, counted where each wrapper launches its kernel
-LAUNCHES = {"feasibility": 0, "pack_scan": 0, "sparsify": 0}
+LAUNCHES = {"feasibility": 0, "pack_scan": 0, "sparsify": 0, "recredit": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -109,6 +109,8 @@ def lib() -> ctypes.CDLL:
             handle.kt_pack_scan_limits.restype = ci
             handle.kt_sparsify.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 3
             handle.kt_sparsify.restype = ci
+            handle.kt_recredit.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 4
+            handle.kt_recredit.restype = ci
             _lib = handle
         return _lib
 

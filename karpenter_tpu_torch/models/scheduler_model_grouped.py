@@ -15,7 +15,10 @@ replica count; one scan step places all its replicas:
 `_pack_body` is the plain PyTorch version of the scan (kernel K2,
 `kernels/pack_scan.py`); `_flat_outputs` the plain version of the ordered
 sparsify (kernel K3, `kernels/sparsify.py`). `greedy_pack_grouped_compressed`
-runs the kernels on CUDA tensors and the plain versions on CPU tensors.
+runs the kernels on CUDA tensors and the plain versions on CPU tensors;
+`greedy_pack_delta_compressed` runs them over only a delta's items from a
+prior pack's carry, and `recredit_removals` (kernel K4,
+`kernels/recredit.py`) takes removed pods back out of that carry.
 """
 
 from __future__ import annotations
@@ -736,12 +739,10 @@ def nnz_cap_for(n_pods: int, W: int, N: int) -> int:
     return int(min(cap_hw("nnz_full", _next_pow2(n_pods)), W * N))
 
 
-def greedy_pack_grouped_compressed(t: SchedulerTensors, items: ItemTensors, n_pods: int, init_state=None) -> dict:
-    """Run the pack: feasibility (K1), the scan (K2) and the ordered sparsify
-    (K3), each through its kernel wrapper (kernel on CUDA tensors, plain
-    version on CPU tensors). Returns the parsed outputs (numpy), `flat`
-    (the device vector) and `state`, the scan's final carry, left on the
-    device for an incremental re-solve."""
+def _pack_flat(t: SchedulerTensors, items: ItemTensors, nnz_cap: int, init_state=None) -> dict:
+    """K1 -> K2 (from `init_state` when given) -> K3, each through its kernel
+    wrapper. Returns the parsed outputs (numpy), `flat` (the device vector)
+    and `state`, the scan's final carry, left on the device."""
     from ..kernels.feasibility import feasibility
     from ..kernels.pack_scan import pack_scan
     from ..kernels.sparsify import flat_outputs
@@ -749,13 +750,86 @@ def greedy_pack_grouped_compressed(t: SchedulerTensors, items: ItemTensors, n_po
     W = items.item_req.shape[0]
     N = t.n_slots
     Z = t.counts_dom_init.shape[1]
-    nnz_cap = nnz_cap_for(n_pods, W, N)
     compat, key = feasibility(t, items)
     takes, leftovers, state = pack_scan(t, items, compat, key, n_slots=N, init_state=init_state)
     flat = flat_outputs(takes, leftovers, state[0], state[2], state[6], nnz_cap)
     out = _parse_flat(flat.cpu().numpy(), nnz_cap, N, Z, W)
     out.update(flat=flat, state=state, nnz_cap=nnz_cap, n_slots=N)
     return out
+
+
+def greedy_pack_grouped_compressed(t: SchedulerTensors, items: ItemTensors, n_pods: int, init_state=None) -> dict:
+    """Run the pack: feasibility (K1), the scan (K2) and the ordered sparsify
+    (K3), each through its kernel wrapper (kernel on CUDA tensors, plain
+    version on CPU tensors). Returns the parsed outputs (numpy), `flat`
+    (the device vector) and `state`, the scan's final carry, left on the
+    device for an incremental re-solve."""
+    nnz_cap = nnz_cap_for(n_pods, items.item_req.shape[0], t.n_slots)
+    return _pack_flat(t, items, nnz_cap, init_state=init_state)
+
+
+DELTA_ITEM_BUCKET = 16  # delta item axis pads to this so deltas share one shape
+REMOVAL_BUCKET = 16  # removal axis pads to this so removals share one shape
+
+
+def delta_nnz_cap(n_added: int) -> int:
+    """The delta pack's triple capacity: its own high-water mark over
+    next_pow2(n_added), not bounded by W x N (the full solve's cap is
+    `nnz_cap_for`; the two differ, and with them every offset of the flat
+    output)."""
+    return int(cap_hw("nnz_delta", _next_pow2(max(n_added, 2))))
+
+
+def greedy_pack_delta_compressed(state, t: SchedulerTensors, items: ItemTensors, n_added: int) -> dict:
+    """Incremental pack over only the delta items, continuing from `state`
+    (a prior pack's device-resident final carry): K1 on the delta items
+    against the resident tensors, K2 from the carry, K3 with the delta cap.
+    Items must be padded to a DELTA_ITEM_BUCKET multiple (pad entries have
+    count 0). Same dict as greedy_pack_grouped_compressed; takes and
+    leftovers span the (padded) delta items."""
+    return _pack_flat(t, items, delta_nnz_cap(n_added), init_state=state)
+
+
+def recredit_removals(state, t: SchedulerTensors, slot_idx, req, zmem, hmem):
+    """Take removed pods back out of a pack carry (kernel K4 through its
+    wrapper). slot_idx [K] (numpy, the slot each removed placed pod holds),
+    req [K, R] their requests, zmem / hmem [K, G_p] their spread and
+    hostname-counted memberships. Pads the removal axis to a REMOVAL_BUCKET
+    multiple with slot -1; returns the new carry."""
+    from ..kernels.recredit import recredit
+
+    R = int(state[1].shape[1])
+    if req.shape[1] != R:
+        # the reference's scatter-add cannot broadcast [K, R] into [K, R_p]
+        # either: it raises on the same input
+        raise ValueError(f"recredit_removals: request width {req.shape[1]} != carry resource axis {R}")
+    K = int(slot_idx.shape[0])
+    K_pad = bucket_hw("removals", K, REMOVAL_BUCKET)
+    if K_pad != K:
+        pad = K_pad - K
+        slot_idx = np.concatenate([slot_idx, np.full(pad, -1, slot_idx.dtype)])
+        req = np.concatenate([req, np.zeros((pad, req.shape[1]), req.dtype)])
+        zmem = np.concatenate([zmem, np.zeros((pad, zmem.shape[1]), bool)])
+        hmem = np.concatenate([hmem, np.zeros((pad, hmem.shape[1]), bool)])
+    dev = state[1].device
+
+    def up(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+
+    return recredit(state, t, up(slot_idx, torch.int32), up(req, torch.float32), up(zmem, torch.bool),
+                    up(hmem, torch.bool))
+
+
+def greedy_pack_grouped(t: SchedulerTensors, items: ItemTensors):
+    """The pack with the dense take matrix (no sparsify): K1 -> K2 from the
+    initial carry. Returns (takes [W, N], leftovers [W], slot_basis,
+    slot_zoneset, slot_rank, open_count)."""
+    from ..kernels.feasibility import feasibility
+    from ..kernels.pack_scan import pack_scan
+
+    compat, key = feasibility(t, items)
+    takes, leftovers, state = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+    return takes, leftovers, state[0], state[2], state[3], state[6]
 
 
 def assignment_from_triples(nz_item, nz_slot, nz_count, item_pods, n_pods: int) -> np.ndarray:

@@ -72,9 +72,55 @@ def test_gpusolver_on_card_matches_reference(cuda_device):
     problem, ref = load_npz(FIXTURE_DIR / "small_spread_anti_ports.npz")
     build.reset_launches()
     res = GPUSolver().solve_encoded(problem)
-    assert all(v == 1 for v in build.LAUNCHES.values())
+    assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "sparsify": 1, "recredit": 0}
     assert res.errors == []
     np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["chain_small_members", "chain_small_bind_flush", "churn_headline_5000x100"])
+def test_recredit_kernel_equals_plain_on_card(cuda_device, name):
+    """K4 against recredit_plain on the card, both against the recorded JAX
+    carry, for every recredit of the chain."""
+    import types
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.recredit import recredit, recredit_plain
+    from karpenter_tpu_torch.models.scheduler_model_grouped import REMOVAL_BUCKET
+    from karpenter_tpu_torch.solver.encoded import load_chain
+    from test_torch_fixtures import CHAIN_DIR, STATE_LEAVES
+
+    problems, ref = load_chain(CHAIN_DIR / f"{name}.npz")
+    checked = 0
+    for i, p in enumerate(problems):
+        pre = f"s{i}."
+        if pre + "rc_slot_idx" not in ref:
+            continue
+        G_p = ref[pre + "rc_zmem"].shape[1]
+        gdk = np.full(G_p, -1, np.int32)
+        gdk[: p.n_groups] = p.group_dom_key
+        t = types.SimpleNamespace(group_dom_key=torch.as_tensor(gdk, device=cuda_device),
+                                  dom_key_of=torch.as_tensor(p.dom_key_of, device=cuda_device))
+        K = ref[pre + "rc_slot_idx"].shape[0]
+        pad = -K % REMOVAL_BUCKET
+        args = [np.concatenate([ref[pre + "rc_slot_idx"], np.full(pad, -1, np.int32)]),
+                np.concatenate([ref[pre + "rc_req"], np.zeros((pad, ref[pre + "rc_req"].shape[1]), np.float32)]),
+                np.concatenate([ref[pre + "rc_zmem"], np.zeros((pad, G_p), bool)]),
+                np.concatenate([ref[pre + "rc_hmem"], np.zeros((pad, G_p), bool)])]
+        args = [torch.as_tensor(a, device=cuda_device) for a in args]
+        leaves = [torch.as_tensor(ref[f"{pre}rc_in_{k}"], device=cuda_device) for k in STATE_LEAVES]
+        state = tuple(leaves[:7]) + (tuple(leaves[7:]),)
+        build.reset_launches()
+        got = recredit(state, t, *args)
+        plain = recredit_plain(state, t, *args)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["recredit"] == 1
+        for leaf, a, b in zip(STATE_LEAVES, list(got[:7]) + list(got[7]), list(plain[:7]) + list(plain[7])):
+            want = torch.as_tensor(ref[f"{pre}rc_out_{leaf}"])
+            assert torch.equal(a, b), leaf
+            assert torch.equal(a.cpu(), want.reshape(a.shape)), leaf
+        checked += 1
+    assert checked
 
 
 def test_wrappers_take_plain_version_only_for_cpu_tensors():
