@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It prints the card's name and power limit, builds the four CUDA kernels
+It prints the card's name and power limit, builds the seven CUDA kernels
 from `karpenter_tpu_torch/kernels/csrc/`, and for every fixture in
 `karpenter_tpu_torch/fixtures/` holds each pack kernel against its plain
 PyTorch version on the card (`torch.equal`: integer, bool and identically
@@ -27,10 +27,27 @@ delta). Each recredit (K4) and delta pack (K1 -> K2 -> K3) the path made is
 then repeated on its recorded inputs and held against its plain version and
 the stored JAX carry.
 
+Then the consolidation proposers: for every fixture in
+`fixtures/consolidation/`, K5 globalpack (after 1, 5 and 300 Adam steps
+from the stored JAX inits), K6 score_subsets (on the reference's rounded
+rows) and K7 anneal (on the reference's random streams) against their plain
+versions on the card and the stored JAX outputs. Each proposer is then
+driven end to end on its fixture (`propose_subsets_lp` on the 5000-node
+fleet, `propose_subsets_global` on the 5000-node spot/on-demand fleet
+without and with 200 pending pods, `propose_subsets` on the 256-node anneal
+fleet; each from the JAX inits, and the global one also through
+`GPUSolver().global_repack_plan_encoded` with its own generator), the counts
+set to 0 just before each call and read just after: the LP and global
+proposers must launch K5 once and K6 once, the anneal proposer K7 once, and
+give the JAX proposals.
+
 Last it times each kernel, its plain version and the library yardstick with
 CUDA events at the headline shape (K4 and the delta pack at the headline
-churn step), the full solve, and the delta solve beside a full solve of the
-same problem, with stage breakdowns (host clock, device synchronised).
+churn step; K5-K7 at the 5000-node shapes, K7 also at the 5000-node fleet's
+Np = 8192 with the dense compatibility matrix), the full solve, the delta
+solve beside a full solve of the same problem, and the LP and global
+proposers at 5000 nodes, with stage breakdowns (host clock, device
+synchronised).
 
 Output: a `kernels` JSON line, the card line, then as the last line
 `{"ok": true, "device": {...}}`. Any mismatch or exception exits non-zero.
@@ -66,9 +83,22 @@ REPLACES = {
     "pack_scan": "karpenter_tpu/models/scheduler_model_grouped.py:1028",
     "sparsify": "karpenter_tpu/models/scheduler_model_grouped.py:1012",
     "recredit": "karpenter_tpu/models/scheduler_model_grouped.py:1111",
+    "globalpack": "karpenter_tpu/models/globalpack.py:97",
+    "score_subsets": "karpenter_tpu/models/globalpack.py:212",
+    "anneal": "karpenter_tpu/models/consolidation_model.py:103",
 }
 SOURCES = {"feasibility": "feasibility.cu", "pack_scan": "pack_scan.cu", "sparsify": "sparsify.cu",
-           "recredit": "recredit.cu"}
+           "recredit": "recredit.cu", "globalpack": "globalpack.cu", "score_subsets": "score_subsets.cu",
+           "anneal": "anneal.cu"}
+CONS = FIXTURES / "consolidation"
+CONS_LP, CONS_GLOBAL, CONS_PENDING, CONS_ANNEAL = ("lp_5000", "global_5000_hetero", "global_5000_hetero_pending",
+                                                   "anneal_256")
+# K5 against its plain version and the reference: d within D_TOL; the
+# objective within these (relative after 1 and 5 steps; after the full
+# ascent, a share of the fleet's total node price). tests/test_torch_globalpack.py
+D_TOL = 2e-6
+GP_SCORE_TOL = {1: 5e-2, 5: 1e-4}
+GP_FINAL_TOL = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -630,17 +660,301 @@ def time_delta(run: dict, dev, runs: int = 5) -> dict:
                 n_added=int(n_added), n_pods=step.n_pods)
 
 
+# -- consolidation (K5 globalpack, K6 score_subsets, K7 anneal) ---------------------
+
+def cons_load(name: str):
+    from karpenter_tpu_torch.solver.consolidation import load_npz
+
+    return load_npz(CONS / f"{name}.npz")
+
+
+def check_globalpack(name, problem, ref, dev, errs) -> None:
+    """K5 after 1, 5 and the full 300 steps against its plain version on the
+    card and the stored JAX d and objective."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.kernels.globalpack import globalpack, globalpack_plain
+    from karpenter_tpu_torch.solver.consolidation import reference_inits, tensors_from_problem
+
+    t, aux = tensors_from_problem(problem, dev)
+    d0, y0 = (torch.as_tensor(a, device=dev) for a in reference_inits(problem, ref))
+    args = (t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0, y0)
+    scale = float(problem.node_price.sum())
+    for n_iters, key, skey in ((1, "ref_d_it1", "ref_score_it1"), (5, "ref_d_it5", "ref_score_it5"),
+                               (int(ref["ref_n_iters"]), "ref_d", "ref_lp_score")):
+        d, s = globalpack(*args, n_iters)
+        d_p, s_p = globalpack_plain(*args, n_iters)
+        torch.cuda.synchronize()
+        err = max_abs((d, d_p))
+        errs["globalpack"] = max(errs["globalpack"], err)
+        expect(err <= D_TOL, f"{name}: K5 d after {n_iters} steps differs from plain by {err}")
+        ref_err = float(np.abs(d.cpu().numpy() - ref[key]).max())
+        errs["globalpack_vs_jax"] = max(errs.get("globalpack_vs_jax", 0.0), ref_err)
+        expect(ref_err <= D_TOL, f"{name}: K5 d after {n_iters} steps differs from JAX by {ref_err}")
+        for what, a, b in (("plain", s.cpu().numpy(), s_p.cpu().numpy()), ("JAX", s.cpu().numpy(), ref[skey])):
+            if n_iters in GP_SCORE_TOL:
+                ok = np.allclose(a, b, rtol=GP_SCORE_TOL[n_iters], atol=0)
+            else:
+                ok = np.allclose(a, b, rtol=0, atol=GP_FINAL_TOL * scale)
+            expect(ok, f"{name}: K5 objective after {n_iters} steps differs from {what}: {a} vs {b}")
+
+
+def check_score_subsets(name, problem, ref, dev, errs) -> None:
+    """K6 on the reference's rounded rows: equal to its plain version and to
+    the JAX scores and flags, bit for bit."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.kernels.score_subsets import score_subsets, score_subsets_plain
+    from karpenter_tpu_torch.solver.consolidation import tensors_from_problem
+
+    t, aux = tensors_from_problem(problem, dev)
+    X = torch.as_tensor(ref["ref_X"], device=dev)
+    pend = (aux["pend_req"], aux["pend_npods"], aux["pend_active"])
+    s, f = score_subsets(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    s_p, f_p = score_subsets_plain(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    torch.cuda.synchronize()
+    errs["score_subsets"] = max(errs["score_subsets"], max_abs((s, s_p), (f, f_p)))
+    expect(torch.equal(s, s_p) and torch.equal(f, f_p), f"{name}: K6 differs from plain")
+    expect(np.array_equal(s.cpu().numpy(), ref["ref_scores"]), f"{name}: K6 scores differ from JAX")
+    expect(np.array_equal(f.cpu().numpy(), ref["ref_feas"]), f"{name}: K6 feasibility differs from JAX")
+
+
+def check_anneal(name, problem, ref, dev, errs) -> None:
+    """K7 on the reference's streams: equal to its plain version and to the
+    JAX best_x and best_s, bit for bit."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.kernels.anneal import anneal, anneal_plain
+    from karpenter_tpu_torch.solver.consolidation import tensors_from_problem
+
+    t, _aux = tensors_from_problem(problem, dev, dense_compat=True)
+    streams = [torch.as_tensor(ref[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
+    bx, bs = anneal(t, *streams)
+    bx_p, bs_p = anneal_plain(t, *streams)
+    torch.cuda.synchronize()
+    errs["anneal"] = max(errs["anneal"], max_abs((bx, bx_p), (bs, bs_p)))
+    expect(torch.equal(bx, bx_p) and torch.equal(bs, bs_p), f"{name}: K7 differs from plain")
+    expect(np.array_equal(bx.cpu().numpy(), ref["ref_best_x"]), f"{name}: K7 best_x differs from JAX")
+    expect(np.array_equal(bs.cpu().numpy(), ref["ref_best_s"]), f"{name}: K7 best_s differs from JAX")
+
+
+def check_consolidation(dev, errs) -> None:
+    names = sorted(p.stem for p in CONS.glob("*.npz"))
+    expect({CONS_LP, CONS_GLOBAL, CONS_PENDING, CONS_ANNEAL} <= set(names), "consolidation fixtures missing")
+    for name in names:
+        t1 = time.perf_counter()
+        problem, ref = cons_load(name)
+        if str(ref["kind"]) == "anneal":
+            check_anneal(name, problem, ref, dev, errs)
+            what = "K7"
+        else:
+            check_globalpack(name, problem, ref, dev, errs)
+            check_score_subsets(name, problem, ref, dev, errs)
+            what = "K5 (1, 5, 300 steps), K6"
+        print(f"consolidation kernels == plain == JAX reference: {name} N={problem.n} {what} "
+              f"({time.perf_counter() - t1:.1f} s)")
+
+
+def drive_proposers(dev) -> dict:
+    """Each proposer end to end on its fixture, every count set to 0 just
+    before the call and read just after; returns the counts per run."""
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.solver.consolidation import (
+        propose_subsets,
+        propose_subsets_global,
+        propose_subsets_lp,
+        reference_inits,
+        reference_proposals,
+    )
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+
+    runs = {}
+    for name in (CONS_LP, CONS_GLOBAL, CONS_PENDING):
+        problem, ref = cons_load(name)
+        inits = reference_inits(problem, ref)
+        build.reset_launches()
+        if str(ref["kind"]) == "lp":
+            out = propose_subsets_lp(problem, dev, inits=inits)
+        else:
+            out, info = propose_subsets_global(problem, dev, inits=inits)
+            expect(info["rounded"] == int(ref["ref_info_rounded"]), f"{name}: rounded rows differ from JAX")
+            want = float(ref["ref_info_objective_improvement"])
+            expect(abs(info["objective_improvement"] - want) <= 1e-5 * max(1.0, abs(want)),
+                   f"{name}: objective improvement {info['objective_improvement']} != {want}")
+        counts = dict(build.LAUNCHES)
+        expect(counts["globalpack"] == 1 and counts["score_subsets"] == 1 and counts["anneal"] == 0,
+               f"{name}: proposer launches {counts}")
+        expect(out == reference_proposals(ref), f"{name}: proposals differ from the JAX reference")
+        runs[name] = counts
+        print(f"main path {name} ({problem.n} nodes): {len(out)} proposals == JAX (sizes {[len(s) for s in out]}), "
+              f"launches {counts}")
+    problem, ref = cons_load(CONS_PENDING)
+    build.reset_launches()
+    out, info = GPUSolver(dev).global_repack_plan_encoded(problem, seed=0)
+    counts = dict(build.LAUNCHES)
+    expect(counts["globalpack"] == 1 and counts["score_subsets"] == 1, f"global_repack_plan_encoded launches {counts}")
+    expect(len(out) > 0 and info["rounded"] > 0, "global_repack_plan_encoded proposed nothing")
+    runs["global_repack_plan_encoded"] = counts
+    print(f"main path GPUSolver.global_repack_plan_encoded {CONS_PENDING} (torch.Generator inits): "
+          f"{len(out)} proposals, info {info}, launches {counts}")
+    problem, ref = cons_load(CONS_ANNEAL)
+    build.reset_launches()
+    out = propose_subsets(problem, dev, streams=(ref["ref_x0"], ref["ref_flips"], ref["ref_u"]))
+    counts = dict(build.LAUNCHES)
+    expect(counts["anneal"] == 1 and counts["globalpack"] == 0, f"{CONS_ANNEAL}: proposer launches {counts}")
+    expect(out == reference_proposals(ref), f"{CONS_ANNEAL}: proposals differ from the JAX reference")
+    runs[CONS_ANNEAL] = counts
+    print(f"main path {CONS_ANNEAL} ({problem.n} nodes): {len(out)} proposals == JAX, launches {counts}")
+    return runs
+
+
+def k5_cost(t, aux, C, n_iters) -> tuple[int, int]:
+    """K5: inputs read once, d and the objective written once; per step and
+    init ~2 flops per term of the six node/row contractions (disp, routed,
+    g_disp, g_y, g_d, rep, g_rep, g_yr) and ~20 per node, row and route for
+    the hinges, Adam and the projection."""
+    Np, Qp = aux["onehot"].shape
+    T, R = t.row_alloc.shape
+    n_in = nbytes(t.node_price, t.node_cost, t.node_slack, t.node_used, t.row_price, t.row_alloc, aux["onehot"],
+                  aux["compat_qn"], aux["pend_mass"], aux["pend_weight"]) + 4 * C * (Np + Qp * Np)
+    per_step = 2 * (5 * Np * Qp * R + 3 * T * Qp * R) + 20 * (Np * R + T * R + Np + Qp * (Np + T))
+    return n_in + 4 * C * (Np + 1), C * n_iters * per_step
+
+
+def k6_cost(t, aux, M) -> tuple[int, int]:
+    """K6: the node and row arrays and the rows read once, scores and flags
+    written once; per row ~(4R + 2Q + 6) operations per node and 3R per
+    replacement row."""
+    Np, Qp = aux["onehot"].shape
+    T, R = t.row_alloc.shape
+    n_in = nbytes(t.node_price, t.node_cost, t.node_slack, t.node_used, t.node_npods, aux["onehot"],
+                  aux["compat_nq"], t.row_alloc, t.row_price) + M * Np
+    return n_in + 5 * M, M * (Np * (4 * R + 2 * Qp + 6) + T * 3 * R)
+
+
+def k7_cost(t, C, S) -> tuple[int, int]:
+    """K7: the node arrays, the dense compatibility matrix, the rows and the
+    streams read once, best_x and best_s written once; per step ~(4R + 8)
+    operations per node (the objective of the flipped set) and 3R per row."""
+    Np = t.node_price.shape[0]
+    T, R = t.row_alloc.shape
+    n_in = nbytes(t.node_price, t.node_cost, t.node_slack, t.node_used, t.node_npods, t.pod_compat, t.row_alloc,
+                  t.row_price) + C * Np + 8 * C * S
+    return n_in + C * Np + 4 * C, C * (S + 1) * (Np * (4 * R + 8) + T * 3 * R)
+
+
+def time_consolidation(dev, launches: dict, errs: dict) -> list:
+    """The `kernels` rows of K5-K7 at the 5000-node shapes (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.kernels.anneal import anneal, anneal_plain
+    from karpenter_tpu_torch.kernels.globalpack import globalpack, globalpack_plain
+    from karpenter_tpu_torch.kernels.score_subsets import score_subsets, score_subsets_plain
+    from karpenter_tpu_torch.models.consolidation_model import draw_anneal_streams
+    from karpenter_tpu_torch.solver.consolidation import lp_ladder, reference_inits, tensors_from_problem
+
+    problem, ref = cons_load(CONS_LP)
+    t, aux = tensors_from_problem(problem, dev)
+    d0, y0 = (torch.as_tensor(a, device=dev) for a in reference_inits(problem, ref))
+    n_iters = int(ref["ref_n_iters"])
+    gp_args = (t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0, y0, n_iters)
+    rows = []
+    b, o = k5_cost(t, aux, d0.shape[0], n_iters)
+    rows.append(dict(name="globalpack", ms=cuda_ms(lambda: globalpack(*gp_args), 3, rounds=3),
+                     plain_ms=cuda_ms(lambda: globalpack_plain(*gp_args), 1, rounds=2), library_ms=None,
+                     bytes=b, ops=o))
+    _out, X, _s, _f = lp_ladder(t, aux, ref["ref_d"], problem.n)
+    Xp = np.zeros((len(X) + (-len(X) % 32), X.shape[1]), bool)
+    Xp[:len(X)] = X
+    Xt = torch.as_tensor(Xp, device=dev)
+    k6_args = (t, aux["onehot"], aux["compat_nq"], aux["pend_req"], aux["pend_npods"], aux["pend_active"], Xt)
+    b, o = k6_cost(t, aux, Xt.shape[0])
+    rows.append(dict(name="score_subsets", ms=cuda_ms(lambda: score_subsets(*k6_args), 20),
+                     plain_ms=cuda_ms(lambda: score_subsets_plain(*k6_args), 3), library_ms=None, bytes=b, ops=o))
+    print(f"K5 at {CONS_LP}: C={d0.shape[0]} inits x {n_iters} steps, Np={t.node_price.shape[0]}, "
+          f"Qp={aux['onehot'].shape[1]}, Tp={t.row_price.shape[0]}, R={t.row_alloc.shape[1]}; "
+          f"K6: {Xt.shape[0]} rows (the proposer's {len(X)} padded to 32s)")
+    # K7 on the anneal arm's fleet, and at the 5000-node fleet's Np with the dense matrix
+    a_problem, a_ref = cons_load(CONS_ANNEAL)
+    ta, _ = tensors_from_problem(a_problem, dev, dense_compat=True)
+    streams = [torch.as_tensor(a_ref[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
+    b, o = k7_cost(ta, *streams[1].shape)
+    rows.append(dict(name="anneal", ms=cuda_ms(lambda: anneal(ta, *streams), 5, rounds=3),
+                     plain_ms=cuda_ms(lambda: anneal_plain(ta, *streams), 1, rounds=2), library_ms=None,
+                     bytes=b, ops=o))
+    t8, _ = tensors_from_problem(problem, dev, dense_compat=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s8 = draw_anneal_streams(t8.node_price.shape[0], gen)
+    bx, bs = anneal(t8, *s8)
+    bx_p, bs_p = anneal_plain(t8, *s8)
+    torch.cuda.synchronize()
+    expect(torch.equal(bx, bx_p) and torch.equal(bs, bs_p), "K7 at Np = 8192 differs from plain")
+    errs["anneal"] = max(errs["anneal"], max_abs((bx, bx_p), (bs, bs_p)))
+    b8, o8 = k7_cost(t8, *s8[1].shape)
+    bound8, by8 = bound_of(b8, o8)
+    k7_8192 = dict(ms=cuda_ms(lambda: anneal(t8, *s8), 2, rounds=3), plain_ms=cuda_ms(lambda: anneal_plain(t8, *s8), 1,
+                                                                                       rounds=2),
+                   bound_ms=bound8, bound_by=by8, pod_compat_mb=nbytes(t8.pod_compat) / 1e6)
+    print(f"time anneal at Np={t8.node_price.shape[0]} (the 5000-node fleet, dense pod_compat "
+          f"{k7_8192['pod_compat_mb']:.0f} MB; == plain): {k7_8192['ms']:.4f} ms kernel, "
+          f"{k7_8192['plain_ms']:.4f} ms plain, bound {bound8:.5f} ms ({by8})")
+    print(f"K7 at {CONS_ANNEAL}: C={streams[1].shape[0]} chains x {streams[1].shape[1]} steps, "
+          f"Np={ta.node_price.shape[0]}, Tp={ta.row_price.shape[0]}")
+    return [kernel_row(r, launches, errs) for r in rows]
+
+
+def time_proposers(dev, runs: int = 5) -> dict:
+    """Host-clock ms (device synchronised) of the LP and global proposers on
+    their 5000-node fleets: median of `runs` warm calls, and the median of
+    each stage over `runs` staged calls."""
+    import torch
+
+    from karpenter_tpu_torch.solver.consolidation import (
+        propose_subsets_global,
+        propose_subsets_lp,
+        reference_inits,
+    )
+
+    out = {}
+    for name, fn in ((CONS_LP, propose_subsets_lp), (CONS_GLOBAL, propose_subsets_global),
+                     (CONS_PENDING, propose_subsets_global)):
+        problem, ref = cons_load(name)
+        inits = reference_inits(problem, ref)
+        wall, stages = [], []
+        for _ in range(runs + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(problem, dev, inits=inits)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            st: dict = {}
+            fn(problem, dev, inits=inits, stages=st)
+            stages.append(st)
+        med = {k: statistics.median(s[k] for s in stages[1:]) for k in stages[-1]}
+        out[name] = dict(ms=statistics.median(wall[1:]), runs=wall, stages=med)
+        print(f"{fn.__name__} {name}: median of {runs} warm calls {out[name]['ms']:.3f} ms "
+              f"(runs ms: {[round(x, 3) for x in wall]}); stages ms (median, synchronised): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+    return out
+
+
 def run(dev, card: str) -> dict:
     """Every check and timing on `dev`; returns the `kernels` line."""
     import torch
 
+    from karpenter_tpu_torch.kernels import build
     from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
     from karpenter_tpu_torch.solver.encoded import load_npz
     from karpenter_tpu_torch.solver.gpu import GPUSolver
 
     names = sorted(p.stem for p in FIXTURES.glob("*.npz"))
     expect(HEADLINE in names and HEADLINE_AFF in names, "headline fixtures missing")
-    errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0}
+    errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0, "globalpack": 0.0,
+            "score_subsets": 0.0, "anneal": 0.0}
     for name in names:
         t1 = time.perf_counter()
         info = check_kernels(name, dev)
@@ -702,13 +1016,21 @@ def run(dev, card: str) -> dict:
         print(f"time delta {k} at {CHURN} step 1: {v['ms']:.4f} ms kernel, {v['plain_ms']:.4f} ms plain, "
               f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}), library {v['library_ms']}")
 
+    check_consolidation(dev, errs)
+    cons_runs = drive_proposers(dev)
+    cons_launches = {k: sum(c[k] for c in cons_runs.values()) for k in build.LAUNCHES}
+    proposers = time_proposers(dev)
+
     rows = time_headline(dev, launches, errs)
     rows.append(time_recredit(churn, delta_launches, errs))
+    rows += time_consolidation(dev, cons_launches, errs)
     for r in rows:
         print(f"time {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
+    print(f"K5 d: max |kernel - plain| {errs['globalpack']:.3g}, max |kernel - JAX| {errs['globalpack_vs_jax']:.3g}")
     return {"kernels": rows, "paths": {"full": launches, "full_affinity": aff_launches, "delta": delta_launches,
-                                       "dense": dense["launches"]}}
+                                       "dense": dense["launches"], "consolidation": cons_runs},
+            "proposers_ms": {k: v["ms"] for k, v in proposers.items()}}
 
 
 def main() -> int:

@@ -19,7 +19,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("feasibility.cu", "pack_scan.cu", "sparsify.cu", "recredit.cu")
+SOURCES = ("feasibility.cu", "pack_scan.cu", "sparsify.cu", "recredit.cu", "globalpack.cu", "score_subsets.cu",
+           "anneal.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # no --use_fast_math: the pack floors f32 quotients and needs IEEE division;
 # -fmad=false keeps a*b-c from contracting into an FMA (bit-parity)
@@ -27,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel launches per wrapper, counted where each wrapper launches its kernel
-LAUNCHES = {"feasibility": 0, "pack_scan": 0, "sparsify": 0, "recredit": 0}
+LAUNCHES = {"feasibility": 0, "pack_scan": 0, "sparsify": 0, "recredit": 0, "globalpack": 0, "score_subsets": 0,
+            "anneal": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -50,10 +52,11 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every source and header in `csrc/`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -111,6 +114,13 @@ def lib() -> ctypes.CDLL:
             handle.kt_sparsify.restype = ci
             handle.kt_recredit.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 4
             handle.kt_recredit.restype = ci
+            cf = ctypes.c_float
+            handle.kt_globalpack.argtypes = [vp] * 13 + [ci] * 6 + [cf] * 7 + [vp] * 13
+            handle.kt_globalpack.restype = ci
+            handle.kt_score_subsets.argtypes = [vp] * 12 + [ci] * 5 + [cf] * 2 + [vp] * 3
+            handle.kt_score_subsets.restype = ci
+            handle.kt_anneal.argtypes = [vp] * 11 + [ci] * 5 + [cf] + [vp] * 3
+            handle.kt_anneal.restype = ci
             _lib = handle
         return _lib
 

@@ -1,0 +1,426 @@
+"""Multi-node consolidation proposers on the device: from the consolidation
+encoder's output to the ranked delete-set proposals.
+
+Counterpart of the reference's `solver/consolidation.py` from the output of
+`_candidate_vectors` on. `ConsolidationProblem` holds that output (per-node
+price, cost, slack, used and pod count, the (label-set, class) compatibility
+table, the replacement rows and the pending-class mass);
+`tensors_from_problem` pads it into device tensors as `encode_candidates_lp`
+does. Three proposers mirror the reference step for step:
+
+* `propose_subsets_lp`: relaxed repack (kernel K5) from C random inits,
+  host rounding of the fractional deletions into delete-sets, the discrete
+  factored score of each (kernel K6), the ranked ladder.
+* `propose_subsets_global`: the same with the pending pods as extra classes,
+  the empty-set base row, eighths prefixes, and ranking by improvement over
+  the base.
+* `propose_subsets`: the annealed subset search (kernel K7) over the dense
+  compatibility matrix.
+
+Each takes either explicit inits (the reference's `jax.random` draws, for
+parity) or a `torch.Generator` that draws them. Every proposal is a
+candidate subset only: exact validation stays with the caller.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.consolidation_model import ConsolidationTensors, anneal, anneal_chains, lp_repack, score_subsets
+from ..models.globalpack import (
+    PENDING_WEIGHT,
+    draw_gp_inits,
+    global_repack,
+    rank_ladder,
+    score_subsets_global,
+)
+
+# LP solve shape: independent random inits x projected-gradient iterations
+LP_INITS = 8
+LP_ITERS = 300
+# fractional-deletion cutoffs the host rounds at, per init
+ROUND_THRESHOLDS = (0.9, 0.7, 0.5, 0.3)
+ANNEAL_CHAINS = 64
+ANNEAL_STEPS = 512
+
+
+@dataclass
+class ConsolidationProblem:
+    """The consolidation encoder's output (`_candidate_vectors`): N candidate
+    nodes, R resources, L label sets, Q classes, T replacement rows."""
+
+    node_price: np.ndarray  # [N] f32
+    node_cost: np.ndarray  # [N] f32
+    node_slack: np.ndarray  # [N, R] f32
+    node_used: np.ndarray  # [N, R] f32
+    node_npods: np.ndarray  # [N] f32
+    class_of_node: np.ndarray  # [N] i64
+    label_of_node: np.ndarray  # [N] i64
+    compat_lq: np.ndarray  # [L, Q] f32 0/1: label set l satisfies class q
+    rows_alloc: np.ndarray  # [T, R] f32
+    rows_price: np.ndarray  # [T] f32
+    pend_mass: np.ndarray  # [Q, R] f32 unconditional (pending) class mass
+    pend_active: np.ndarray  # [Q] f32 1 on pending classes
+    pend_req: np.ndarray  # [R] f32
+    n_classes: int
+    pend_npods: float
+
+    @property
+    def n(self) -> int:
+        return int(self.node_price.shape[0])
+
+    @classmethod
+    def from_reference(cls, v: dict) -> ConsolidationProblem:
+        """Copy the arrays of a `_candidate_vectors` dict."""
+        kw = {}
+        for f in fields(cls):
+            if f.name == "n_classes":
+                kw[f.name] = int(v[f.name])
+            elif f.name == "pend_npods":
+                kw[f.name] = float(v[f.name])
+            else:
+                kw[f.name] = np.array(v[f.name])
+        return cls(**kw)
+
+    def arrays(self) -> dict:
+        """The problem as a flat dict of numpy arrays (the npz layout)."""
+        out = {f.name: getattr(self, f.name) for f in fields(self)}
+        out["n_classes"] = np.int64(self.n_classes)
+        out["pend_npods"] = np.float64(self.pend_npods)
+        return out
+
+
+def save_npz(path, problem: ConsolidationProblem, **extra) -> None:
+    """Write the problem (and any extra named arrays) to a compressed npz."""
+    clash = set(extra) & set(problem.arrays())
+    if clash:
+        raise ValueError(f"extra arrays collide with problem fields: {sorted(clash)}")
+    np.savez_compressed(path, **problem.arrays(), **extra)
+
+
+def load_npz(path) -> tuple[ConsolidationProblem, dict]:
+    """Read a file written by `save_npz`: (problem, extra arrays)."""
+    with np.load(path, allow_pickle=False) as z:
+        data = {k: z[k] for k in z.files}
+    problem = ConsolidationProblem.from_reference({f.name: data.pop(f.name) for f in fields(ConsolidationProblem)})
+    return problem, data
+
+
+def reference_inits(problem: ConsolidationProblem, ref: dict):
+    """A fixture's stored reference inits at the padded shapes: (d0 [C, Np],
+    y0 [C, Qp, Np]). y0 is stored for the real classes and nodes only; the
+    projection masks the rest, so any fill does (0.5)."""
+    d0 = ref["ref_d0"]
+    y0 = np.full((d0.shape[0], bucket_small(problem.n_classes), bucket(problem.n)), 0.5, np.float32)
+    y0[:, :problem.n_classes, :problem.n] = ref["ref_y0"]
+    return d0, y0
+
+
+def reference_proposals(ref: dict) -> list[list[int]]:
+    """A fixture's stored proposal list (members flat, then one length per
+    proposal)."""
+    flat, out, at = ref["ref_proposals"].tolist(), [], 0
+    for k in ref["ref_proposal_lens"].tolist():
+        out.append(flat[at:at + k])
+        at += k
+    return out
+
+
+def bucket(n: int) -> int:
+    """Node and row axes: the next power of two, at least 16."""
+    b = 16
+    while b < n:
+        b *= 2
+    return b
+
+
+def bucket_small(n: int) -> int:
+    """Class axis: the next power of two, at least 4."""
+    b = 4
+    while b < n:
+        b *= 2
+    return b
+
+
+def tensors_from_problem(problem: ConsolidationProblem, device=None, dense_compat: bool = False):
+    """The padding half of the reference's `encode_candidates_lp`: (tensors,
+    aux) with aux = {onehot [Np, Qp], compat_qn [Qp, Np], compat_nq [Np, Qp],
+    n, n_classes, pend_mass [Qp, R], pend_weight [Qp], pend_active [Qp],
+    pend_req [R], pend_npods (a float)}. Pad nodes have price 0 and cost 1e6,
+    pad rows zero allocatable and price 3.4e38. The dense [Np, Np]
+    `pod_compat` (the anneal arm's) is built only with `dense_compat`."""
+    dev = resolve_device(device)
+    p = problem
+    N = p.n
+    Np = bucket(N)
+    pad = Np - N
+    node_price = np.pad(p.node_price, (0, pad))
+    node_cost = np.pad(p.node_cost, (0, pad), constant_values=1e6)
+    node_slack = np.pad(p.node_slack, ((0, pad), (0, 0)))
+    node_used = np.pad(p.node_used, ((0, pad), (0, 0)))
+    node_npods = np.pad(p.node_npods, (0, pad))
+    T = p.rows_alloc.shape[0]
+    Tp = bucket(T)
+    rows_alloc = np.pad(p.rows_alloc, ((0, Tp - T), (0, 0)))
+    rows_price = np.pad(p.rows_price, (0, Tp - T), constant_values=3.4e38)
+    if dense_compat:
+        compat = p.compat_lq[np.ix_(p.label_of_node, p.class_of_node)]  # [j host, i deleted]
+        np.fill_diagonal(compat, 0.0)  # a deleted node cannot host its own pods
+        compat = np.pad(compat, ((0, pad), (0, pad)))
+    else:
+        compat = np.zeros((1, 1), dtype=np.float32)
+    Q = p.n_classes
+    Qp = bucket_small(Q)
+    onehot = np.zeros((Np, Qp), dtype=np.float32)
+    onehot[np.arange(N), p.class_of_node] = 1.0
+    compat_nq = np.zeros((Np, Qp), dtype=np.float32)
+    compat_nq[:N, :Q] = p.compat_lq[p.label_of_node]
+    R = node_used.shape[1]
+    pend_mass = np.zeros((Qp, R), dtype=np.float32)
+    pend_mass[:Q] = p.pend_mass
+    pend_weight = np.ones(Qp, dtype=np.float32)
+    pend_weight[:Q] = np.where(p.pend_active > 0, np.float32(PENDING_WEIGHT), np.float32(1.0))
+    pend_active = np.zeros(Qp, dtype=np.float32)
+    pend_active[:Q] = p.pend_active
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    t = ConsolidationTensors(node_price=up(node_price), node_cost=up(node_cost), node_slack=up(node_slack),
+                             node_used=up(node_used), node_npods=up(node_npods), pod_compat=up(compat),
+                             row_alloc=up(rows_alloc), row_price=up(rows_price))
+    aux = dict(onehot=up(onehot), compat_qn=up(compat_nq.T), compat_nq=up(compat_nq), n=N, n_classes=Q,
+               pend_mass=up(pend_mass), pend_weight=up(pend_weight), pend_active=up(pend_active),
+               pend_req=up(p.pend_req), pend_npods=float(np.float32(p.pend_npods)))
+    return t, aux
+
+
+def deletion_orders(d: np.ndarray, n: int) -> list[np.ndarray]:
+    """Each init's deletion order: `np.argsort(-dc)` of its fractional
+    deletions with the pad columns zeroed (ties in argsort's own order)."""
+    N = d.shape[1]
+    return [np.argsort(-np.where(np.arange(N) < n, d[c], 0.0)) for c in range(d.shape[0])]
+
+
+def member_key(mask: np.ndarray, n: int) -> bytes | None:
+    """The real-candidate member set of a delete-set row as a hashable key
+    (None when it is empty)."""
+    real = mask[:n]
+    return np.packbits(real).tobytes() if real.any() else None
+
+
+def round_fractional(d: np.ndarray, n: int, orders: list[np.ndarray] | None = None) -> list[np.ndarray]:
+    """Fractional deletions [C, Np] -> deduped boolean delete-set rows:
+    threshold cuts plus top-k prefixes along each init's deletion order
+    (the reference's `_round_fractional`; the prefixes follow
+    `deletion_orders`, ties included). Pad columns stay False."""
+    N = d.shape[1]
+    orders = deletion_orders(d, n) if orders is None else orders
+    rows: list[np.ndarray] = []
+    seen: set[bytes] = set()
+
+    def add(mask: np.ndarray) -> None:
+        key = member_key(mask, n)
+        if key is not None and key not in seen:
+            seen.add(key)
+            m = np.zeros(N, dtype=bool)
+            m[:n] = mask[:n]
+            rows.append(m)
+
+    for c in range(d.shape[0]):
+        dc = np.where(np.arange(N) < n, d[c], 0.0)
+        for tau in ROUND_THRESHOLDS:
+            add(dc > tau)
+        for k in {2, max(2, n // 4), max(2, n // 2), n}:
+            m = np.zeros(N, dtype=bool)
+            m[orders[c][:k]] = True
+            add(m)
+    return rows
+
+
+class _Stages:
+    """Host-clock ms per stage, the device synchronised around each, into
+    `into` (a dict); a no-op when `into` is None."""
+
+    def __init__(self, into: dict | None, device: torch.device):
+        self.into, self.device = into, device
+
+    @contextmanager
+    def __call__(self, name: str):
+        if self.into is None:
+            yield
+            return
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.into[name] = self.into.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def _gp_inits(aux: dict, inits, generator, seed: int, device):
+    """Explicit (d0 [C, Np], y0 [C, Qp, Np]) moved to the device, or the
+    generator's draws (a fresh one seeded with `seed` when none is given)."""
+    if inits is not None:
+        d0, y0 = inits
+        return (torch.as_tensor(d0, dtype=torch.float32).to(device).contiguous(),
+                torch.as_tensor(y0, dtype=torch.float32).to(device).contiguous())
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    Np, Qp = aux["onehot"].shape
+    return draw_gp_inits(LP_INITS, Np, Qp, generator)
+
+
+def propose_subsets_lp(problem: ConsolidationProblem, device=None, *, inits=None, generator=None, seed: int = 0,
+                       max_proposals: int = 8, stages: dict | None = None):
+    """The relaxed-LP proposer: tensors, relaxed repack (K5), rounding, the
+    discrete score of each rounded row (K6), the ladder. Returns candidate
+    index subsets best-first, plus the full set when any proposal exists.
+    `stages` (a dict) receives synchronised host-clock ms per stage."""
+    dev = resolve_device(device)
+    n = problem.n
+    if n < 2:
+        return []
+    stage = _Stages(stages, dev)
+    with stage("tensors"):
+        t, aux = tensors_from_problem(problem, dev)
+        d0, y0 = _gp_inits(aux, inits, generator, seed, dev)
+    with stage("K5 globalpack"):
+        d, _scores = lp_repack(t, aux["onehot"], aux["compat_qn"], d0, y0, n_iters=LP_ITERS)
+        d = d.cpu().numpy()
+    return lp_ladder(t, aux, d, n, max_proposals, stage)[0]
+
+
+def lp_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, stage=None):
+    """The LP proposer from the fractional deletions d [C, Np] on: rounding,
+    the discrete scores (K6), the ladder. Returns (proposals, X, scores,
+    feasible); X is None when no row was rounded."""
+    stage = stage or _Stages(None, aux["onehot"].device)
+    with stage("round"):
+        rows = round_fractional(d, n)
+    if not rows:
+        return [], None, None, None
+    X = np.stack(rows)
+    with stage("K6 score_subsets"):
+        scores, feas = score_subsets(t, aux["onehot"], aux["compat_nq"], X)
+    with stage("ladder"):
+        ladder, _ = rank_ladder(scores, feas, X, n, max_proposals)
+        out = [s for s, _sc in ladder]
+        full = list(range(n))
+        if out and full not in out:
+            out.append(full)
+    return out, X, scores, feas
+
+
+def propose_subsets_global(problem: ConsolidationProblem, device=None, *, inits=None, generator=None, seed: int = 0,
+                           max_proposals: int = 8, stages: dict | None = None):
+    """The global repack proposer: the pending classes' mass is in the
+    problem, row 0 is the empty delete-set (the base), the prefixes are
+    densified to eighths, and rows rank by improvement over the base.
+    Returns (subsets best-first, info) with info = {objective_improvement,
+    rounded}."""
+    dev = resolve_device(device)
+    n = problem.n
+    if n < 2:
+        return [], dict(objective_improvement=0.0, rounded=0)
+    stage = _Stages(stages, dev)
+    with stage("tensors"):
+        t, aux = tensors_from_problem(problem, dev)
+        d0, y0 = _gp_inits(aux, inits, generator, seed, dev)
+    with stage("K5 globalpack"):
+        d, _scores = global_repack(t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0, y0,
+                                   n_iters=LP_ITERS)
+        d = d.cpu().numpy()
+    return global_ladder(t, aux, d, n, max_proposals, stage)[:2]
+
+
+def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, stage=None):
+    """The global proposer from d [C, Np] on: the empty-set base row, the
+    rounding densified to eighths, the discrete scores (K6), the ladder
+    ranked by improvement over the base. Returns (proposals, info, X,
+    scores, feasible)."""
+    stage = stage or _Stages(None, aux["onehot"].device)
+    info = dict(objective_improvement=0.0, rounded=0)
+    with stage("round"):
+        N = d.shape[1]
+        orders = deletion_orders(d, n)
+        rows = [np.zeros(N, dtype=bool)] + round_fractional(d, n, orders)  # row 0: the empty-set base
+        # the winner is often a mid-size prefix the quarter ladder skips
+        seen_rows = {member_key(r, n) for r in rows}
+        for c in range(d.shape[0]):
+            for k in sorted({max(2, (n * f) // 8) for f in range(1, 9)}):
+                mrow = np.zeros(N, dtype=bool)
+                mrow[orders[c][:k]] = True  # pad columns stay set, as in the reference
+                key = member_key(mrow, n)
+                if key is not None and key not in seen_rows:
+                    seen_rows.add(key)
+                    rows.append(mrow)
+        X = np.stack(rows)
+    with stage("K6 score_subsets"):
+        scores, feas = score_subsets_global(t, aux["onehot"], aux["compat_nq"], aux["pend_req"], aux["pend_npods"],
+                                            aux["pend_active"], X)
+    with stage("ladder"):
+        base = scores[0]
+        ladder, best = rank_ladder(scores, feas, X, n, max_proposals, floor=float(base), skip_rows=frozenset((0,)))
+        out = [s for s, _sc in ladder]
+        full = list(range(n))
+        if out and full not in out:
+            out.append(full)
+        if best > base:
+            # an infeasible (-BIG) base: report the winner's absolute score
+            info["objective_improvement"] = float(best - base) if base > -1e37 else float(best)
+        info["rounded"] = len(rows) - 1
+    return out, info, X, scores, feas
+
+
+def propose_subsets(problem: ConsolidationProblem, device=None, *, streams=None, generator=None, seed: int = 0,
+                    max_proposals: int = 8, stages: dict | None = None):
+    """The annealed subset search (K7) over the dense compatibility matrix:
+    64 chains x 512 flips from `streams` = (x0 [C, Np] bool, flips [C, S]
+    int32, u [C, S] f32) or the generator's draws. Returns subsets
+    best-first, plus the full set when any proposal exists."""
+    dev = resolve_device(device)
+    n = problem.n
+    if n < 2:
+        return []
+    stage = _Stages(stages, dev)
+    with stage("tensors"):
+        t, _aux = tensors_from_problem(problem, dev, dense_compat=True)
+        if streams is not None:
+            streams = [torch.as_tensor(a).to(dev).contiguous() for a in streams]
+        elif generator is None:
+            generator = torch.Generator(device=dev).manual_seed(seed)
+    with stage("K7 anneal"):
+        if streams is not None:
+            best_x, best_s = anneal_chains(t, *streams)
+        else:
+            best_x, best_s = anneal(t, generator, ANNEAL_CHAINS, ANNEAL_STEPS)
+        best_x = best_x.cpu().numpy()
+        best_s = best_s.cpu().numpy()
+    with stage("ladder"):
+        order = np.argsort(-best_s)
+        seen = set()
+        out: list[list[int]] = []
+        for idx in order:
+            if best_s[idx] <= 0:
+                continue
+            subset = tuple(i for i in np.nonzero(best_x[idx])[0].tolist() if i < n)
+            if not subset or subset in seen:
+                continue
+            seen.add(subset)
+            out.append(list(subset))
+            if len(out) >= max_proposals:
+                break
+        full = tuple(range(n))
+        if out and full not in seen:
+            out.append(list(full))
+    return out

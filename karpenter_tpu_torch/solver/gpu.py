@@ -128,6 +128,17 @@ class GPUSolver:
             return delta
         return self._solve_full(problem)
 
+    def global_repack_plan_encoded(self, problem, seed: int = 0):
+        """One global repack proposal pass on an encoded consolidation round
+        (`solver.consolidation.ConsolidationProblem`, pending pods as extra
+        classes): the counterpart of the reference's
+        `TPUSolver.global_repack_plan`, without its flight record. Returns
+        (subsets best-first, info); proposals only, exact validation is the
+        caller's."""
+        from .consolidation import propose_subsets_global
+
+        return propose_subsets_global(problem, self.device, seed=seed)
+
     def _reject(self, reason: str) -> None:
         self.last_delta_reject = reason
 

@@ -72,7 +72,8 @@ def test_gpusolver_on_card_matches_reference(cuda_device):
     problem, ref = load_npz(FIXTURE_DIR / "small_spread_anti_ports.npz")
     build.reset_launches()
     res = GPUSolver().solve_encoded(problem)
-    assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "sparsify": 1, "recredit": 0}
+    assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "sparsify": 1, "recredit": 0, "globalpack": 0,
+                              "score_subsets": 0, "anneal": 0}
     assert res.errors == []
     np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
 
@@ -139,3 +140,61 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
     assert all(v == 0 for v in build.LAUNCHES.values())
     with pytest.raises(ValueError):
         flat_outputs(takes.to("meta"), left, basis, zs, torch.tensor(1, dtype=torch.int32), 4)
+
+
+CONSOLIDATION = ("small_lp_6", "small_global_6_pending", "small_anneal_7", "lp_5000", "global_5000_hetero_pending",
+                 "anneal_256")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CONSOLIDATION)
+def test_consolidation_kernels_equal_plain_on_card(cuda_device, name):
+    """K5, K6 and K7 against their plain versions on the card, and against
+    the stored JAX outputs (tolerances of the CPU tests: K6 and K7 exact,
+    K5's d within 2e-6 of the reference)."""
+    from karpenter_tpu_torch.kernels.anneal import anneal, anneal_plain
+    from karpenter_tpu_torch.kernels.globalpack import globalpack, globalpack_plain
+    from karpenter_tpu_torch.kernels.score_subsets import score_subsets, score_subsets_plain
+    from karpenter_tpu_torch.solver.consolidation import reference_inits, tensors_from_problem
+    from test_torch_consolidation import load
+
+    problem, ref = load(name)
+    if str(ref["kind"]) == "anneal":
+        t, _aux = tensors_from_problem(problem, cuda_device, dense_compat=True)
+        streams = [torch.as_tensor(ref[k], device=cuda_device) for k in ("ref_x0", "ref_flips", "ref_u")]
+        got, want = anneal(t, *streams), anneal_plain(t, *streams)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0].cpu().numpy(), ref["ref_best_x"])
+        np.testing.assert_array_equal(got[1].cpu().numpy(), ref["ref_best_s"])
+        return
+    t, aux = tensors_from_problem(problem, cuda_device)
+    d0, y0 = (torch.as_tensor(a, device=cuda_device) for a in reference_inits(problem, ref))
+    args = (t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0, y0)
+    for n_iters, key in ((1, "ref_d_it1"), (5, "ref_d_it5"), (300, "ref_d")):
+        d, s = globalpack(*args, n_iters)
+        d_p, s_p = globalpack_plain(*args, n_iters)
+        torch.cuda.synchronize()
+        assert float((d - d_p).abs().max()) <= 2e-6, n_iters
+        np.testing.assert_allclose(d.cpu().numpy(), ref[key], rtol=0, atol=2e-6)
+    X = torch.as_tensor(ref["ref_X"], device=cuda_device)
+    pend = (aux["pend_req"], aux["pend_npods"], aux["pend_active"])
+    s, f = score_subsets(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    s_p, f_p = score_subsets_plain(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s_p) and torch.equal(f, f_p)
+    np.testing.assert_array_equal(s.cpu().numpy(), ref["ref_scores"])
+    np.testing.assert_array_equal(f.cpu().numpy(), ref["ref_feas"])
+
+
+@pytest.mark.gpu
+def test_lp_proposer_launches_k5_and_k6_once(cuda_device):
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.solver.consolidation import propose_subsets_lp, reference_inits, reference_proposals
+    from test_torch_consolidation import load
+
+    problem, ref = load("lp_5000")
+    build.reset_launches()
+    out = propose_subsets_lp(problem, inits=reference_inits(problem, ref))
+    assert build.LAUNCHES["globalpack"] == 1 and build.LAUNCHES["score_subsets"] == 1
+    assert out == reference_proposals(ref)
