@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It prints the card's name and power limit, builds the seven CUDA kernels
+It prints the card's name and power limit, builds the eight CUDA kernels
 from `karpenter_tpu_torch/kernels/csrc/`, and for every fixture in
 `karpenter_tpu_torch/fixtures/` holds each pack kernel against its plain
 PyTorch version on the card (`torch.equal`: integer, bool and identically
@@ -41,13 +41,22 @@ set to 0 just before each call and read just after: the LP and global
 proposers must launch K5 once and K6 once, the anneal proposer K7 once, and
 give the JAX proposals.
 
+Then the per-pod pack: for every fixture, K1 over the pods and K8
+perpod_pack against their plain versions on the card (the five outputs and
+the whole final carry), the five outputs against the stored JAX per-pod pack
+(`fixtures/perpod/`) and the `fast_validate` errors against the reference's
+own (the per-pod scan ignores host ports and required affinity, so those
+are not 0 everywhere). Its entry, `greedy_pack_encoded`, is driven on both
+headlines with the counts set to 0 just before and read just after: exactly
+one K1 and one K8 launch each.
+
 Last it times each kernel, its plain version and the library yardstick with
 CUDA events at the headline shape (K4 and the delta pack at the headline
 churn step; K5-K7 at the 5000-node shapes, K7 also at the 5000-node fleet's
-Np = 8192 with the dense compatibility matrix), the full solve, the delta
-solve beside a full solve of the same problem, and the LP and global
-proposers at 5000 nodes, with stage breakdowns (host clock, device
-synchronised).
+Np = 8192 with the dense compatibility matrix; K8 and K1 over the 5000
+pods at the headline), the full solve, the delta solve beside a full solve
+of the same problem, the LP and global proposers at 5000 nodes and the
+per-pod pack, with stage breakdowns (host clock, device synchronised).
 
 Output: a `kernels` JSON line, the card line, then as the last line
 `{"ok": true, "device": {...}}`. Any mismatch or exception exits non-zero.
@@ -86,10 +95,11 @@ REPLACES = {
     "globalpack": "karpenter_tpu/models/globalpack.py:97",
     "score_subsets": "karpenter_tpu/models/globalpack.py:212",
     "anneal": "karpenter_tpu/models/consolidation_model.py:103",
+    "perpod_pack": "karpenter_tpu/models/scheduler_model.py:508",
 }
 SOURCES = {"feasibility": "feasibility.cu", "pack_scan": "pack_scan.cu", "sparsify": "sparsify.cu",
            "recredit": "recredit.cu", "globalpack": "globalpack.cu", "score_subsets": "score_subsets.cu",
-           "anneal": "anneal.cu"}
+           "anneal": "anneal.cu", "perpod_pack": "perpod_pack.cu"}
 CONS = FIXTURES / "consolidation"
 CONS_LP, CONS_GLOBAL, CONS_PENDING, CONS_ANNEAL = ("lp_5000", "global_5000_hetero", "global_5000_hetero_pending",
                                                    "anneal_256")
@@ -942,6 +952,180 @@ def time_proposers(dev, runs: int = 5) -> dict:
     return out
 
 
+# -- the per-pod pack (K1 over the pods, K8 perpod_pack) -------------------------------
+
+PERPOD_OUTPUTS = ("assignment", "slot_basis", "slot_domset", "slot_rank", "open_count")
+
+
+def perpod_fixture(name: str):
+    """A fixture's problem and its stored JAX per-pod outputs and errors."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver.encoded import load_npz
+
+    problem, _ref = load_npz(FIXTURES / f"{name}.npz")
+    with np.load(FIXTURES / "perpod" / f"{name}.npz", allow_pickle=False) as z:
+        ref = {k: z[k] for k in z.files}
+    expect(str(ref["problem"]) == f"{name}.npz" and int(ref["n_pods"]) == problem.n_pods,
+           f"{name}: per-pod fixture is not keyed to this problem")
+    return problem, ref
+
+
+def perpod_load(name: str, dev):
+    """`perpod_fixture` and the problem's tensors on `dev` (the reference's
+    default slot axis)."""
+    from karpenter_tpu_torch.models.scheduler_model import make_pod_tensors, make_tensors, reset_bucket_highwater
+
+    problem, ref = perpod_fixture(name)
+    reset_bucket_highwater()
+    t = make_tensors(problem, dev)
+    expect(t.n_slots == int(ref["ref_n_slots"]), f"{name}: per-pod slot axis {t.n_slots} != reference")
+    return problem, ref, t, make_pod_tensors(problem, dev, t)
+
+
+def expect_perpod(problem, ref, out, what: str) -> list:
+    """The five outputs against the stored JAX ones, and the validation
+    errors against the reference's; returns the errors."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver.check import fast_validate
+
+    for k, a in zip(PERPOD_OUTPUTS, out):
+        expect(np.array_equal(a.cpu().numpy(), ref[f"ref_{k}"]), f"{what}: {k} differs from the JAX reference")
+    errors = fast_validate(problem, *(x.cpu().numpy() for x in out[:3]))
+    expect(errors == list(ref["ref_errors"]), f"{what}: validation errors {errors} != the reference's")
+    return errors
+
+
+def check_perpod(name: str, dev, errs: dict) -> dict:
+    """K1 over the pods and K8 against their plain versions on the card,
+    and both against the stored JAX per-pod pack."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, compat_and_key_plain
+    from karpenter_tpu_torch.kernels.perpod_pack import perpod_pack, perpod_pack_plain
+
+    problem, ref, t, pods = perpod_load(name, dev)
+    args = (t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+    compat, key = compat_and_key(*args)
+    compat_p, key_p = compat_and_key_plain(*args)
+    torch.cuda.synchronize()
+    expect(torch.equal(compat, compat_p) and torch.equal(key, key_p), f"{name}: K1 over the pods differs from plain")
+    out = perpod_pack(t, pods, compat, key)
+    out_p = perpod_pack_plain(t, pods, compat_p, key_p)
+    torch.cuda.synchronize()
+    leaves = PERPOD_OUTPUTS + ("slot_rem", "counts_dom", "counts_host")
+    for leaf, a, b in zip(leaves, out, out_p):
+        expect(torch.equal(a, b), f"{name}: K8 {leaf} differs from plain")
+    errors = expect_perpod(problem, ref, out, f"{name} K8")
+    errs["feasibility"] = max(errs["feasibility"], max_abs((compat, compat_p), (key, key_p)))
+    errs["perpod_pack"] = max(errs["perpod_pack"], max_abs(*zip(out, out_p)))
+    return dict(P=problem.n_pods, N=t.n_slots, placed=int((out[0] >= 0).sum()), open=int(out[4]), errors=len(errors))
+
+
+def drive_perpod(name: str, dev) -> dict:
+    """The per-pod entry, `greedy_pack_encoded`, with every count set to 0
+    just before and read just after: one K1 and one K8 launch."""
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import greedy_pack_encoded, reset_bucket_highwater
+
+    problem, ref = perpod_fixture(name)
+    reset_bucket_highwater()
+    build.reset_launches()
+    out = greedy_pack_encoded(problem, dev)
+    counts = dict(build.LAUNCHES)
+    expect({k: v for k, v in counts.items() if v} == {"feasibility": 1, "perpod_pack": 1},
+           f"{name}: greedy_pack launches {counts}")
+    errors = expect_perpod(problem, ref, out, f"{name} greedy_pack")
+    print(f"main path greedy_pack_encoded {name}: {int((out[0] >= 0).sum())} of {problem.n_pods} placed, "
+          f"{int(out[4])} open, {len(errors)} validation errors == reference, launches {counts}")
+    return counts
+
+
+def k8_cost(t, pods, compat, key, out) -> tuple[int, int]:
+    """K8: the row, group and pod inputs and K1's outputs read once, the
+    initial carry read once, the outputs and final carry written once.
+    Operations counted from this run's placement: per pod, (R + 6) per slot
+    its first-fit search reaches (up to the slot it took, else every open
+    slot), (R + 6) per row for the argmin, and G * D for the skew checks."""
+    import numpy as np
+
+    P, R = pods.pod_req.shape
+    Nrows = t.row_alloc.shape[0]
+    G, D = t.counts_dom_init.shape
+    a = out[0].cpu().numpy().astype(np.int64)
+    first = np.zeros(P, np.int64)
+    _slots, at = np.unique(a[a >= t.n_existing], return_index=True)
+    first[np.nonzero(a >= t.n_existing)[0][at]] = 1  # the pod that opened each new slot
+    open_before = t.n_existing + np.cumsum(first) - first
+    reached = np.where((a >= 0) & (a < open_before), a + 1, open_before)
+    n_in = nbytes(t.row_alloc, t.row_pool_rank, t.rank_domset, t.dom_key_of, t.group_kind, t.group_skew,
+                  t.group_dom_key, t.group_min_domains, t.group_registered, pods.pod_req, pods.pod_dom_allowed,
+                  pods.pod_restrict, pods.member, pods.owner, compat, key)
+    carry = nbytes(*out[1:])
+    ops = int(reached.sum()) * (R + 6) + P * (Nrows * (R + 6) + G * D)
+    return n_in + 2 * carry + nbytes(out[0]), ops
+
+
+def time_perpod(dev, runs: int = 5) -> dict:
+    """At the headline: K8 and K1 over the pods, and their plain versions,
+    with CUDA events; the entry `greedy_pack_encoded` on the host clock
+    (synchronised), whole and stage by stage."""
+    import types
+
+    import torch
+
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, compat_and_key_plain
+    from karpenter_tpu_torch.kernels.perpod_pack import perpod_pack, perpod_pack_plain
+    from karpenter_tpu_torch.models.scheduler_model import (
+        greedy_pack_encoded,
+        make_pod_tensors,
+        make_tensors,
+        reset_bucket_highwater,
+    )
+
+    problem, _ref, t, pods = perpod_load(HEADLINE, dev)
+    args = (t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+    compat, key = compat_and_key(*args)
+    out = perpod_pack(t, pods, compat, key)
+    torch.cuda.synchronize()
+    as_items = types.SimpleNamespace(item_req=pods.pod_req, item_mask=pods.pod_mask, item_taint_ok=pods.pod_taint_ok)
+    b1, o1 = k1_cost(t, as_items, compat, key)
+    bound1, by1 = bound_of(b1, o1)
+    k1 = dict(pods_ms=cuda_ms(lambda: compat_and_key(*args), 20),
+              pods_plain_ms=cuda_ms(lambda: compat_and_key_plain(*args), 5), pods_bound_ms=bound1, pods_bound_by=by1)
+    b8, o8 = k8_cost(t, pods, compat, key, out)
+    k8 = dict(name="perpod_pack", ms=cuda_ms(lambda: perpod_pack(t, pods, compat, key), 3),
+              plain_ms=cuda_ms(lambda: perpod_pack_plain(t, pods, compat, key), 1, rounds=2), library_ms=None,
+              bytes=b8, ops=o8)
+    wall, stages = [], {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(runs + 1):
+        reset_bucket_highwater()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy_pack_encoded(problem, dev)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        reset_bucket_highwater()
+        ts = stage("make_tensors", lambda: make_tensors(problem, dev))
+        ps = stage("make_pod_tensors", lambda: make_pod_tensors(problem, dev, ts))
+        c, k = stage("K1 over the pods", lambda: compat_and_key(ts, ps.pod_mask, ps.pod_taint_ok, ps.pod_req))
+        stage("K8 perpod_pack", lambda: perpod_pack(ts, ps, c, k))
+    print(f"K8 at {HEADLINE}: P={pods.pod_req.shape[0]} pods, N={t.n_slots} slots, Nrows={t.row_alloc.shape[0]}, "
+          f"R={t.row_alloc.shape[1]}, G={t.counts_dom_init.shape[0]}, D={t.counts_dom_init.shape[1]}")
+    return dict(feasibility_pods=k1, perpod_pack=k8, entry_ms=statistics.median(wall[1:]), entry_runs=wall,
+                entry_stages={k: statistics.median(v[1:]) for k, v in stages.items()})
+
+
 def run(dev, card: str) -> dict:
     """Every check and timing on `dev`; returns the `kernels` line."""
     import torch
@@ -954,7 +1138,7 @@ def run(dev, card: str) -> dict:
     names = sorted(p.stem for p in FIXTURES.glob("*.npz"))
     expect(HEADLINE in names and HEADLINE_AFF in names, "headline fixtures missing")
     errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0, "globalpack": 0.0,
-            "score_subsets": 0.0, "anneal": 0.0}
+            "score_subsets": 0.0, "anneal": 0.0, "perpod_pack": 0.0}
     for name in names:
         t1 = time.perf_counter()
         info = check_kernels(name, dev)
@@ -1021,16 +1205,33 @@ def run(dev, card: str) -> dict:
     cons_launches = {k: sum(c[k] for c in cons_runs.values()) for k in build.LAUNCHES}
     proposers = time_proposers(dev)
 
+    for name in names:
+        t1 = time.perf_counter()
+        info = check_perpod(name, dev, errs)
+        print(f"per-pod kernels == plain == JAX reference: {name} P={info['P']} N={info['N']} placed {info['placed']} "
+              f"open {info['open']}, {info['errors']} validation errors == reference "
+              f"({time.perf_counter() - t1:.1f} s)")
+    perpod_runs = {name: drive_perpod(name, dev) for name in (HEADLINE, HEADLINE_AFF)}
+    perpod = time_perpod(dev)
+
     rows = time_headline(dev, launches, errs)
+    rows[0].update(perpod["feasibility_pods"])
     rows.append(time_recredit(churn, delta_launches, errs))
     rows += time_consolidation(dev, cons_launches, errs)
+    rows.append(kernel_row(perpod["perpod_pack"], perpod_runs[HEADLINE], errs))
     for r in rows:
         print(f"time {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
     print(f"K5 d: max |kernel - plain| {errs['globalpack']:.3g}, max |kernel - JAX| {errs['globalpack_vs_jax']:.3g}")
+    k1p = perpod["feasibility_pods"]
+    print(f"time feasibility over the {HEADLINE} pods: {k1p['pods_ms']:.4f} ms kernel, {k1p['pods_plain_ms']:.4f} ms "
+          f"plain, bound {k1p['pods_bound_ms']:.5f} ms ({k1p['pods_bound_by']})")
+    print(f"greedy_pack_encoded {HEADLINE}: median of 5 warm calls {perpod['entry_ms']:.3f} ms "
+          f"(runs ms: {[round(x, 3) for x in perpod['entry_runs']]}); stages ms (median of 5, synchronised): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in perpod["entry_stages"].items()))
     return {"kernels": rows, "paths": {"full": launches, "full_affinity": aff_launches, "delta": delta_launches,
-                                       "dense": dense["launches"], "consolidation": cons_runs},
-            "proposers_ms": {k: v["ms"] for k, v in proposers.items()}}
+                                       "dense": dense["launches"], "consolidation": cons_runs, "perpod": perpod_runs},
+            "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"]}
 
 
 def main() -> int:

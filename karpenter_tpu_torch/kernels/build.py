@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("feasibility.cu", "pack_scan.cu", "sparsify.cu", "recredit.cu", "globalpack.cu", "score_subsets.cu",
-           "anneal.cu")
+           "anneal.cu", "perpod_pack.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # no --use_fast_math: the pack floors f32 quotients and needs IEEE division;
 # -fmad=false keeps a*b-c from contracting into an FMA (bit-parity)
@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 # kernel launches per wrapper, counted where each wrapper launches its kernel
 LAUNCHES = {"feasibility": 0, "pack_scan": 0, "sparsify": 0, "recredit": 0, "globalpack": 0, "score_subsets": 0,
-            "anneal": 0}
+            "anneal": 0, "perpod_pack": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -121,6 +121,10 @@ def lib() -> ctypes.CDLL:
             handle.kt_score_subsets.restype = ci
             handle.kt_anneal.argtypes = [vp] * 11 + [ci] * 5 + [cf] + [vp] * 3
             handle.kt_anneal.restype = ci
+            handle.kt_perpod_pack.argtypes = [vp, vp, vp]
+            handle.kt_perpod_pack.restype = ci
+            handle.kt_perpod_pack_limits.argtypes = [vp]
+            handle.kt_perpod_pack_limits.restype = ci
             _lib = handle
         return _lib
 

@@ -1,8 +1,10 @@
-"""K1 feasibility: item x row compatibility and row preference key.
+"""K1 feasibility: requirement compatibility and the new-slot row key of a
+batch of items or pods against every row.
 
-`feasibility` launches `csrc/feasibility.cu` for CUDA tensors and runs
-`feasibility_plain` (the reference's compat_matrix + row_choose_key in
-PyTorch) for CPU tensors."""
+`compat_and_key` launches `csrc/feasibility.cu` for CUDA tensors and runs
+`compat_and_key_plain` (the reference's compat_matrix + row_choose_key in
+PyTorch) for CPU tensors. The grouped pack calls it on its items
+(`feasibility`), the per-pod pack on its pods."""
 
 from __future__ import annotations
 
@@ -12,43 +14,56 @@ from ..models.scheduler_model import SchedulerTensors, compat_matrix, row_choose
 from . import build
 
 
-def feasibility_plain(t: SchedulerTensors, items):
-    """([W, Nrows] bool compat, [W, Nrows] f32 key)."""
-    compat = compat_matrix(t.row_labels, t.row_taint_class, items.item_mask, items.item_taint_ok, t.dom_keys)
-    key = row_choose_key(t.row_alloc, t.row_pool_rank, items.item_req)
-    return compat, key
+def compat_and_key_plain(t: SchedulerTensors, masks, taints_ok, req):
+    """([B, Nrows] bool compat, [B, Nrows] f32 key) of B requirement masks
+    [B, K, Words], tolerations [B, C] and requests [B, R]."""
+    compat = compat_matrix(t.row_labels, t.row_taint_class, masks, taints_ok, t.dom_keys)
+    return compat, row_choose_key(t.row_alloc, t.row_pool_rank, req)
 
 
-def feasibility(t: SchedulerTensors, items):
-    dev = items.item_req.device
+def compat_and_key(t: SchedulerTensors, masks, taints_ok, req):
+    """K1 on CUDA tensors (one launch for the whole batch), the plain
+    version on CPU tensors."""
+    dev = req.device
     if dev.type == "cpu":
-        return feasibility_plain(t, items)
+        return compat_and_key_plain(t, masks, taints_ok, req)
     if dev.type != "cuda":
         raise ValueError(f"feasibility: unsupported device {dev}")
-    W, K, Words = items.item_mask.shape
+    B, K, Words = masks.shape
     Nrows, R = t.row_alloc.shape
-    C = items.item_taint_ok.shape[1]
-    if t.row_labels.shape != (Nrows, K) or items.item_req.shape != (W, R):
-        raise ValueError("feasibility: item and row axes disagree")
+    C = taints_ok.shape[1]
+    if t.row_labels.shape != (Nrows, K) or req.shape != (B, R) or taints_ok.shape[0] != B:
+        raise ValueError("feasibility: batch and row axes disagree")
+    compat = torch.empty((B, Nrows), dtype=torch.bool, device=dev)
+    key = torch.empty((B, Nrows), dtype=torch.float32, device=dev)
+    if B == 0:
+        return compat, key
     args = [
         build.require(t.row_labels, dev, torch.int32, "row_labels"),
         build.require(t.row_taint_class, dev, torch.int32, "row_taint_class"),
         build.require(t.row_alloc, dev, torch.float32, "row_alloc"),
         build.require(t.row_pool_rank, dev, torch.int32, "row_pool_rank"),
-        build.require(items.item_mask, dev, torch.int32, "item_mask"),
-        build.require(items.item_taint_ok, dev, torch.bool, "item_taint_ok"),
-        build.require(items.item_req, dev, torch.float32, "item_req"),
+        build.require(masks, dev, torch.int32, "masks"),
+        build.require(taints_ok, dev, torch.bool, "taints_ok"),
+        build.require(req, dev, torch.float32, "req"),
     ]
     forced = torch.zeros(K, dtype=torch.bool)
     for kk in t.dom_keys:
         if 0 <= kk < K:
             forced[kk] = True
     forced = forced.to(dev)
-    compat = torch.empty((W, Nrows), dtype=torch.bool, device=dev)
-    key = torch.empty((W, Nrows), dtype=torch.float32, device=dev)
     lib = build.lib()
-    rc = lib.kt_feasibility(*[a.data_ptr() for a in args], forced.data_ptr(), W, Nrows, K, Words, C, R,
+    rc = lib.kt_feasibility(*[a.data_ptr() for a in args], forced.data_ptr(), B, Nrows, K, Words, C, R,
                             compat.data_ptr(), key.data_ptr(), build.stream_ptr(dev))
     build.check(rc, "feasibility")
     build.LAUNCHES["feasibility"] += 1
     return compat, key
+
+
+def feasibility_plain(t: SchedulerTensors, items):
+    """([W, Nrows] bool compat, [W, Nrows] f32 key) of the pack's items."""
+    return compat_and_key_plain(t, items.item_mask, items.item_taint_ok, items.item_req)
+
+
+def feasibility(t: SchedulerTensors, items):
+    return compat_and_key(t, items.item_mask, items.item_taint_ok, items.item_req)

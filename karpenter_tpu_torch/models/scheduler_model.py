@@ -1,9 +1,14 @@
-"""Device tensors of the scheduler and the per-step helper functions.
+"""Device tensors of the scheduler, the per-step helper functions and the
+per-pod pack.
 
-Counterpart of the reference's `models/scheduler_model.py` on the grouped
-pack's path: the shape-bucket ladder (with this package's own high-water
-marks), `make_tensors` without the per-pod tensors, and the plain versions
-of `compat_matrix`, `row_choose_key`, `spread_ok_of` and `perkey_dom_ok`.
+Counterpart of the reference's `models/scheduler_model.py`: the shape-bucket
+ladder (with this package's own high-water marks), `make_tensors` (without
+the per-pod tensors, so the grouped pack uploads nothing P-sized) and
+`make_pod_tensors` (the per-pod half, for the per-pod pack), the plain
+versions of `compat_matrix`, `row_choose_key`, `group_feasibility`,
+`spread_ok_of` and `perkey_dom_ok`, and the per-pod FFD scan:
+`greedy_pack_plain` (the reference's `_greedy_pack_impl` step for step) and
+`greedy_pack` (K1 over the pods, then K8 `perpod_pack`).
 
 Slot state carried by the pack (see `scheduler_model_grouped`):
   slot_basis[N]     basis row id backing the capacity envelope (-1 = closed)
@@ -23,8 +28,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.bitset import test_bit
-from ..solver.encoded import KIND_DOM_ANTI
+from ..device import resolve_device
+from ..ops.bitset import as_int32_words, test_bit
+from ..ops.select import first_true_index, masked_argmin
+from ..solver.encoded import KIND_DOM_ANTI, KIND_DOM_SPREAD, KIND_HOST_ANTI, KIND_HOST_SPREAD
 
 NEG = -3.4e38  # closed-slot / pad-row allocatable (f32)
 INF_I = 2**30
@@ -260,6 +267,48 @@ def make_tensors(p, device, n_slots: int | None = None) -> SchedulerTensors:
     )
 
 
+@dataclass
+class PodTensors:
+    """Per-pod inputs of the per-pod pack, in FFD queue order: each pod's
+    signature arrays, padded to the buckets of the SchedulerTensors they go
+    with (pad resources request 0, pad mask words allow nothing, pad keys
+    allow all, pad taint classes are tolerated, pad groups hold nobody)."""
+
+    pod_req: torch.Tensor  # [P, R] f32
+    pod_mask: torch.Tensor  # [P, K, Words] i32 words
+    pod_taint_ok: torch.Tensor  # [P, C] bool
+    pod_dom_allowed: torch.Tensor  # [P, D] bool
+    pod_restrict: torch.Tensor  # [P, Kd] bool
+    member: torch.Tensor  # [P, G] bool
+    owner: torch.Tensor  # [P, G] bool
+
+
+def make_pod_tensors(p, device, t: SchedulerTensors) -> PodTensors:
+    """EncodedProblem -> PodTensors on `device`, padded like `t` (the
+    `with_pods` half of the reference's make_tensors)."""
+    P = p.n_pods
+    sig = np.asarray(p.sig_of_pod, dtype=np.int64)
+    R_p = t.row_alloc.shape[1]
+    K_p = t.row_labels.shape[1]
+    G_p = t.group_kind.shape[0]
+    W_p = bucket_hw("words", p.sig_mask.shape[2], WORDS_BUCKET)
+    C_p = bucket_hw("taints", p.sig_taint_ok.shape[1], TAINT_BUCKET)
+    groups = p.n_groups > 0
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    return PodTensors(
+        pod_req=dev(_pad_axis(p.sig_req[sig], 1, R_p), torch.float32),
+        pod_mask=dev(as_int32_words(pad_mask_axes(p.sig_mask[sig], K_p, W_p)), torch.int32),
+        pod_taint_ok=dev(_pad_axis(p.sig_taint_ok[sig], 1, C_p, fill=True), torch.bool),
+        pod_dom_allowed=dev(p.sig_dom_allowed[sig], torch.bool),
+        pod_restrict=dev(p.sig_restrict[sig], torch.bool),
+        member=dev(_pad_axis(p.sig_member[sig] if groups else np.zeros((P, 1), bool), 1, G_p, fill=False), torch.bool),
+        owner=dev(_pad_axis(p.sig_owner[sig] if groups else np.zeros((P, 1), bool), 1, G_p, fill=False), torch.bool),
+    )
+
+
 def compat_matrix(row_labels, row_taint_class, masks, taints_ok, dom_keys: tuple) -> torch.Tensor:
     """Plain requirement-mask x row compatibility: [B, Nrows] bool. `masks`
     are [B, K, Words] int32 words; dom-key columns are forced true (the slot
@@ -285,6 +334,16 @@ def row_choose_key(row_alloc, row_pool_rank, req) -> torch.Tensor:
     return rank - torch.clamp_max(score, 1e8)
 
 
+def group_feasibility(t: SchedulerTensors, mem):
+    """Keyed-domain membership of pods `mem` [..., G]: (dom_member_mask
+    [..., G], is_dom_member [...], kmask [..., D]) — the groups that
+    constrain the pod, whether any do, and the domains of its constrained
+    key (the highest dom key among its groups)."""
+    dom_member_mask = mem & ((t.group_kind == KIND_DOM_SPREAD) | (t.group_kind == KIND_DOM_ANTI))
+    k_star = torch.where(dom_member_mask, t.group_dom_key, -1).amax(dim=-1)
+    return dom_member_mask, dom_member_mask.any(dim=-1), t.dom_key_of == k_star.unsqueeze(-1)
+
+
 def spread_ok_of(t: SchedulerTensors, za, dom_member_mask, counts_dom) -> torch.Tensor:
     """[D] bool from the current counts: every member group's skew check
     (anti: the domain is empty) passes over its registered universe."""
@@ -308,3 +367,130 @@ def perkey_dom_ok(domsets, za, restrict, dom_key_of) -> torch.Tensor:
     inter = domsets & za
     perkey = (inter.unsqueeze(-2) & key_onehot).any(dim=-1)  # [..., Kd]
     return (perkey | ~restrict).all(dim=-1)
+
+
+# -- the per-pod pack ----------------------------------------------------------
+
+
+def greedy_pack_plain(t: SchedulerTensors, pods: PodTensors, compat, key):
+    """Plain PyTorch version of the per-pod FFD scan (the reference's
+    `_greedy_pack_impl`, its `step` pod by pod). compat [P, Nrows] and key
+    [P, Nrows] are K1's outputs over the pods. Each pod goes to the first
+    open slot that fits it, else opens a slot on the best fitting row.
+    Returns the reference's five outputs (assignment [P] i32, slot_basis
+    [N], slot_domset [N, D], slot_rank [N], open_count i32) and then the
+    rest of the final carry (slot_rem [N, R], counts_dom [G, D],
+    counts_host [G, N]).
+
+    Like the reference it ignores host ports, required pod affinity and
+    `sig_host_blocked`. Terms that depend on the pod and the groups only
+    are computed for all pods before the scan; a pod that nothing fits
+    leaves the state as it was (every increment of the reference is 0
+    there)."""
+    from .scheduler_model_grouped import initial_state
+
+    dev = t.device
+    P = pods.pod_req.shape[0]
+    N = t.n_slots
+    Nrows = t.row_alloc.shape[0]
+    D = t.counts_dom_init.shape[1]
+    Q = t.rank_domset.shape[0]
+    slot_basis, slot_rem, slot_domset, slot_rank, counts_dom, counts_host = initial_state(t, N)[:6]
+    open_count = t.n_existing
+    assignment = torch.full((P,), -1, dtype=torch.int32, device=dev)
+
+    kind, dko = t.group_kind, t.dom_key_of
+    dom_member, is_dom_member, kmask = group_feasibility(t, pods.member)
+    spread_member = pods.member & (kind == KIND_DOM_SPREAD)
+    has_spread = spread_member.any(dim=1)
+    anti_member = pods.member & (kind == KIND_DOM_ANTI)
+    host_member = (pods.member & ((kind == KIND_HOST_SPREAD) | (kind == KIND_HOST_ANTI))).to(torch.int32)
+    rows = torch.arange(Nrows, device=dev)
+    row_ok = compat & ((rows >= t.n_existing) & (rows < t.n_rows_real)).unsqueeze(0)
+    row_ok &= (pods.pod_req.unsqueeze(1) <= t.row_alloc.unsqueeze(0)).all(dim=2)
+    rank_of_row = torch.clamp(t.row_pool_rank, 0, Q - 1).to(torch.int64)
+    doms = torch.arange(D, device=dev)
+    # host facts of each pod, on the host: (is_dom_member, has_spread,
+    # owned hostname-spread groups, owned hostname-anti groups)
+    own_hs = (pods.owner & (kind == KIND_HOST_SPREAD)).cpu()
+    own_ha = (pods.owner & (kind == KIND_HOST_ANTI)).cpu()
+    flags = torch.stack([is_dom_member, has_spread], dim=1).cpu().tolist()
+
+    for i in range(P):
+        req, za, restrict = pods.pod_req[i], pods.pod_dom_allowed[i], pods.pod_restrict[i]
+        dm, spread = flags[i]
+        dom_feasible = za & spread_ok_of(t, za, dom_member[i], counts_dom) if dm else za
+
+        # open slots: the first that fits
+        fits = (slot_basis >= 0) & (req <= slot_rem).all(dim=1)
+        fits &= compat[i][torch.clamp(slot_basis, 0, Nrows - 1).to(torch.int64)]
+        fits &= perkey_dom_ok(slot_domset, za, restrict, dko)
+        if dm:
+            fits &= (slot_domset & dom_feasible).any(dim=1)
+        for g in own_hs[i].nonzero().flatten().tolist():
+            fits &= (counts_host[g] + 1) <= t.group_skew[g]
+        for g in own_ha[i].nonzero().flatten().tolist():
+            fits &= counts_host[g] == 0
+        j_slot = int(first_true_index(fits))
+
+        # a new slot: the fitting offering row with the lowest key
+        o_new = -1
+        if open_count < N:
+            rank_ok = perkey_dom_ok(t.rank_domset, za, restrict, dko)
+            if dm:
+                rank_ok &= (t.rank_domset & dom_feasible).any(dim=1)
+            o_new = int(masked_argmin(key[i], row_ok[i] & rank_ok[rank_of_row]))
+
+        use_slot = j_slot >= 0
+        j = j_slot if use_slot else (open_count if o_new >= 0 else -1)
+        if j < 0:
+            continue
+        safe_o = min(max(o_new, 0), Nrows - 1)
+
+        # domain commitment: spread members commit to the least-counted
+        # feasible domain of their key (ties, and no feasible one, to 0)
+        cur = slot_domset[j] if use_slot else t.rank_domset[int(rank_of_row[safe_o])]
+        cur = cur & torch.where(kmask[i] & dm, dom_feasible, za)
+        per_dom = torch.where(dom_member[i].unsqueeze(1), counts_dom, 0).sum(dim=0).to(torch.int32)
+        z_star = int(torch.argmin(torch.where(cur & kmask[i], per_dom, INF_I)))
+        new_domset = torch.where(kmask[i], doms == z_star, cur) & cur if dm and spread else cur
+
+        slot_basis[j] = slot_basis[j] if use_slot else o_new
+        slot_rem[j] = (slot_rem[j] if use_slot else t.row_alloc[safe_o]) - req
+        slot_domset[j] = new_domset
+        if not use_slot:
+            slot_rank[j] = t.row_pool_rank[safe_o]
+            open_count += 1
+        if dm:
+            counts_dom[:, z_star] += spread_member[i].to(torch.int32)
+        counts_dom += (anti_member[i].unsqueeze(1) & (new_domset & kmask[i]).unsqueeze(0)).to(torch.int32)
+        counts_host[:, j] += host_member[i]
+        assignment[i] = j
+
+    open_t = torch.tensor(open_count, dtype=torch.int32, device=dev)
+    return assignment, slot_basis, slot_domset, slot_rank, open_t, slot_rem, counts_dom, counts_host
+
+
+def greedy_pack(t: SchedulerTensors, pods: PodTensors):
+    """The per-pod pack: K1 over the pods (compatibility and row key), then
+    K8, each through its kernel wrapper (the kernel on CUDA tensors, the
+    plain version on CPU tensors). Returns (assignment [P] -> slot or -1,
+    slot_basis [N], slot_domset [N, D], slot_rank [N], open_count).
+
+    Like the reference's legacy per-pod entry it does not enforce host
+    ports, required pod affinity or inverse anti-affinity blocks; the
+    grouped pack is the production path."""
+    from ..kernels.feasibility import compat_and_key
+    from ..kernels.perpod_pack import perpod_pack
+
+    compat, key = compat_and_key(t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+    return perpod_pack(t, pods, compat, key)[:5]
+
+
+def greedy_pack_encoded(p, device=None):
+    """`greedy_pack` of an EncodedProblem on `device` (CUDA unless the
+    caller names the CPU), on the reference's default slot axis:
+    n_existing + P, bucketed. Returns its five outputs."""
+    dev = resolve_device(device)
+    t = make_tensors(p, dev)
+    return greedy_pack(t, make_pod_tensors(p, dev, t))

@@ -73,7 +73,7 @@ def test_gpusolver_on_card_matches_reference(cuda_device):
     build.reset_launches()
     res = GPUSolver().solve_encoded(problem)
     assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "sparsify": 1, "recredit": 0, "globalpack": 0,
-                              "score_subsets": 0, "anneal": 0}
+                              "score_subsets": 0, "anneal": 0, "perpod_pack": 0}
     assert res.errors == []
     np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
 
@@ -198,3 +198,34 @@ def test_lp_proposer_launches_k5_and_k6_once(cuda_device):
     out = propose_subsets_lp(problem, inits=reference_inits(problem, ref))
     assert build.LAUNCHES["globalpack"] == 1 and build.LAUNCHES["score_subsets"] == 1
     assert out == reference_proposals(ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SMALL + ("small_min_domains_hostname", "headline_aff_5000x100"))
+def test_perpod_kernels_equal_plain_on_card(cuda_device, name):
+    """K1 over the pods and K8 against their plain versions on the card (the
+    five outputs and the whole carry), the outputs against the stored JAX
+    per-pod pack, and one launch of each per `greedy_pack` call."""
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, compat_and_key_plain
+    from karpenter_tpu_torch.kernels.perpod_pack import perpod_pack, perpod_pack_plain
+
+    problem, _ref = load_npz(FIXTURE_DIR / f"{name}.npz")
+    with np.load(FIXTURE_DIR / "perpod" / f"{name}.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    t = tsm.make_tensors(problem, cuda_device)
+    pods = tsm.make_pod_tensors(problem, cuda_device, t)
+    args = (t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+    compat, key = compat_and_key(*args)
+    compat_p, key_p = compat_and_key_plain(*args)
+    assert torch.equal(compat, compat_p) and torch.equal(key, key_p)
+    got = perpod_pack(t, pods, compat, key)
+    plain = perpod_pack_plain(t, pods, compat_p, key_p)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    for k, a in zip(("assignment", "slot_basis", "slot_domset", "slot_rank", "open_count"), got):
+        np.testing.assert_array_equal(a.cpu().numpy(), ref[f"ref_{k}"], err_msg=k)
+    build.reset_launches()
+    tsm.greedy_pack(t, pods)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {"feasibility": 1, "perpod_pack": 1}
