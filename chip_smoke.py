@@ -25,7 +25,9 @@ carry, with 0 validation errors, and launch exactly the kernels the
 reference's step ran (K4 where it re-credited, K1-K3 where it packed a
 delta). Each recredit (K4) and delta pack (K1 -> K2 -> K3) the path made is
 then repeated on its recorded inputs and held against its plain version and
-the stored JAX carry.
+the stored JAX carry; K4 also on synthetic recredits (`recredit_cases`:
+many removals on one slot, padding over a -0.0, K = 1500 and 12000), bit
+for bit.
 
 Then the consolidation proposers: for every fixture in
 `fixtures/consolidation/`, K5 globalpack (after 1, 5 and 300 Adam steps
@@ -56,7 +58,12 @@ churn step; K5-K7 at the 5000-node shapes, K7 also at the 5000-node fleet's
 Np = 8192 with the dense compatibility matrix; K8 and K1 over the 5000
 pods at the headline), the full solve, the delta solve beside a full solve
 of the same problem, the LP and global proposers at 5000 nodes and the
-per-pod pack, with stage breakdowns (host clock, device synchronised).
+per-pod pack, with stage breakdowns (host clock, device synchronised). K2
+is also timed per `place()` call at both headlines, the churn step and
+the existing fleets of 1200 and 3800 nodes (open slots past its
+shared-memory tile); K4
+and `index_add_` also from a replayed CUDA graph, which leaves out the
+host's time to issue each call.
 
 Output: a `kernels` JSON line, the card line, then as the last line
 `{"ok": true, "device": {...}}`. Any mismatch or exception exits non-zero.
@@ -81,6 +88,8 @@ FIXTURES = ROOT / "karpenter_tpu_torch" / "fixtures"
 HEADLINE = "headline_5000x100"
 HEADLINE_AFF = "headline_aff_5000x100"
 CHURN = "churn_headline_5000x100"  # the headline churn chain; step 1 is timed
+FLEET = "existing_fleet_1200"  # 1200 existing nodes: an active slot range past K2's shared-memory tile
+FLEET_BIG = "existing_fleet_3800"  # 3800 existing nodes: ~3800 open slots of N = 4608
 STATE_LEAVES = ("slot_basis", "slot_rem", "slot_zoneset", "slot_rank", "counts_zone", "counts_host", "open_count",
                 "port_any", "port_wild", "port_spec")
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
@@ -142,6 +151,32 @@ def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def graph_ms(fn, reps: int, rounds: int = 5) -> float:
+    """Device time of one call: `reps` calls captured in a CUDA graph after
+    a warm-up call, the graph replayed `rounds` times between CUDA events;
+    the median per call. Unlike `cuda_ms` it leaves out the host's time to
+    issue each call, which bounds a launch of a few microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end) / reps)
@@ -316,10 +351,26 @@ def time_pack(t, items, nnz_cap: int, init_state=None) -> tuple[list, dict]:
 
 
 def time_headline(dev, launches: dict, errs: dict) -> list:
-    """The `kernels` rows of K1-K3 at the headline shape."""
+    """The `kernels` rows of K1-K3 at the headline shape; K2's also holds its
+    time per `place()` call and its kernel time at the affinity headline and
+    at the two existing fleets (1200 and 3800 open slots, past the
+    shared-memory tile)."""
+    from karpenter_tpu_torch.kernels.feasibility import feasibility
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan
+
     problem, ref, t, items, nnz_cap = prepare(HEADLINE, dev)
     rows, cost = time_pack(t, items, nnz_cap)
-    return [kernel_row(r | dict(bytes=cost[r["name"]][0], ops=cost[r["name"]][1]), launches, errs) for r in rows]
+    out = [kernel_row(r | dict(bytes=cost[r["name"]][0], ops=cost[r["name"]][1]), launches, errs) for r in rows]
+    k2 = out[1]
+    k2["place_calls"] = place_calls(t, items)
+    k2["us_per_place"] = k2["ms"] * 1e3 / k2["place_calls"]
+    for name, key in ((HEADLINE_AFF, "aff"), (FLEET, "fleet"), (FLEET_BIG, "fleet_big")):
+        _p, _r, tx, ix, _n = prepare(name, dev)
+        cx, kx = feasibility(tx, ix)
+        k2[f"{key}_ms"] = cuda_ms(lambda: pack_scan(tx, ix, cx, kx, n_slots=tx.n_slots), 3)
+        k2[f"{key}_place_calls"] = place_calls(tx, ix)
+        k2[f"{key}_us_per_place"] = k2[f"{key}_ms"] * 1e3 / k2[f"{key}_place_calls"]
+    return out
 
 
 def bound_of(n_bytes: float, ops: float) -> tuple[float, str]:
@@ -583,6 +634,75 @@ def check_chain(run: dict, dev, errs: dict) -> None:
             errs["sparsify"] = max(errs["sparsify"], max_abs((flat, flat_p)))
 
 
+def recredit_cases(dev, seed: int = 0):
+    """Synthetic recredits beside the chains' (N = 4096, R = 4, G = 16,
+    D = 5, inputs from a seeded numpy generator): 300 removals of which 240
+    on one slot, interleaved with padding (the fold order decides the
+    rounding); padding entries over a -0.0 in slot 0's capacity (it must
+    come back +0.0); 1500 removals, six of K4's 256-removal tiles; 12000
+    removals, more than a shared-memory copy of them would hold. Yields
+    (name, state, t, slot_idx, req, zmem, hmem)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N, R, G, D = 4096, 4, 16, 5
+    for name, K in (("one_slot_many", 300), ("padding_neg_zero", 64), ("wide", 1500), ("k_12000", 12000)):
+        rem = (rng.integers(0, 1 << 20, (N, R)) * rng.choice([1e-3, 0.1, 7.0], (N, R))).astype(np.float32)
+        slot = rng.integers(0, N, K).astype(np.int32)
+        if name == "one_slot_many":
+            slot[rng.permutation(K)[:240]] = 7
+        if name == "padding_neg_zero":
+            rem[0] = -0.0
+            slot[slot == 0] = 1
+        slot[rng.random(K) < 0.15] = -1
+        slot[0] = -1
+        req = (rng.random((K, R)) * rng.choice([1e-3, 1.0, 1e3], (K, R))).astype(np.float32)
+        ports = tuple(torch.as_tensor(rng.random((N, p)) < 0.1, device=dev) for p in (3, 3, 2))
+        state = (torch.as_tensor(rng.integers(-1, 128, N).astype(np.int32), device=dev), torch.as_tensor(rem, device=dev),
+                 torch.as_tensor(rng.random((N, D)) < 0.5, device=dev),
+                 torch.as_tensor(rng.integers(-1, 4, N).astype(np.int32), device=dev),
+                 torch.as_tensor(rng.integers(0, 1000, (G, D)).astype(np.int32), device=dev),
+                 torch.as_tensor(rng.integers(0, 50, (G, N)).astype(np.int32), device=dev),
+                 torch.tensor(N // 2, dtype=torch.int32, device=dev), ports)
+        t = types.SimpleNamespace(group_dom_key=torch.as_tensor(rng.integers(-1, 3, G).astype(np.int32), device=dev),
+                                  dom_key_of=torch.as_tensor(rng.integers(0, 3, D).astype(np.int32), device=dev))
+        zmem = torch.as_tensor(rng.random((K, G)) < 0.2, device=dev)
+        hmem = torch.as_tensor(rng.random((K, G)) < 0.2, device=dev)
+        yield name, state, t, torch.as_tensor(slot, device=dev), torch.as_tensor(req, device=dev), zmem, hmem
+
+
+def same_carry(a, b) -> bool:
+    """Every leaf equal, f32 leaves bit for bit (so -0.0 != +0.0)."""
+    import torch
+
+    for x, y in zip(list(a[:7]) + list(a[7]), list(b[:7]) + list(b[7])):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def check_recredit_cases(dev, errs: dict) -> None:
+    """K4 against recredit_plain on `recredit_cases`."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.recredit import recredit, recredit_plain
+
+    for name, *args in recredit_cases(dev):
+        got, plain = recredit(*args), recredit_plain(*args)
+        torch.cuda.synchronize()
+        expect(same_carry(got, plain), f"K4 differs from plain on the synthetic case {name}")
+        if name == "padding_neg_zero":
+            expect(bool((got[1][0].view(torch.int32) == 0).all()), "K4 left a -0.0 in slot 0")
+        errs["recredit"] = max(errs["recredit"], max_abs(*zip(list(got[:7]) + list(got[7]),
+                                                               list(plain[:7]) + list(plain[7]))))
+        print(f"K4 == plain (bit for bit): synthetic {name}, K={args[2].shape[0]}")
+
+
 def time_recredit(run: dict, launches: dict, errs: dict) -> dict:
     """K4, its plain version and `index_add_` (the one PyTorch call for its
     capacity scatter; atomics, not bit-stable, a yardstick only) with CUDA
@@ -609,8 +729,12 @@ def time_recredit(run: dict, launches: dict, errs: dict) -> dict:
         plain_ms=cuda_ms(lambda: recredit_plain(state, t, slot_idx, req, zmem, hmem), 3),
         library_ms=cuda_ms(lambda: scratch.index_add_(0, j, upd), 50), bytes=k4_bytes, ops=k4_ops,
     )
-    print(f"recredit at {CHURN} step 1: K={K} padded removals ({n_valid} real), N={state[1].shape[0]}, R={R}, G={G}")
-    return kernel_row(row, launches, errs)
+    graph = dict(graph_ms=graph_ms(lambda: recredit(state, t, slot_idx, req, zmem, hmem), 50),
+                 library_graph_ms=graph_ms(lambda: scratch.index_add_(0, j, upd), 50))
+    print(f"recredit at {CHURN} step 1: K={K} padded removals ({n_valid} real), N={state[1].shape[0]}, R={R}, G={G}; "
+          f"eager (host-issued, CUDA events) {row['ms']:.4f} ms vs index_add_ {row['library_ms']:.4f} ms; "
+          f"graph-replayed (device only) {graph['graph_ms']:.4f} ms vs index_add_ {graph['library_graph_ms']:.4f} ms")
+    return kernel_row(row, launches, errs) | graph
 
 
 def time_delta(run: dict, dev, runs: int = 5) -> dict:
@@ -666,7 +790,8 @@ def time_delta(run: dict, dev, runs: int = 5) -> dict:
 
     return dict(delta_ms=statistics.median(delta_ms[1:]), full_ms=statistics.median(full_ms[1:]),
                 delta_runs=delta_ms, full_runs=full_ms, delta_stages=med(delta_stages),
-                full_stages=med(full_stages), delta_kernels_ms=kernels, W=int(items.item_req.shape[0]),
+                full_stages=med(full_stages), delta_kernels_ms=kernels, delta_place_calls=place_calls(t, items),
+                W=int(items.item_req.shape[0]),
                 n_added=int(n_added), n_pods=step.n_pods)
 
 
@@ -1164,6 +1289,7 @@ def run(dev, card: str) -> dict:
         modes = [(s["mode"], s["reject"]) for s in runs[name]["steps"]]
         print(f"delta path {name}: modes {modes}, launches per step {[s['counts'] for s in runs[name]['steps']]} "
               f"== reference; K4 and delta K1-K3 == plain == JAX ({time.perf_counter() - t1:.1f} s)")
+    check_recredit_cases(dev, errs)
     churn = runs[CHURN]
     delta_launches = churn["totals"]
     expect(all(s["mode"] == "delta" for s in churn["steps"][1:]), "the churn chain left the delta path")
@@ -1199,6 +1325,9 @@ def run(dev, card: str) -> dict:
     for k, v in delta["delta_kernels_ms"].items():
         print(f"time delta {k} at {CHURN} step 1: {v['ms']:.4f} ms kernel, {v['plain_ms']:.4f} ms plain, "
               f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}), library {v['library_ms']}")
+    delta_k2 = delta["delta_kernels_ms"]["pack_scan"]
+    delta_k2["place_calls"] = delta["delta_place_calls"]
+    delta_k2["us_per_place"] = delta_k2["ms"] * 1e3 / delta_k2["place_calls"]
 
     check_consolidation(dev, errs)
     cons_runs = drive_proposers(dev)
@@ -1216,6 +1345,14 @@ def run(dev, card: str) -> dict:
 
     rows = time_headline(dev, launches, errs)
     rows[0].update(perpod["feasibility_pods"])
+    k2 = rows[1]
+    k2.update(delta_ms=delta_k2["ms"], delta_place_calls=delta_k2["place_calls"], delta_us_per_place=delta_k2["us_per_place"])
+    print(f"K2 per place() call: {HEADLINE} {k2['us_per_place']:.2f} us ({k2['place_calls']} calls, {k2['ms']:.4f} ms), "
+          f"{HEADLINE_AFF} {k2['aff_us_per_place']:.2f} us ({k2['aff_place_calls']} calls, {k2['aff_ms']:.4f} ms), "
+          f"{CHURN} step 1 {k2['delta_us_per_place']:.2f} us ({k2['delta_place_calls']} calls, {k2['delta_ms']:.4f} ms), "
+          f"{FLEET} {k2['fleet_us_per_place']:.2f} us ({k2['fleet_place_calls']} calls, {k2['fleet_ms']:.4f} ms), "
+          f"{FLEET_BIG} {k2['fleet_big_us_per_place']:.2f} us ({k2['fleet_big_place_calls']} calls, "
+          f"{k2['fleet_big_ms']:.4f} ms)")
     rows.append(time_recredit(churn, delta_launches, errs))
     rows += time_consolidation(dev, cons_launches, errs)
     rows.append(kernel_row(perpod["perpod_pack"], perpod_runs[HEADLINE], errs))

@@ -110,6 +110,8 @@ def lib() -> ctypes.CDLL:
             handle.kt_pack_scan.restype = ci
             handle.kt_pack_scan_limits.argtypes = [vp]
             handle.kt_pack_scan_limits.restype = ci
+            handle.kt_pack_scan_scratch.argtypes = [vp]
+            handle.kt_pack_scan_scratch.restype = ctypes.c_longlong
             handle.kt_sparsify.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 3
             handle.kt_sparsify.restype = ci
             handle.kt_recredit.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 4

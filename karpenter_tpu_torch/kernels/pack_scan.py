@@ -1,10 +1,13 @@
-"""K2 pack_scan: the grouped pack scan as one persistent CUDA block.
+"""K2 pack_scan: the grouped pack scan in one persistent CUDA block, with
+helper blocks of the same launch that first build the items' data.
 
 `pack_scan` launches `csrc/pack_scan.cu` for CUDA tensors and runs the plain
 `_pack_body` for CPU tensors. The carry is copied from `init_state` (or
 built by `initial_state`) into fresh buffers that the kernel updates in
 place; they are returned as the final carry, in `initial_state`'s layout,
-so a later pack can start from them."""
+so a later pack can start from them. The kernel touches only the open slots
+(`[0, open_count)` and those it opens): the slots past them come back as
+they went in."""
 
 from __future__ import annotations
 
@@ -57,9 +60,10 @@ def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
                                               counts_host, open_count.reshape(1), *ports)]
     if carry[0].shape != (N,) or carry[1].shape != (N, R) or carry[5].shape != (G, N):
         raise ValueError("pack_scan: carry does not match n_slots")
+    d_arr = (ctypes.c_int * 13)(W, N, Nrows, R, D, G, Q, Kd, P1, P2, HB, int(t.n_existing), int(t.n_rows_real))
     takes = torch.zeros((W, N), dtype=torch.int32, device=dev)
     leftovers = torch.zeros(W, dtype=torch.int32, device=dev)
-    scratch = torch.empty(5 * N + 5 * Nrows, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(build.lib().kt_pack_scan_scratch(ctypes.addressof(d_arr)), dtype=torch.int32, device=dev)
     b, f, i = torch.bool, torch.float32, torch.int32
     inputs = [
         (t.row_alloc, f), (t.row_pool_rank, i), (t.rank_domset, b), (t.rank_dom_cap, f), (t.dom_key_of, i),
@@ -74,7 +78,6 @@ def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
     ptrs += [build.require(x, dev, dt, f"carry {k}").data_ptr() for k, (x, dt) in enumerate(zip(carry, carry_types))]
     ptrs += [takes.data_ptr(), leftovers.data_ptr(), scratch.data_ptr()]
     p_arr = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    d_arr = (ctypes.c_int * 13)(W, N, Nrows, R, D, G, Q, Kd, P1, P2, HB, int(t.n_existing), int(t.n_rows_real))
     rc = build.lib().kt_pack_scan(ctypes.addressof(p_arr), ctypes.addressof(d_arr), build.stream_ptr(dev))
     build.check(rc, "pack_scan")
     build.LAUNCHES["pack_scan"] += 1

@@ -124,6 +124,68 @@ def test_recredit_kernel_equals_plain_on_card(cuda_device, name):
     assert checked
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_slot_many", "padding_neg_zero", "wide", "k_12000"])
+def test_recredit_kernel_synthetic_on_card(cuda_device, case):
+    """K4 against recredit_plain, bit for bit, on the synthetic recredits of
+    `chip_smoke.recredit_cases`: many removals folded into one slot, padding
+    over a -0.0 in slot 0 (it comes back +0.0), K = 1500 and K = 12000
+    removals."""
+    import chip_smoke
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.recredit import recredit, recredit_plain
+
+    _name, *args = next(c for c in chip_smoke.recredit_cases(cuda_device) if c[0] == case)
+    build.reset_launches()
+    got = recredit(*args)
+    plain = recredit_plain(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["recredit"] == 1
+    assert chip_smoke.same_carry(got, plain)
+    if case == "padding_neg_zero":
+        assert bool((got[1][0].view(torch.int32) == 0).all())
+
+
+@pytest.mark.gpu
+def test_pack_scan_on_fleet_past_the_tile(cuda_device):
+    """K2 on `existing_fleet_1200`: 1200 open slots from the first item, past
+    one 1024-slot chunk and the kernel's shared-memory tile; equal to the
+    plain pack and to the stored JAX outputs, one pass and continued from a
+    carry."""
+    from dataclasses import fields
+
+    from karpenter_tpu_torch.kernels.feasibility import feasibility
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_plain
+    from karpenter_tpu_torch.kernels.sparsify import flat_outputs
+    from karpenter_tpu_torch.models import scheduler_model_grouped as tsg
+    from test_torch_fixtures import STATE_LEAVES
+
+    problem, ref = load_npz(FIXTURE_DIR / "existing_fleet_1200.npz")
+    arrays, _pods = tsg.build_items(problem)
+    items = tsg.make_item_tensors(arrays, cuda_device)
+    t = tsm.make_tensors(problem, cuda_device, n_slots=int(ref["ref_n_slots"]))
+    assert t.n_existing > 1024
+    compat, key = feasibility(t, items)
+    takes, left, state = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+    takes_p, left_p, state_p = pack_scan_plain(t, items, n_slots=t.n_slots, precomputed=(compat, key))
+    assert torch.equal(takes, takes_p) and torch.equal(left, left_p)
+    leaves = list(state[:7]) + list(state[7])
+    for leaf, a, b in zip(STATE_LEAVES, leaves, list(state_p[:7]) + list(state_p[7])):
+        assert torch.equal(a, b), leaf
+        assert torch.equal(a.cpu(), torch.as_tensor(ref[f"ref_state_{leaf}"]).reshape(a.shape)), leaf
+    assert bool(takes[:, 1024:].any())
+    flat = flat_outputs(takes, left, state[0], state[2], state[6], int(ref["ref_nnz_cap"]))
+    np.testing.assert_array_equal(flat.cpu().numpy(), ref["ref_flat"])
+    cut = items.item_req.shape[0] // 2
+    part = [tsg.ItemTensors(**{f.name: getattr(items, f.name)[lo:hi] for f in fields(tsg.ItemTensors)})
+            for lo, hi in ((0, cut), (cut, items.item_req.shape[0]))]
+    t1, l1, s1 = pack_scan(t, part[0], compat[:cut], key[:cut], n_slots=t.n_slots)
+    t2, l2, s2 = pack_scan(t, part[1], compat[cut:], key[cut:], n_slots=t.n_slots, init_state=s1)
+    assert torch.equal(torch.cat([t1, t2]), takes) and torch.equal(torch.cat([l1, l2]), left)
+    for a, b in zip(list(s2[:7]) + list(s2[7]), leaves):
+        assert torch.equal(a, b)
+
+
 def test_wrappers_take_plain_version_only_for_cpu_tensors():
     """On CPU tensors every wrapper runs its plain version; an unsupported
     device raises instead of falling back."""

@@ -172,6 +172,27 @@ def _min_domains_hostname():
     return make_snapshot(pods)
 
 
+def _existing_fleet(n_nodes: int):
+    """A fleet of `n_nodes` existing 4-cpu nodes over the three zones and 300
+    pending pods: plain pods of five sizes, zone-spread and hostname-spread
+    replicas, host-ported pods, pods pinned by hostname to nodes past the
+    first 1024, and pods too large for any existing node (fresh slots open
+    past the fleet). Every existing node is an open slot from the start, so
+    the pack's active slot range exceeds 1024 slots from its first item."""
+    from test_domain_topology import spread
+
+    zones = ("test-zone-a", "test-zone-b", "test-zone-c")
+    nodes = tuple((f"n{k:04d}", zones[k % 3]) for k in range(n_nodes))
+    store, clock, cluster, np_ = _existing_cluster(nodes=nodes, node_cpu="4")
+    pending = [make_pod(cpu=c, memory="1Gi") for c in ("250m", "1", "2", "3", "500m") * 30]
+    pending += [make_pod(cpu="1", labels={"app": "web"}, tsc=[zone_spread(1, _sel(app="web"))]) for _ in range(80)]
+    pending += [make_pod(cpu="500m", labels={"app": "hs"}, tsc=[spread(HOST, 1, _sel(app="hs"))]) for _ in range(30)]
+    pending += [_ported(make_pod(cpu="250m")) for _ in range(20)]
+    pending += [make_pod(cpu="1", node_selector={HOST: f"n{k:04d}"}) for k in range(1030, 1200, 17)]
+    pending += [make_pod(cpu="6", memory="2Gi") for _ in range(10)]
+    return _snapshot(store, clock, cluster, np_, pending)
+
+
 def _headline(affinity_frac=0.0):
     def build():
         import bench
@@ -188,6 +209,8 @@ CORPUS = {
     "small_existing_ports_inverse": _existing_ports_inverse,
     "small_existing_affinity": _existing_affinity,
     "small_min_domains_hostname": _min_domains_hostname,
+    "existing_fleet_1200": lambda: _existing_fleet(1200),
+    "existing_fleet_3800": lambda: _existing_fleet(3800),
     "headline_5000x100": _headline(),
     "headline_aff_5000x100": _headline(0.1),
 }
