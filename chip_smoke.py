@@ -43,6 +43,17 @@ set to 0 just before each call and read just after: the LP and global
 proposers must launch K5 once and K6 once, the anneal proposer K7 once, and
 give the JAX proposals.
 
+Then the axis caps (`check_caps`): the problems of `fixtures/caps/`, past
+every axis limit the kernels once had (G = 264 groups; R = 20 resources,
+D = 121 domain values, Q = 36 ranks, Kd = 40 keys, 40 host ports; R = 20
+with Qp = 128 classes), and a synthetic round at Np = 32768 whose K5 and K7
+state is past their shared-memory budget: K1, K2 (a full pack and the same
+items again from its carry) and K8 bit for bit against their plain
+versions and the stored JAX outputs; K5 within D_TOL of its plain version;
+K6 and K7 bit for bit against theirs (and JAX's, on the fixtures). The LP
+proposer is also driven on `lp_300_near_tie`, whose JAX d has two real
+nodes 3.6e-7 apart at a prefix boundary, and must give the JAX proposals.
+
 Then the per-pod pack: for every fixture, K1 over the pods and K8
 perpod_pack against their plain versions on the card (the five outputs and
 the whole final carry), the five outputs against the stored JAX per-pod pack
@@ -112,6 +123,8 @@ SOURCES = {"feasibility": "feasibility.cu", "pack_scan": "pack_scan.cu", "sparsi
 CONS = FIXTURES / "consolidation"
 CONS_LP, CONS_GLOBAL, CONS_PENDING, CONS_ANNEAL = ("lp_5000", "global_5000_hetero", "global_5000_hetero_pending",
                                                    "anneal_256")
+# two real nodes of its JAX d 3.6e-7 apart at a prefix boundary (tests/test_torch_consolidation.py)
+CONS_NEAR_TIE = "lp_300_near_tie"
 # K5 against its plain version and the reference: d within D_TOL; the
 # objective within these (relative after 1 and 5 steps; after the full
 # ascent, a share of the fleet's total node price). tests/test_torch_globalpack.py
@@ -907,7 +920,7 @@ def drive_proposers(dev) -> dict:
     from karpenter_tpu_torch.solver.gpu import GPUSolver
 
     runs = {}
-    for name in (CONS_LP, CONS_GLOBAL, CONS_PENDING):
+    for name in (CONS_LP, CONS_GLOBAL, CONS_PENDING, CONS_NEAR_TIE):
         problem, ref = cons_load(name)
         inits = reference_inits(problem, ref)
         build.reset_launches()
@@ -1075,6 +1088,235 @@ def time_proposers(dev, runs: int = 5) -> dict:
               f"(runs ms: {[round(x, 3) for x in wall]}); stages ms (median, synchronised): "
               + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
     return out
+
+
+# -- problems past the kernels' former axis limits --------------------------------------
+
+CAPS = FIXTURES / "caps"
+CAPS_PACKS = ("caps_groups", "caps_wide")
+
+
+def synthetic_round(n: int = 100, n_classes: int = 70, n_rows: int = 24, R: int = 20, seed: int = 6) -> dict:
+    """A consolidation round in the consolidation encoder's layout
+    (`ConsolidationProblem.from_reference`): n nodes of `n_classes` classes,
+    R resources, 8 label sets, `n_rows` replacement rows, drawn from `seed`.
+    The defaults are `fixtures/caps/caps_lp.npz`'s round
+    (tests/test_torch_axis_caps.py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    L = 8
+    f32 = np.float32
+    used = (rng.integers(0, 4, (n, R)) * rng.random((n, R))).astype(f32)
+    slack = (rng.integers(0, 3, (n, R)) * rng.random((n, R))).astype(f32)
+    compat_lq = (rng.random((L, n_classes)) < 0.6).astype(f32)
+    compat_lq[:, 0] = 1.0
+    alloc = (rng.integers(1, 9, (n_rows, R)) * rng.random((n_rows, R)) + 0.5).astype(f32)
+    return dict(
+        node_price=rng.uniform(0.1, 2.0, n).astype(f32),
+        node_cost=rng.uniform(0.0, 1.0, n).astype(f32),
+        node_slack=slack,
+        node_used=used,
+        node_npods=rng.integers(1, 6, n).astype(f32),
+        class_of_node=(np.arange(n) % n_classes).astype(np.int64),
+        label_of_node=rng.integers(0, L, n).astype(np.int64),
+        compat_lq=compat_lq,
+        rows_alloc=alloc,
+        rows_price=rng.uniform(0.2, 3.0, n_rows).astype(f32),
+        n_classes=n_classes,
+        pend_mass=np.zeros((n_classes, R), dtype=f32),
+        pend_active=np.zeros(n_classes, dtype=f32),
+        pend_req=np.zeros(R, dtype=f32),
+        pend_npods=0.0,
+    )
+
+
+def k5_widened(t, aux, d0, y0, n_iters: int) -> dict:
+    """K5's arguments widened to shapes its other builds take: R + 1 (a
+    resource that is half the first) and twice the classes (each class split
+    in two by node parity). At `lp_5000` (Np = 8192) the first takes the
+    build with Q and R read at run time and everything in shared memory,
+    the second (Qp = 8) the one whose Adam moments are in the global
+    scratch."""
+    import dataclasses
+
+    import torch
+
+    def widen(x):
+        return torch.cat([x, x[:, :1] * 0.5], 1).contiguous()
+
+    def two(x):
+        return torch.cat([x, x], 0).contiguous()
+
+    t5 = dataclasses.replace(t, node_slack=widen(t.node_slack), node_used=widen(t.node_used),
+                             row_alloc=widen(t.row_alloc))
+    onehot, compat, mass, weight = aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"]
+    odd = (torch.arange(onehot.shape[0], device=onehot.device) % 2 == 1).unsqueeze(1)
+    onehot2 = torch.cat([onehot * ~odd, onehot * odd], 1).contiguous()
+    R, Q = t.node_used.shape[1], onehot.shape[1]
+    return {
+        f"R={R + 1}": (t5, onehot, compat, widen(mass), weight, d0, y0, n_iters),
+        f"Qp={2 * Q}": (t, onehot2, two(compat), two(mass), two(weight), d0, torch.cat([y0, y0], 1).contiguous(),
+                        n_iters),
+    }
+
+
+def check_caps(dev, errs: dict) -> dict:
+    """Every kernel whose axes were capped, on problems past the caps, held
+    to its plain version on the card: K2 (a full pack, then the same items
+    again from its carry: the delta path's entry) and K8 on `caps_groups`
+    (G = 264) and `caps_wide` (R = 20, D = 121, Q = 36, Kd = 40, 40 host
+    ports), both also against the stored JAX outputs; K5 (after 1, 5 and 300
+    steps), K6 and K7 on `caps_lp` / `caps_anneal` (R = 20, Qp = 128), K6
+    and K7 also against JAX; K5 on `lp_5000` widened to R = 5 and to Qp = 8
+    (`k5_widened`: its builds other than the common shape's); then K5 (1 and 300 steps), K6 and K7 at Np = 32768 with
+    R = 20 and Qp = 128, where K5's and K7's blocks' state is past their shared-memory
+    budget (K5's arena and K7's per-chain state; K7 with the dense 4.3 GB
+    compatibility matrix). Returns the shapes checked."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.kernels.anneal import anneal, anneal_plain
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, feasibility, feasibility_plain
+    from karpenter_tpu_torch.kernels.globalpack import globalpack, globalpack_plain
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_plain
+    from karpenter_tpu_torch.kernels.perpod_pack import perpod_pack, perpod_pack_plain
+    from karpenter_tpu_torch.kernels.score_subsets import score_subsets, score_subsets_plain
+    from karpenter_tpu_torch.models.scheduler_model import make_pod_tensors, make_tensors, reset_bucket_highwater
+    from karpenter_tpu_torch.models.scheduler_model_grouped import _flat_outputs, build_items, make_item_tensors
+    from karpenter_tpu_torch.solver import consolidation as tcons
+    from karpenter_tpu_torch.solver.encoded import load_npz
+
+    shapes = {}
+    for name in CAPS_PACKS:
+        t1 = time.perf_counter()
+        problem, ref = load_npz(CAPS / f"{name}.npz")
+        reset_bucket_highwater()
+        arrays, _pods = build_items(problem)
+        items = make_item_tensors(arrays, dev)
+        t = make_tensors(problem, dev, n_slots=int(ref["ref_n_slots"]))
+        compat, key = feasibility(t, items)
+        expect(all(torch.equal(a, b) for a, b in zip((compat, key), feasibility_plain(t, items))),
+               f"{name}: K1 differs from plain")
+        takes, left, state = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+        takes_p, left_p, state_p = pack_scan_plain(t, items, n_slots=t.n_slots, precomputed=(compat, key))
+        torch.cuda.synchronize()
+        leaves, leaves_p = list(state[:7]) + list(state[7]), list(state_p[:7]) + list(state_p[7])
+        expect(torch.equal(takes, takes_p) and torch.equal(left, left_p)
+               and all(torch.equal(a, b) for a, b in zip(leaves, leaves_p)), f"{name}: K2 differs from plain")
+        flat = _flat_outputs(takes, left, state[0], state[2], state[6], int(ref["ref_nnz_cap"]))
+        expect(np.array_equal(flat.cpu().numpy(), ref["ref_flat"]), f"{name}: K2's flat output differs from JAX")
+        for leaf, x in zip(STATE_LEAVES, leaves):
+            expect(np.array_equal(x.cpu().numpy(), ref[f"ref_state_{leaf}"]), f"{name}: K2 carry {leaf} differs from JAX")
+        # the same items again, from the carry (the delta pack's entry)
+        takes2, left2, state2 = pack_scan(t, items, compat, key, n_slots=t.n_slots, init_state=state)
+        takes2_p, left2_p, state2_p = pack_scan_plain(t, items, n_slots=t.n_slots, init_state=state_p,
+                                                      precomputed=(compat, key))
+        torch.cuda.synchronize()
+        expect(torch.equal(takes2, takes2_p) and torch.equal(left2, left2_p)
+               and all(torch.equal(a, b) for a, b in zip(list(state2[:7]) + list(state2[7]),
+                                                         list(state2_p[:7]) + list(state2_p[7]))),
+               f"{name}: K2 from the carry differs from plain")
+        # K8 on the reference's default slot axis
+        reset_bucket_highwater()
+        tp = make_tensors(problem, dev)
+        pods = make_pod_tensors(problem, dev, tp)
+        pc, pk = compat_and_key(tp, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+        out = perpod_pack(tp, pods, pc, pk)
+        out_p = perpod_pack_plain(tp, pods, pc, pk)
+        torch.cuda.synchronize()
+        expect(all(torch.equal(a, b) for a, b in zip(out, out_p)), f"{name}: K8 differs from plain")
+        with np.load(CAPS / f"{name}_perpod.npz", allow_pickle=False) as z:
+            for k, a in zip(PERPOD_OUTPUTS, out):
+                expect(np.array_equal(a.cpu().numpy(), z[f"ref_{k}"]), f"{name}: K8 {k} differs from JAX")
+        G, D = t.counts_dom_init.shape
+        shapes[name] = dict(W=int(items.item_req.shape[0]), N=int(t.n_slots), R=int(items.item_req.shape[1]), G=G,
+                            D=D, Q=int(t.rank_domset.shape[0]), Kd=int(items.item_restrict.shape[1]),
+                            P1=int(items.item_port_any.shape[1]), P2=int(items.item_port_spec.shape[1]))
+        print(f"caps {name} {shapes[name]}: K1, K2 (full and from its carry) and K8 == plain, K2 and K8 == JAX "
+              f"({time.perf_counter() - t1:.1f} s)")
+
+    t1 = time.perf_counter()
+    problem, ref = tcons.load_npz(CAPS / "caps_lp.npz")
+    t, aux = tcons.tensors_from_problem(problem, dev)
+    d0, y0 = (torch.as_tensor(a, device=dev) for a in tcons.reference_inits(problem, ref))
+    args = (t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0, y0)
+    for n_iters in (1, 5, int(ref["ref_n_iters"])):
+        d, _s = globalpack(*args, n_iters)
+        d_p, _s_p = globalpack_plain(*args, n_iters)
+        torch.cuda.synchronize()
+        err = max_abs((d, d_p))
+        errs["globalpack"] = max(errs["globalpack"], err)
+        expect(err <= D_TOL, f"caps_lp: K5 d after {n_iters} steps differs from plain by {err}")
+    X = torch.as_tensor(ref["ref_X"], device=dev)
+    pend = (aux["pend_req"], aux["pend_npods"], aux["pend_active"])
+    s, f = score_subsets(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    s_p, f_p = score_subsets_plain(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    torch.cuda.synchronize()
+    expect(torch.equal(s, s_p) and torch.equal(f, f_p), "caps_lp: K6 differs from plain")
+    expect(np.array_equal(s.cpu().numpy(), ref["ref_scores"]), "caps_lp: K6 differs from JAX")
+    problem_a, ref_a = tcons.load_npz(CAPS / "caps_anneal.npz")
+    ta, _aux = tcons.tensors_from_problem(problem_a, dev, dense_compat=True)
+    streams = [torch.as_tensor(ref_a[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
+    bx, bs = anneal(ta, *streams)
+    bx_p, bs_p = anneal_plain(ta, *streams)
+    torch.cuda.synchronize()
+    expect(torch.equal(bx, bx_p) and torch.equal(bs, bs_p), "caps_anneal: K7 differs from plain")
+    expect(np.array_equal(bs.cpu().numpy(), ref_a["ref_best_s"]), "caps_anneal: K7 differs from JAX")
+    shapes["caps_lp"] = dict(Np=int(t.node_price.shape[0]), Qp=int(aux["onehot"].shape[1]), R=int(t.node_used.shape[1]))
+    print(f"caps caps_lp / caps_anneal {shapes['caps_lp']}: K5 (1, 5, 300 steps) within {D_TOL} of plain, K6 and K7 "
+          f"== plain == JAX ({time.perf_counter() - t1:.1f} s)")
+
+    # K5's builds other than the common shape's, at the 5000-node fleet
+    t1 = time.perf_counter()
+    problem, ref = cons_load(CONS_LP)
+    t, aux = tcons.tensors_from_problem(problem, dev)
+    d0, y0 = (torch.as_tensor(a, device=dev) for a in tcons.reference_inits(problem, ref))
+    for shape, args in k5_widened(t, aux, d0, y0, int(ref["ref_n_iters"])).items():
+        d, _s = globalpack(*args)
+        d_p, _s_p = globalpack_plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs((d, d_p))
+        errs["globalpack"] = max(errs["globalpack"], err)
+        expect(err <= D_TOL, f"{CONS_LP} at {shape}: K5 d differs from plain by {err}")
+        shapes[f"{CONS_LP} {shape}"] = dict(Np=int(d.shape[1]), Qp=int(args[1].shape[1]), R=int(args[0].node_used.shape[1]))
+    print(f"caps {CONS_LP} widened to {list(shapes)[-2:]}: K5 (300 steps) within {D_TOL} of plain "
+          f"({time.perf_counter() - t1:.1f} s)")
+
+    # past the blocks' shared-memory budget: Np = 32768 (K5's arena, K7's per-chain state)
+    t1 = time.perf_counter()
+    big = tcons.ConsolidationProblem.from_reference(synthetic_round(n=20000, n_classes=70, n_rows=64, seed=7))
+    t, aux = tcons.tensors_from_problem(big, dev, dense_compat=True)
+    Np, Qp = aux["onehot"].shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d0 = torch.rand((2, Np), generator=gen, device=dev) * 0.9 + 0.05
+    y0 = torch.rand((2, Qp, Np), generator=gen, device=dev) * 0.9 + 0.1
+    args = (t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0, y0)
+    for n_iters in (1, 300):
+        d, _s = globalpack(*args, n_iters)
+        d_p, _s_p = globalpack_plain(*args, n_iters)
+        torch.cuda.synchronize()
+        err = max_abs((d, d_p))
+        errs["globalpack"] = max(errs["globalpack"], err)
+        expect(err <= D_TOL, f"Np={Np}: K5 d after {n_iters} steps differs from plain by {err}")
+    X = torch.rand((8, Np), generator=gen, device=dev) < 0.3
+    X[:, big.n:] = False
+    pend = (aux["pend_req"], aux["pend_npods"], aux["pend_active"])
+    s, f = score_subsets(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    s_p, f_p = score_subsets_plain(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    x0 = torch.rand((2, Np), generator=gen, device=dev) < 0.1
+    x0[:, big.n:] = False
+    flips = torch.randint(0, big.n, (2, 8), generator=gen, device=dev, dtype=torch.int32)
+    u = torch.rand((2, 8), generator=gen, device=dev)
+    bx, bs = anneal(t, x0, flips, u)
+    bx_p, bs_p = anneal_plain(t, x0, flips, u)
+    torch.cuda.synchronize()
+    expect(torch.equal(s, s_p) and torch.equal(f, f_p), f"Np={Np}: K6 differs from plain")
+    expect(torch.equal(bx, bx_p) and torch.equal(bs, bs_p), f"Np={Np}: K7 differs from plain")
+    shapes["large"] = dict(Np=int(Np), Qp=int(Qp), R=int(t.node_used.shape[1]))
+    print(f"caps Np={Np} Qp={Qp} R={shapes['large']['R']}: K5 (1, 300 steps) within {D_TOL} of plain, K6 (8 rows) and K7 "
+          f"(2 chains x 8 steps) == plain ({time.perf_counter() - t1:.1f} s)")
+    return shapes
 
 
 # -- the per-pod pack (K1 over the pods, K8 perpod_pack) -------------------------------
@@ -1331,6 +1573,7 @@ def run(dev, card: str) -> dict:
 
     check_consolidation(dev, errs)
     cons_runs = drive_proposers(dev)
+    caps = check_caps(dev, errs)
     cons_launches = {k: sum(c[k] for c in cons_runs.values()) for k in build.LAUNCHES}
     proposers = time_proposers(dev)
 
@@ -1366,7 +1609,7 @@ def run(dev, card: str) -> dict:
     print(f"greedy_pack_encoded {HEADLINE}: median of 5 warm calls {perpod['entry_ms']:.3f} ms "
           f"(runs ms: {[round(x, 3) for x in perpod['entry_runs']]}); stages ms (median of 5, synchronised): "
           + ", ".join(f"{k} {v:.3f}" for k, v in perpod["entry_stages"].items()))
-    return {"kernels": rows, "paths": {"full": launches, "full_affinity": aff_launches, "delta": delta_launches,
+    return {"kernels": rows, "caps": caps, "paths": {"full": launches, "full_affinity": aff_launches, "delta": delta_launches,
                                        "dense": dense["launches"], "consolidation": cons_runs, "perpod": perpod_runs},
             "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"]}
 

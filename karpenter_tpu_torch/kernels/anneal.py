@@ -2,7 +2,7 @@
 delete-set, scored by the discrete objective.
 
 `anneal` launches `csrc/anneal.cu` for CUDA tensors (one block per chain
-walks all S steps) and runs `anneal_plain` for CPU tensors. The random
+walks all S steps; any R and Np) and runs `anneal_plain` for CPU tensors. The random
 streams come in as tensors: x0 [C, Np] bool, flips [C, S] int32,
 u [C, S] f32. Returns (best_x [C, Np] bool, best_s [C] f32).
 
@@ -19,20 +19,6 @@ import torch
 
 from ..models.consolidation_model import objective_plain
 from . import build
-
-MAX_R = 16
-SMEM_LIMIT = 224 * 1024  # dynamic shared memory a block may take on an H100 (227 KB), less the static part
-
-
-def xla_sums_scratch(n: int, series: int) -> int:
-    """Floats of scratch `csrc/xla_order.cuh` needs for `series` sums of n
-    terms: one slot per window sum at every level."""
-    slots = 0
-    while n > 32:
-        slots += n // 32
-        n //= 32
-    return series * slots
-
 
 def temperature_fractions(n_steps: int) -> np.ndarray:
     """[S] f32 max(0.02, 1 - i / S), as the reference forms it in float32."""
@@ -82,13 +68,8 @@ def anneal(t, x0, flips, u):
     S = flips.shape[1]
     R = t.node_used.shape[1]
     T = t.row_price.shape[0]
-    if R > MAX_R:
-        raise ValueError(f"anneal: R={R} above the kernel's limit {MAX_R}")
     if t.pod_compat.shape != (N, N) or flips.shape != (C, S) or u.shape != (C, S):
         raise ValueError("anneal: pod_compat must be the dense [Np, Np] form, streams [C, S]")
-    smem = ((N + 15) // 16) * 16 + 8 * N + 4 * xla_sums_scratch(N, R + 3)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"anneal: Np={N} needs {smem} bytes of shared memory, above {SMEM_LIMIT}")
     f = torch.float32
     pc = build.require(t.pod_compat, dev, f, "pod_compat")
     if not bool(((pc == 0) | (pc == 1)).all()):
@@ -111,9 +92,13 @@ def anneal(t, x0, flips, u):
     ]
     best_x = torch.empty_like(x0)
     best_s = torch.empty(C, dtype=f, device=dev)
+    # each chain's state past the kernel's shared-memory budget (large Np or R) goes here
+    n_scratch = build.lib().kt_anneal_scratch(C, N, R)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) if n_scratch else None
     rc = build.lib().kt_anneal(*[a.data_ptr() for a in args], C, N, R, T, S,
                                ctypes.c_float(float(np.float32(t.churn_weight))), best_x.data_ptr(),
-                               best_s.data_ptr(), build.stream_ptr(dev))
+                               best_s.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+                               build.stream_ptr(dev))
     build.check(rc, "anneal")
     build.LAUNCHES["anneal"] += 1
     return best_x, best_s

@@ -108,8 +108,6 @@ def lib() -> ctypes.CDLL:
             handle.kt_feasibility.restype = ci
             handle.kt_pack_scan.argtypes = [vp, vp, vp]
             handle.kt_pack_scan.restype = ci
-            handle.kt_pack_scan_limits.argtypes = [vp]
-            handle.kt_pack_scan_limits.restype = ci
             handle.kt_pack_scan_scratch.argtypes = [vp]
             handle.kt_pack_scan_scratch.restype = ctypes.c_longlong
             handle.kt_sparsify.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 3
@@ -117,16 +115,22 @@ def lib() -> ctypes.CDLL:
             handle.kt_recredit.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 4
             handle.kt_recredit.restype = ci
             cf = ctypes.c_float
-            handle.kt_globalpack.argtypes = [vp] * 13 + [ci] * 6 + [cf] * 7 + [vp] * 13
+            handle.kt_globalpack.argtypes = [vp] * 13 + [ci] * 6 + [cf] * 7 + [vp] * 4
             handle.kt_globalpack.restype = ci
-            handle.kt_score_subsets.argtypes = [vp] * 12 + [ci] * 5 + [cf] * 2 + [vp] * 3
+            handle.kt_globalpack_scratch.argtypes = [ci] * 5
+            handle.kt_globalpack_scratch.restype = ctypes.c_longlong
+            handle.kt_score_subsets.argtypes = [vp] * 12 + [ci] * 5 + [cf] * 2 + [vp] * 4
             handle.kt_score_subsets.restype = ci
-            handle.kt_anneal.argtypes = [vp] * 11 + [ci] * 5 + [cf] + [vp] * 3
+            handle.kt_score_subsets_scratch.argtypes = [ci] * 4
+            handle.kt_score_subsets_scratch.restype = ctypes.c_longlong
+            handle.kt_anneal.argtypes = [vp] * 11 + [ci] * 5 + [cf] + [vp] * 4
             handle.kt_anneal.restype = ci
+            handle.kt_anneal_scratch.argtypes = [ci] * 3
+            handle.kt_anneal_scratch.restype = ctypes.c_longlong
             handle.kt_perpod_pack.argtypes = [vp, vp, vp]
             handle.kt_perpod_pack.restype = ci
-            handle.kt_perpod_pack_limits.argtypes = [vp]
-            handle.kt_perpod_pack_limits.restype = ci
+            handle.kt_perpod_pack_scratch.argtypes = [vp]
+            handle.kt_perpod_pack_scratch.restype = ctypes.c_longlong
             _lib = handle
         return _lib
 

@@ -27,9 +27,11 @@
 //
 // Design: one block per chain walks its S steps; x, cnt, each node's
 // usable weight (kept, compatible with a deleted node, can host an average
-// pod: 0 or 1, recomputed per step) and the sums' scratch live in shared
-// memory (N + 8N + 4(R + 3)(N/32 + N/1024 + ...) bytes; opted into above
-// 48 KB). Sums add in XLA:CPU's order (`xla_order.cuh`), and
+// pod: 0 or 1, recomputed per step), the sums' scratch and the R-wide
+// tables live in one arena sized from the problem: shared memory where it
+// fits the block's budget (opted into above 48 KB), else a slice of a global
+// scratch per chain, behind the same pointers. Sums add in XLA:CPU's order
+// (`xla_order.cuh`) wherever the arena lies, and
 // savings - cw * cost and |s| * 0.1 + 1e-3 round once as XLA's fused
 // multiply-adds do, so scores match the reference's bit for bit; the accept
 // test uses expf on float32, as the plain version does on the card, so the
@@ -43,21 +45,27 @@
 
 #define K7_THREADS 512
 #define K7_WARPS (K7_THREADS / 32)
-#define K7_MAX_R 16
-#define K7_V (K7_MAX_R + 3)  // reduced values: R sums, then pod count, price, cost
 #define BIG 3.4e38f
+#define K7_SMEM_BUDGET (232448 - 1024)  // dynamic shared memory a block may take, less the static part
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_down_sync(0xffffffffu, v, o));
   return v;
 }
 
+// the reductions' outputs: tot1 and tot2 [R + 3] (R sums, then pod count,
+// price, cost), avg_pod and shortfall [R] in the arena; wmin per warp
 struct Red {
-  float tot1[K7_V], tot2[K7_V];
-  float wmin[K7_WARPS];
-  float avg_pod[K7_MAX_R];
-  float shortfall[K7_MAX_R];
+  float *tot1, *tot2, *avg_pod, *shortfall;
+  float* wmin;
 };
+
+// bytes of one chain's arena: x [N] (rounded to 16), cnt [N], weight [N],
+// the xla_sums scratch, then Red's tables
+__host__ __device__ inline size_t arena_bytes(int N, int R) {
+  return (size_t)((N + 15) / 16) * 16 + (size_t)N * (sizeof(int) + sizeof(float)) +
+         sizeof(float) * ((size_t)xla_sums_scratch(N, R + 3) + 2 * ((size_t)R + 3) + 2 * (size_t)R);
+}
 
 // objective of x with bit `flip` flipped (flip < 0: x itself). cnt[j] counts
 // the deleted i with pod_compat[j, i] = 1 in x; pct_row is row `flip` of
@@ -77,7 +85,7 @@ __device__ float objective(const float* __restrict__ price, const float* __restr
     return (v == R + 1 ? price[n] : cost[n]) * xf;
   };
   xla_sums(N, R + 3, deleted_terms, buf, red.tot1);
-  if (tid < R) red.avg_pod[tid] = red.tot1[tid] / fmaxf(red.tot1[R], 1.0f);
+  for (int r = tid; r < R; r += K7_THREADS) red.avg_pod[r] = red.tot1[r] / fmaxf(red.tot1[R], 1.0f);
   __syncthreads();
   for (int n = tid; n < N; n += K7_THREADS) {
     bool can = false;  // keep = 0
@@ -91,7 +99,7 @@ __device__ float objective(const float* __restrict__ price, const float* __restr
   }
   __syncthreads();
   xla_sums(N, R, [&](int n, int v) -> float { return slack[(size_t)n * R + v] * weight[n]; }, buf, red.tot2);
-  if (tid < R) red.shortfall[tid] = fmaxf(red.tot1[tid] - red.tot2[tid], 0.0f);
+  for (int r = tid; r < R; r += K7_THREADS) red.shortfall[r] = fmaxf(red.tot1[r] - red.tot2[r], 0.0f);
   __syncthreads();
   float best = INFINITY;
   for (int t = tid; t < T; t += K7_THREADS) {
@@ -112,19 +120,29 @@ __device__ float objective(const float* __restrict__ price, const float* __restr
   return score;
 }
 
+// SMEM: the arena is in shared memory (its loads are then shared-memory loads)
+template <bool SMEM>
 __global__ void __launch_bounds__(K7_THREADS)
 anneal_kernel(const float* __restrict__ price, const float* __restrict__ cost, const float* __restrict__ slack,
               const float* __restrict__ used, const float* __restrict__ npods, const float* __restrict__ pct,
               const float* __restrict__ row_alloc, const float* __restrict__ row_price, const uint8_t* __restrict__ x0,
               const int* __restrict__ flips, const float* __restrict__ u, int N, int R, int T, int S,
-              float churn_weight, uint8_t* __restrict__ best_x, float* __restrict__ best_s) {
+              float churn_weight, uint8_t* __restrict__ best_x, float* __restrict__ best_s,
+              unsigned char* __restrict__ gscratch) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* x = smem;
-  int* cnt = (int*)(smem + ((N + 15) / 16) * 16);
+  __shared__ float wmin[K7_WARPS];
+  const int c = blockIdx.x, tid = threadIdx.x;
+  unsigned char* arena = SMEM ? smem : gscratch + (size_t)c * arena_bytes(N, R);
+  uint8_t* x = arena;
+  int* cnt = (int*)(arena + ((N + 15) / 16) * 16);
   float* weight = (float*)(cnt + N);
   float* buf = weight + N;  // xla_sums scratch
-  __shared__ Red red;
-  const int c = blockIdx.x, tid = threadIdx.x;
+  Red red;
+  red.tot1 = buf + xla_sums_scratch(N, R + 3);
+  red.tot2 = red.tot1 + R + 3;
+  red.avg_pod = red.tot2 + R + 3;
+  red.shortfall = red.avg_pod + R;
+  red.wmin = wmin;
   const uint8_t* xc0 = x0 + (size_t)c * N;
   uint8_t* bx = best_x + (size_t)c * N;
   for (int n = tid; n < N; n += K7_THREADS) {
@@ -172,18 +190,27 @@ anneal_kernel(const float* __restrict__ price, const float* __restrict__ cost, c
 extern "C" int kt_anneal(const void* price, const void* cost, const void* slack, const void* used, const void* npods,
                          const void* pct, const void* row_alloc, const void* row_price, const void* x0,
                          const void* flips, const void* u, int C, int N, int R, int T, int S, float churn_weight,
-                         void* best_x, void* best_s, void* stream) {
-  if (R > K7_MAX_R || !xla_sums_shape_ok(N)) return (int)cudaErrorInvalidValue;
+                         void* best_x, void* best_s, void* gscratch, void* stream) {
+  if (!xla_sums_shape_ok(N)) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
-  const size_t smem = (size_t)((N + 15) / 16) * 16 + (size_t)N * (sizeof(int) + sizeof(float)) +
-                      sizeof(float) * (size_t)xla_sums_scratch(N, R + 3);
+  // the arena in shared memory where it fits, else in the caller's scratch
+  const size_t smem = gscratch ? 0 : arena_bytes(N, R);
+  if (smem > K7_SMEM_BUDGET) return (int)cudaErrorInvalidValue;
+  auto kern = gscratch ? anneal_kernel<false> : anneal_kernel<true>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(anneal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  anneal_kernel<<<C, K7_THREADS, smem, (cudaStream_t)stream>>>(
+  kern<<<C, K7_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)price, (const float*)cost, (const float*)slack, (const float*)used, (const float*)npods,
       (const float*)pct, (const float*)row_alloc, (const float*)row_price, (const uint8_t*)x0, (const int*)flips,
-      (const float*)u, N, R, T, S, churn_weight, (uint8_t*)best_x, (float*)best_s);
+      (const float*)u, N, R, T, S, churn_weight, (uint8_t*)best_x, (float*)best_s, (unsigned char*)gscratch);
   return (int)cudaGetLastError();
+}
+
+// bytes of global scratch the launch needs for C chains: 0 where the arena
+// fits in shared memory
+extern "C" long long kt_anneal_scratch(int C, int N, int R) {
+  const size_t bytes = arena_bytes(N, R);
+  return bytes > K7_SMEM_BUDGET ? (long long)C * (long long)bytes : 0;
 }

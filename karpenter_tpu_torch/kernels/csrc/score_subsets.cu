@@ -25,7 +25,11 @@
 // Design: one block per row, all rows in one launch. Three passes: over the
 // nodes (the displaced sums, the deleted classes), over the nodes again
 // (each node's usable weight keep * cta * can_host into shared memory, then
-// the usable slack), over the rows (the cheapest replacement). Sums add in
+// the usable slack), over the rows (the cheapest replacement). Every table
+// (the weights, the sums' scratch, the R- and Q-wide class and resource
+// tables) is sized from the problem and lives in one arena: shared memory
+// where it fits the block's budget, else a slice of a global scratch per
+// block, behind the same pointers. Sums add in
 // XLA:CPU's order (`xla_order.cuh`) and the score rounds
 // savings - cw * cost once, as XLA's fused multiply-add does, so scores are
 // bit-identical to the reference's and to the plain version's; maxima and
@@ -39,10 +43,8 @@
 
 #define K6_THREADS 256
 #define K6_WARPS (K6_THREADS / 32)
-#define K6_MAX_R 16
-#define K6_MAX_Q 64
-#define K6_V (K6_MAX_R + 3)  // summed series: R resources, then pod count, price, cost
 #define BIG 3.4e38f
+#define K6_SMEM_BUDGET (232448 - 1024)  // dynamic shared memory a block may take, less the static part
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
@@ -54,6 +56,10 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+__host__ __device__ inline size_t arena_floats(int N, int R, int Q) {
+  return (size_t)N + (size_t)xla_sums_scratch(N, R + 3) + 2 * ((size_t)R + 3) + (size_t)Q + 3 * (size_t)R;
+}
+
 __global__ void __launch_bounds__(K6_THREADS)
 score_subsets_kernel(const float* __restrict__ price, const float* __restrict__ cost, const float* __restrict__ slack,
                      const float* __restrict__ used, const float* __restrict__ npods,
@@ -61,15 +67,22 @@ score_subsets_kernel(const float* __restrict__ price, const float* __restrict__ 
                      const float* __restrict__ row_alloc, const float* __restrict__ row_price,
                      const float* __restrict__ pend_req, const float* __restrict__ pend_active,
                      const uint8_t* __restrict__ X, int N, int R, int Q, int T, float pend_npods,
-                     float churn_weight, float* __restrict__ score, uint8_t* __restrict__ feasible) {
-  extern __shared__ float smem[];  // weight [N], then the xla_sums scratch
-  float* weight = smem;
-  float* buf = smem + N;
-  __shared__ float tot1[K6_V], tot2[K6_V];
-  __shared__ float deleted[K6_MAX_Q];
-  __shared__ float displaced[K6_MAX_R], avg_pod[K6_MAX_R], shortfall[K6_MAX_R];
+                     float churn_weight, float* __restrict__ score, uint8_t* __restrict__ feasible,
+                     float* __restrict__ gscratch) {
+  extern __shared__ float smem[];
   __shared__ float wmin[K6_WARPS];
   const int m = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the arena: weight [N], the xla_sums scratch, tot1 and tot2 [R + 3]
+  // (R resources, then pod count, price, cost), deleted [Q], displaced,
+  // avg_pod and shortfall [R]
+  float* weight = gscratch ? gscratch + (size_t)m * arena_floats(N, R, Q) : smem;
+  float* buf = weight + N;
+  float* tot1 = buf + xla_sums_scratch(N, R + 3);
+  float* tot2 = tot1 + R + 3;
+  float* deleted = tot2 + R + 3;
+  float* displaced = deleted + Q;
+  float* avg_pod = displaced + R;
+  float* shortfall = avg_pod + R;
   const uint8_t* x = X + (size_t)m * N;
 
   // pass 1: displaced mass, pod count, price and cost of the deleted nodes
@@ -87,9 +100,9 @@ score_subsets_kernel(const float* __restrict__ price, const float* __restrict__ 
     mx = warp_max(mx);
     if (lane == 0) deleted[q] = fmaxf(mx, pend_active[q]);
   }
-  if (tid < R) displaced[tid] = pend_req[tid] + tot1[tid];
+  for (int r = tid; r < R; r += K6_THREADS) displaced[r] = pend_req[r] + tot1[r];
   __syncthreads();
-  if (tid < R) avg_pod[tid] = displaced[tid] / fmaxf(pend_npods + tot1[R], 1.0f);
+  for (int r = tid; r < R; r += K6_THREADS) avg_pod[r] = displaced[r] / fmaxf(pend_npods + tot1[R], 1.0f);
   __syncthreads();
 
   // pass 2: slack of kept nodes compatible with a deleted class that can host an average pod
@@ -103,7 +116,7 @@ score_subsets_kernel(const float* __restrict__ price, const float* __restrict__ 
   }
   __syncthreads();
   xla_sums(N, R, [&](int n, int v) -> float { return slack[(size_t)n * R + v] * weight[n]; }, buf, tot2);
-  if (tid < R) shortfall[tid] = fmaxf(displaced[tid] - tot2[tid], 0.0f);
+  for (int r = tid; r < R; r += K6_THREADS) shortfall[r] = fmaxf(displaced[r] - tot2[r], 0.0f);
   __syncthreads();
 
   // pass 3: the cheapest replacement
@@ -147,10 +160,12 @@ extern "C" int kt_score_subsets(const void* price, const void* cost, const void*
                                 const void* npods, const void* onehot, const void* compat_nq, const void* row_alloc,
                                 const void* row_price, const void* pend_req, const void* pend_active, const void* X,
                                 int M, int N, int R, int Q, int T, float pend_npods, float churn_weight, void* score,
-                                void* feasible, void* stream) {
-  if (R > K6_MAX_R || Q > K6_MAX_Q || !xla_sums_shape_ok(N)) return (int)cudaErrorInvalidValue;
+                                void* feasible, void* gscratch, void* stream) {
+  if (!xla_sums_shape_ok(N)) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)N + (size_t)xla_sums_scratch(N, R + 3));
+  // the arena in shared memory where it fits, else in the caller's scratch
+  const size_t smem = gscratch ? 0 : sizeof(float) * arena_floats(N, R, Q);
+  if (smem > K6_SMEM_BUDGET) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(score_subsets_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -160,6 +175,13 @@ extern "C" int kt_score_subsets(const void* price, const void* cost, const void*
       (const float*)price, (const float*)cost, (const float*)slack, (const float*)used, (const float*)npods,
       (const float*)onehot, (const float*)compat_nq, (const float*)row_alloc, (const float*)row_price,
       (const float*)pend_req, (const float*)pend_active, (const uint8_t*)X, N, R, Q, T, pend_npods, churn_weight,
-      (float*)score, (uint8_t*)feasible);
+      (float*)score, (uint8_t*)feasible, (float*)gscratch);
   return (int)cudaGetLastError();
+}
+
+// floats of global scratch the launch needs for M rows: 0 where the arena
+// fits in shared memory
+extern "C" long long kt_score_subsets_scratch(int M, int N, int R, int Q) {
+  const size_t words = arena_floats(N, R, Q);
+  return sizeof(float) * words > K6_SMEM_BUDGET ? (long long)M * (long long)words : 0;
 }

@@ -30,7 +30,8 @@ __host__ __device__ inline int xla_sums_scratch(int n, int V) {
 
 // out[v] = sum_i term(i, v) for v < V, in XLA:CPU's order. Every thread of
 // the block must call it; `buf` holds xla_sums_scratch(n, V) floats of
-// shared memory; `out` (shared) is valid for every thread on return.
+// shared (or block-private global) memory; `out` is valid for every thread
+// on return.
 template <class Term>
 __device__ void xla_sums(int n, int V, const Term& term, float* buf, float* out) {
   const int tid = threadIdx.x, nt = blockDim.x;

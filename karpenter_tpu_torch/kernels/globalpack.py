@@ -1,9 +1,9 @@
 """K5 globalpack: projected Adam ascent on the relaxed global repack.
 
 `globalpack` launches `csrc/globalpack.cu` for CUDA tensors (a cluster of
-eight blocks per init runs every step) and runs `globalpack_plain` for CPU
-tensors. Both
-start from d0 [C, Np] and y0 [C, Qp, Np] (yr = 0.5 before the first
+blocks per init runs every step, each block's slice of the state on chip;
+any R, Qp and Np) and runs `globalpack_plain` for CPU tensors. Both start
+from d0 [C, Np] and y0 [C, Qp, Np] (yr = 0.5 before the first
 projection) and return (d [C, Np], score [C])."""
 
 from __future__ import annotations
@@ -22,9 +22,6 @@ from ..models.globalpack import (
     gp_project,
 )
 from . import build
-
-MAX_R = 16  # kernel limits (shared-memory tables); the wrapper raises above them
-MAX_Q = 64
 
 
 def globalpack_plain(t, onehot, compat_qn, pend_mass, pend_weight, d0, y0, n_iters: int):
@@ -64,8 +61,6 @@ def globalpack(t, onehot, compat_qn, pend_mass, pend_weight, d0, y0, n_iters: in
     R = t.node_used.shape[1]
     Q = onehot.shape[1]
     T = t.row_price.shape[0]
-    if R > MAX_R or Q > MAX_Q:
-        raise ValueError(f"globalpack: R={R} or Q={Q} above the kernel's limits ({MAX_R}, {MAX_Q})")
     if y0.shape != (C, Q, N) or onehot.shape != (N, Q) or compat_qn.shape != (Q, N) or pend_mass.shape != (Q, R):
         raise ValueError("globalpack: init or class axes disagree")
     f = torch.float32
@@ -87,17 +82,14 @@ def globalpack(t, onehot, compat_qn, pend_mass, pend_weight, d0, y0, n_iters: in
     ]
     d = torch.empty_like(d0)
     score = torch.empty(C, dtype=f, device=dev)
-    # per init: routing, Adam moments and the two gradient scratch planes
-    y = torch.empty((C, Q, N), dtype=f, device=dev)
-    yr = torch.empty((C, Q, T), dtype=f, device=dev)
-    moments = [torch.empty_like(x) for x in (d, d, y, y, yr, yr)]
-    g_a = torch.empty((C, N, R), dtype=f, device=dev)
-    g_rep = torch.empty((C, T, R), dtype=f, device=dev)
+    lib = build.lib()
+    # the blocks' state past the shared-memory budget (large R, Qp or Np) goes here
+    n_scratch = lib.kt_globalpack_scratch(C, N, R, Q, T)
+    scratch = torch.empty(n_scratch, dtype=f, device=dev) if n_scratch else None
     consts = [ctypes.c_float(float(ADAM[k])) for k in ("b1", "b2", "c1", "c2", "lr", "eps")]
-    rc = build.lib().kt_globalpack(*[a.data_ptr() for a in args], C, N, R, Q, T, int(n_iters),
-                                   ctypes.c_float(float(np.float32(t.churn_weight))), *consts,
-                                   d.data_ptr(), y.data_ptr(), yr.data_ptr(), *[x.data_ptr() for x in moments],
-                                   g_a.data_ptr(), g_rep.data_ptr(), score.data_ptr(), build.stream_ptr(dev))
+    rc = lib.kt_globalpack(*[a.data_ptr() for a in args], C, N, R, Q, T, int(n_iters),
+                           ctypes.c_float(float(np.float32(t.churn_weight))), *consts, d.data_ptr(), score.data_ptr(),
+                           scratch.data_ptr() if scratch is not None else None, build.stream_ptr(dev))
     build.check(rc, "globalpack")
     build.LAUNCHES["globalpack"] += 1
     return d, score

@@ -20,15 +20,6 @@ from . import build
 
 pack_scan_plain = _pack_body
 
-_LIMIT_NAMES = ("R", "G", "Q", "D", "Kd")
-_WORD_LIMIT = 32  # domain and port sets are 32-bit masks inside the kernel
-
-
-def _limits() -> dict:
-    out = (ctypes.c_int * 5)()
-    build.lib().kt_pack_scan_limits(ctypes.addressof(out))
-    return dict(zip(_LIMIT_NAMES, list(out)))
-
 
 def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
     """Returns (takes [W, N] i32, leftovers [W] i32, final carry)."""
@@ -46,11 +37,6 @@ def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
     P1 = items.item_port_any.shape[1]
     P2 = items.item_port_spec.shape[1]
     HB = items.item_host_blocked.shape[1]
-    dims = dict(R=R, G=G, Q=Q, D=D, Kd=Kd)
-    lim = _limits()
-    over = {k: v for k, v in dims.items() if v > lim[k]}
-    if over or P1 > _WORD_LIMIT or P2 > _WORD_LIMIT:
-        raise ValueError(f"pack_scan: axes beyond the kernel's limits {lim}: {over or dict(P1=P1, P2=P2)}")
     if compat.shape != (W, Nrows) or key.shape != (W, Nrows):
         raise ValueError("pack_scan: feasibility outputs do not match the items")
 

@@ -17,14 +17,6 @@ from . import build
 
 perpod_pack_plain = greedy_pack_plain
 
-_LIMIT_NAMES = ("R", "G", "Q", "D", "Kd")
-
-
-def _limits() -> dict:
-    out = (ctypes.c_int * 5)()
-    build.lib().kt_perpod_pack_limits(ctypes.addressof(out))
-    return dict(zip(_LIMIT_NAMES, list(out)))
-
 
 def perpod_pack(t, pods, compat, key):
     """K8 on CUDA tensors, the plain version on CPU tensors. compat and key
@@ -42,10 +34,6 @@ def perpod_pack(t, pods, compat, key):
     G, D = t.counts_dom_init.shape
     Q = t.rank_domset.shape[0]
     Kd = pods.pod_restrict.shape[1]
-    lim = _limits()
-    over = {k: v for k, v in dict(R=R, G=G, Q=Q, D=D, Kd=Kd).items() if v > lim[k]}
-    if over:
-        raise ValueError(f"perpod_pack: axes beyond the kernel's limits {lim}: {over}")
     if compat.shape != (P, Nrows) or key.shape != (P, Nrows):
         raise ValueError("perpod_pack: feasibility outputs do not match the pods")
     if pods.member.shape != (P, G) or pods.owner.shape != (P, G) or pods.pod_dom_allowed.shape != (P, D):
@@ -54,8 +42,8 @@ def perpod_pack(t, pods, compat, key):
     st = initial_state(t, N)
     carry = [x.clone().contiguous() for x in (st[0], st[1], st[2], st[3], st[4], st[5], st[6].reshape(1))]
     assignment = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    domset_bits = torch.empty(N, dtype=torch.int32, device=dev)
-    pod_info = torch.empty((max(P, 1), 8), dtype=torch.int64, device=dev)
+    d_arr = (ctypes.c_int * 10)(P, N, Nrows, R, D, G, Q, Kd, int(t.n_existing), int(t.n_rows_real))
+    scratch = torch.empty(build.lib().kt_perpod_pack_scratch(ctypes.addressof(d_arr)), dtype=torch.int32, device=dev)
     b, f, i = torch.bool, torch.float32, torch.int32
     inputs = [
         (t.row_alloc, f), (t.row_pool_rank, i), (t.rank_domset, b), (t.dom_key_of, i), (t.group_kind, i),
@@ -66,9 +54,8 @@ def perpod_pack(t, pods, compat, key):
     carry_types = (i, f, b, i, i, i, i)
     ptrs = [build.require(x, dev, dt, f"input {k}").data_ptr() for k, (x, dt) in enumerate(inputs)]
     ptrs += [build.require(x, dev, dt, f"carry {k}").data_ptr() for k, (x, dt) in enumerate(zip(carry, carry_types))]
-    ptrs += [assignment.data_ptr(), domset_bits.data_ptr(), pod_info.data_ptr()]
+    ptrs += [assignment.data_ptr(), scratch.data_ptr()]
     p_arr = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    d_arr = (ctypes.c_int * 10)(P, N, Nrows, R, D, G, Q, Kd, int(t.n_existing), int(t.n_rows_real))
     rc = build.lib().kt_perpod_pack(ctypes.addressof(p_arr), ctypes.addressof(d_arr), build.stream_ptr(dev))
     build.check(rc, "perpod_pack")
     build.LAUNCHES["perpod_pack"] += 1

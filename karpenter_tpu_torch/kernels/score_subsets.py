@@ -1,7 +1,7 @@
 """K6 score_subsets: the discrete factored objective of each delete-set.
 
 `score_subsets` launches `csrc/score_subsets.cu` for CUDA tensors (one
-block per row, every row in one launch) and runs the plain
+block per row, every row in one launch; any R, Qp and Np) and runs the plain
 `objective_factored_plain` for CPU tensors. Returns (score [M] f32,
 feasible [M] bool)."""
 
@@ -14,9 +14,6 @@ import torch
 
 from ..models.globalpack import objective_factored_plain
 from . import build
-
-MAX_R = 16
-MAX_Q = 64
 
 score_subsets_plain = objective_factored_plain
 
@@ -33,8 +30,6 @@ def score_subsets(t, onehot, compat_nq, pend_req, pend_npods: float, pend_active
     R = t.node_used.shape[1]
     Q = onehot.shape[1]
     T = t.row_price.shape[0]
-    if R > MAX_R or Q > MAX_Q:
-        raise ValueError(f"score_subsets: R={R} or Q={Q} above the kernel's limits ({MAX_R}, {MAX_Q})")
     if onehot.shape != (N, Q) or compat_nq.shape != (N, Q) or pend_req.shape != (R,) or pend_active.shape != (Q,):
         raise ValueError("score_subsets: node or class axes disagree")
     f = torch.float32
@@ -54,10 +49,14 @@ def score_subsets(t, onehot, compat_nq, pend_req, pend_npods: float, pend_active
     ]
     score = torch.empty(M, dtype=f, device=dev)
     feasible = torch.empty(M, dtype=torch.bool, device=dev)
+    # the kernel's tables past its shared-memory budget (large Np) go here
+    n_scratch = build.lib().kt_score_subsets_scratch(M, N, R, Q)
+    scratch = torch.empty(n_scratch, dtype=f, device=dev) if n_scratch else None
     rc = build.lib().kt_score_subsets(*[a.data_ptr() for a in args], M, N, R, Q, T,
                                       ctypes.c_float(float(np.float32(pend_npods))),
                                       ctypes.c_float(float(np.float32(t.churn_weight))),
-                                      score.data_ptr(), feasible.data_ptr(), build.stream_ptr(dev))
+                                      score.data_ptr(), feasible.data_ptr(),
+                                      scratch.data_ptr() if scratch is not None else None, build.stream_ptr(dev))
     build.check(rc, "score_subsets")
     build.LAUNCHES["score_subsets"] += 1
     return score, feasible

@@ -132,6 +132,20 @@ def test_proposer_end_to_end_from_jax_inits(name):
     assert out == reference_proposals(ref), f"{name}: close cuts {_close_cuts(ref['ref_d'], problem.n, D_TOL)}"
 
 
+def test_near_tie_fixture_proposals_from_jax_inits():
+    """`lp_300_near_tie` (ROADMAP Queue 3 item 2): the JAX d of init 6 has
+    nodes 39 and 239 3.6e-7 apart at the top-2 prefix boundary, closer than
+    the port's d is to JAX's. The LP proposer from the JAX inits still gives
+    the JAX proposals."""
+    problem, ref = load("lp_300_near_tie")
+    d_ref = ref["ref_d"]
+    assert (6, "prefix", 2) in _close_cuts(d_ref, problem.n, 1e-6)
+    order = np.argsort(-d_ref[6, :problem.n])
+    assert set(order[:2].tolist()) & {39, 239} and 0 < abs(float(d_ref[6, 39]) - float(d_ref[6, 239])) < 1e-6
+    out = propose_subsets_lp(problem, "cpu", inits=reference_inits(problem, ref))
+    assert out == reference_proposals(ref)
+
+
 @pytest.mark.parametrize("name", ANNEAL_NAMES)
 def test_anneal_proposer_from_jax_streams(name):
     problem, ref = load(name)

@@ -49,6 +49,11 @@ CONS_DIR = Path(__file__).resolve().parents[1] / "karpenter_tpu_torch" / "fixtur
 T_FIELDS = ("node_price", "node_cost", "node_slack", "node_used", "node_npods", "pod_compat", "row_alloc", "row_price")
 AUX_FIELDS = ("onehot", "compat_nq", "pend_mass", "pend_weight", "pend_active", "pend_req", "pend_npods")
 SEED = 0
+# a proposer seed other than SEED: `lp_300_near_tie` is the first of seeds
+# 0-29 on the 300-node hetero fleet whose JAX d has two real nodes within
+# 1e-6 of each other at a rounding cut or prefix boundary (init 6: nodes 39
+# and 239, 3.6e-7 apart, at the top-2 prefix)
+SEEDS = {"lp_300_near_tie": 4}
 
 
 # -- fleets --------------------------------------------------------------------
@@ -135,6 +140,7 @@ FLEETS = {
     "bench_5000_hetero": lambda: _bench_fleet(5000, hetero=True),
     "bench_5000_hetero_pending": lambda: _bench_fleet(5000, hetero=True, with_pending=True),
     "bench_256": lambda: _anneal_fleet(256),
+    "bench_300_hetero": lambda: _bench_fleet(300, hetero=True),
 }
 CORPUS = {
     "small_lp_4": ("small_4", "lp"),
@@ -151,6 +157,7 @@ CORPUS = {
     "global_5000_hetero": ("bench_5000_hetero", "global"),
     "global_5000_hetero_pending": ("bench_5000_hetero_pending", "global"),
     "anneal_256": ("bench_256", "anneal"),
+    "lp_300_near_tie": ("bench_300_hetero", "lp"),
 }
 SMALL = sorted(n for n in CORPUS if n.startswith("small_"))
 LARGE = sorted(n for n in CORPUS if not n.startswith("small_"))
@@ -199,7 +206,7 @@ def _proposal_arrays(out) -> dict:
                 ref_proposal_lens=np.asarray([len(s) for s in out], dtype=np.int64))
 
 
-def reference_run(kind: str, cands, its, pending) -> tuple[ConsolidationProblem, dict]:
+def reference_run(kind: str, cands, its, pending, seed: int = SEED) -> tuple[ConsolidationProblem, dict]:
     """Run the JAX proposer of `kind` on one round, recording its encoder
     output, its padded tensors, its draws and every intermediate output."""
     import jax
@@ -239,14 +246,14 @@ def reference_run(kind: str, cands, its, pending) -> tuple[ConsolidationProblem,
             mock.patch.object(jgp, "global_repack", repack), mock.patch.object(jgp, "score_subsets_global", score), \
             mock.patch.object(jcm, "anneal", anneal):
         if kind == "lp":
-            out = jcons.propose_subsets_lp(cands, its, seed=SEED)
+            out = jcons.propose_subsets_lp(cands, its, seed=seed)
         elif kind == "global":
-            out, info = jcons.propose_subsets_global(cands, its, pending_pods=pending, seed=SEED)
+            out, info = jcons.propose_subsets_global(cands, its, pending_pods=pending, seed=seed)
         else:
-            out = jcons.propose_subsets(cands, its, seed=SEED)
+            out = jcons.propose_subsets(cands, its, seed=seed)
     problem = ConsolidationProblem.from_reference(seen["v"])
     t, aux = seen["enc"]
-    ref = {"kind": np.str_(kind), "seed": np.int64(SEED)}
+    ref = {"kind": np.str_(kind), "seed": np.int64(seed)}
     for f in T_FIELDS:
         if f != "pod_compat" or kind == "anneal":
             ref[f"ref_t_{f}"] = np.asarray(getattr(t, f))
@@ -288,7 +295,7 @@ def build_fixtures(names) -> dict:
         reset_bucket_highwater()
         cands, its, pending = FLEETS[fleet]()
         for name in members:
-            out[name] = reference_run(CORPUS[name][1], cands, its, pending)
+            out[name] = reference_run(CORPUS[name][1], cands, its, pending, SEEDS.get(name, SEED))
     return out
 
 

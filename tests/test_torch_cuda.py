@@ -291,3 +291,13 @@ def test_perpod_kernels_equal_plain_on_card(cuda_device, name):
     tsm.greedy_pack(t, pods)
     torch.cuda.synchronize()
     assert {k: v for k, v in build.LAUNCHES.items() if v} == {"feasibility": 1, "perpod_pack": 1}
+
+
+@pytest.mark.gpu
+def test_caps_kernels_equal_plain_on_card(cuda_device):
+    """K1, K2 (full and from its carry), K8, K5, K6 and K7 on the problems
+    past the kernels' former axis limits (`chip_smoke.check_caps`)."""
+    import chip_smoke
+
+    shapes = chip_smoke.check_caps(cuda_device, {"globalpack": 0.0})
+    assert shapes["caps_groups"]["G"] > 256 and shapes["caps_wide"]["R"] > 16 and shapes["large"]["Np"] >= 32768
