@@ -32,16 +32,18 @@ for bit.
 Then the consolidation proposers: for every fixture in
 `fixtures/consolidation/`, K5 globalpack (after 1, 5 and 300 Adam steps
 from the stored JAX inits), K6 score_subsets (on the reference's rounded
-rows) and K7 anneal (on the reference's random streams) against their plain
-versions on the card and the stored JAX outputs. Each proposer is then
+rows) and K7 anneal (on the reference's random streams; its pre-pass, the
+bit-packed compatibility rows and the undominated replacement rows, also on
+its own) against their plain versions on the card and the stored JAX
+outputs. Each proposer is then
 driven end to end on its fixture (`propose_subsets_lp` on the 5000-node
 fleet, `propose_subsets_global` on the 5000-node spot/on-demand fleet
 without and with 200 pending pods, `propose_subsets` on the 256-node anneal
 fleet; each from the JAX inits, and the global one also through
 `GPUSolver().global_repack_plan_encoded` with its own generator), the counts
 set to 0 just before each call and read just after: the LP and global
-proposers must launch K5 once and K6 once, the anneal proposer K7 once, and
-give the JAX proposals.
+proposers must launch K5 once and K6 once, the anneal proposer K7 and its
+pre-pass once each, and give the JAX proposals.
 
 Then the axis caps (`check_caps`): the problems of `fixtures/caps/`, past
 every axis limit the kernels once had (G = 264 groups; R = 20 resources,
@@ -72,7 +74,7 @@ of the same problem, the LP and global proposers at 5000 nodes and the
 per-pod pack, with stage breakdowns (host clock, device synchronised). K2
 is also timed per `place()` call at both headlines, the churn step and
 the existing fleets of 1200 and 3800 nodes (open slots past its
-shared-memory tile); K4
+shared-memory tile); K3 (at the headline and the churn step), K4
 and `index_add_` also from a replayed CUDA graph, which leaves out the
 host's time to issue each call.
 
@@ -114,12 +116,15 @@ REPLACES = {
     "recredit": "karpenter_tpu/models/scheduler_model_grouped.py:1111",
     "globalpack": "karpenter_tpu/models/globalpack.py:97",
     "score_subsets": "karpenter_tpu/models/globalpack.py:212",
+    # the pre-pass packs anneal_chains' dense compatibility matrix (its max over
+    # pod_compat[j, :] * x at :84) and its replacement rows
+    "anneal_pack": "karpenter_tpu/models/consolidation_model.py:103",
     "anneal": "karpenter_tpu/models/consolidation_model.py:103",
     "perpod_pack": "karpenter_tpu/models/scheduler_model.py:508",
 }
 SOURCES = {"feasibility": "feasibility.cu", "pack_scan": "pack_scan.cu", "sparsify": "sparsify.cu",
            "recredit": "recredit.cu", "globalpack": "globalpack.cu", "score_subsets": "score_subsets.cu",
-           "anneal": "anneal.cu", "perpod_pack": "perpod_pack.cu"}
+           "anneal_pack": "anneal.cu", "anneal": "anneal.cu", "perpod_pack": "perpod_pack.cu"}
 CONS = FIXTURES / "consolidation"
 CONS_LP, CONS_GLOBAL, CONS_PENDING, CONS_ANNEAL = ("lp_5000", "global_5000_hetero", "global_5000_hetero_pending",
                                                    "anneal_256")
@@ -359,7 +364,8 @@ def time_pack(t, items, nnz_cap: int, init_state=None) -> tuple[list, dict]:
              library_ms=None),
         dict(name="sparsify", ms=cuda_ms(lambda: flat_outputs(takes, left, state[0], state[2], state[6], nnz_cap), 20),
              plain_ms=cuda_ms(lambda: flat_outputs_plain(takes, left, state[0], state[2], state[6], nnz_cap), 5),
-             library_ms=cuda_ms(lambda: torch.nonzero(takes), 20)),
+             library_ms=cuda_ms(lambda: torch.nonzero(takes), 20),
+             graph_ms=graph_ms(lambda: flat_outputs(takes, left, state[0], state[2], state[6], nnz_cap), 20)),
     ], cost
 
 
@@ -374,6 +380,7 @@ def time_headline(dev, launches: dict, errs: dict) -> list:
     problem, ref, t, items, nnz_cap = prepare(HEADLINE, dev)
     rows, cost = time_pack(t, items, nnz_cap)
     out = [kernel_row(r | dict(bytes=cost[r["name"]][0], ops=cost[r["name"]][1]), launches, errs) for r in rows]
+    out[2]["graph_ms"] = rows[2]["graph_ms"]  # K3's device time, without the host's time to launch it
     k2 = out[1]
     k2["place_calls"] = place_calls(t, items)
     k2["us_per_place"] = k2["ms"] * 1e3 / k2["place_calls"]
@@ -796,7 +803,7 @@ def time_delta(run: dict, dev, runs: int = 5) -> dict:
     for r in rows:
         bound_ms, bound_by = bound_of(*cost[r["name"]])
         kernels[r["name"]] = dict(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=bound_ms,
-                                  bound_by=bound_by)
+                                  bound_by=bound_by) | ({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})
 
     def med(rows):
         return {k: statistics.median(r.get(k, 0.0) for r in rows[1:]) for k in rows[-1]}
@@ -880,6 +887,7 @@ def check_anneal(name, problem, ref, dev, errs) -> None:
 
     t, _aux = tensors_from_problem(problem, dev, dense_compat=True)
     streams = [torch.as_tensor(ref[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
+    check_prepass(name, t, streams[1], errs)
     bx, bs = anneal(t, *streams)
     bx_p, bs_p = anneal_plain(t, *streams)
     torch.cuda.synchronize()
@@ -887,6 +895,21 @@ def check_anneal(name, problem, ref, dev, errs) -> None:
     expect(torch.equal(bx, bx_p) and torch.equal(bs, bs_p), f"{name}: K7 differs from plain")
     expect(np.array_equal(bx.cpu().numpy(), ref["ref_best_x"]), f"{name}: K7 best_x differs from JAX")
     expect(np.array_equal(bs.cpu().numpy(), ref["ref_best_s"]), f"{name}: K7 best_s differs from JAX")
+
+
+def check_prepass(name, t, flips, errs) -> None:
+    """K7's pre-pass (the bit-packed compatibility rows, the undominated
+    replacement rows, the flag) against its plain version, bit for bit."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.anneal import anneal_prepass, anneal_prepass_plain
+
+    got = anneal_prepass(t, flips)
+    want = anneal_prepass_plain(t, flips)
+    torch.cuda.synchronize()
+    expect(int(got[3].item()) == 0, f"{name}: K7 pre-pass raised its flag")
+    errs["anneal_pack"] = max(errs.get("anneal_pack", 0.0), max_abs(*zip(got[:3], want)))
+    expect(all(torch.equal(a, b) for a, b in zip(got[:3], want)), f"{name}: K7 pre-pass differs from plain")
 
 
 def check_consolidation(dev, errs) -> None:
@@ -952,7 +975,8 @@ def drive_proposers(dev) -> dict:
     build.reset_launches()
     out = propose_subsets(problem, dev, streams=(ref["ref_x0"], ref["ref_flips"], ref["ref_u"]))
     counts = dict(build.LAUNCHES)
-    expect(counts["anneal"] == 1 and counts["globalpack"] == 0, f"{CONS_ANNEAL}: proposer launches {counts}")
+    expect(counts["anneal"] == 1 and counts["anneal_pack"] == 1 and counts["globalpack"] == 0,
+           f"{CONS_ANNEAL}: proposer launches {counts}")
     expect(out == reference_proposals(ref), f"{CONS_ANNEAL}: proposals differ from the JAX reference")
     runs[CONS_ANNEAL] = counts
     print(f"main path {CONS_ANNEAL} ({problem.n} nodes): {len(out)} proposals == JAX, launches {counts}")
@@ -983,6 +1007,17 @@ def k6_cost(t, aux, M) -> tuple[int, int]:
     return n_in + 5 * M, M * (Np * (4 * R + 2 * Qp + 6) + T * 3 * R)
 
 
+def pack_cost(t, C, S) -> tuple[int, int]:
+    """K7's pre-pass: the dense matrix, the rows and the flips read once, the
+    two bit matrices, the row marks and the flag written once; one test per
+    matrix entry and (R + 1) comparisons per pair of rows."""
+    Np = t.node_price.shape[0]
+    T, R = t.row_alloc.shape
+    words = Np * ((Np + 31) // 32)
+    return (nbytes(t.pod_compat, t.row_alloc, t.row_price) + 4 * C * S + 2 * 4 * words + T + 4,
+            Np * Np + T * T * (R + 1))
+
+
 def k7_cost(t, C, S) -> tuple[int, int]:
     """K7: the node arrays, the dense compatibility matrix, the rows and the
     streams read once, best_x and best_s written once; per step ~(4R + 8)
@@ -999,7 +1034,7 @@ def time_consolidation(dev, launches: dict, errs: dict) -> list:
     import numpy as np
     import torch
 
-    from karpenter_tpu_torch.kernels.anneal import anneal, anneal_plain
+    from karpenter_tpu_torch.kernels.anneal import anneal, anneal_plain, anneal_prepass, anneal_prepass_plain
     from karpenter_tpu_torch.kernels.globalpack import globalpack, globalpack_plain
     from karpenter_tpu_torch.kernels.score_subsets import score_subsets, score_subsets_plain
     from karpenter_tpu_torch.models.consolidation_model import draw_anneal_streams
@@ -1030,6 +1065,10 @@ def time_consolidation(dev, launches: dict, errs: dict) -> list:
     a_problem, a_ref = cons_load(CONS_ANNEAL)
     ta, _ = tensors_from_problem(a_problem, dev, dense_compat=True)
     streams = [torch.as_tensor(a_ref[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
+    b, o = pack_cost(ta, *streams[1].shape)
+    rows.append(dict(name="anneal_pack", ms=cuda_ms(lambda: anneal_prepass(ta, streams[1]), 20),
+                     plain_ms=cuda_ms(lambda: anneal_prepass_plain(ta, streams[1]), 3), library_ms=None,
+                     bytes=b, ops=o))
     b, o = k7_cost(ta, *streams[1].shape)
     rows.append(dict(name="anneal", ms=cuda_ms(lambda: anneal(ta, *streams), 5, rounds=3),
                      plain_ms=cuda_ms(lambda: anneal_plain(ta, *streams), 1, rounds=2), library_ms=None,
@@ -1037,6 +1076,7 @@ def time_consolidation(dev, launches: dict, errs: dict) -> list:
     t8, _ = tensors_from_problem(problem, dev, dense_compat=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     s8 = draw_anneal_streams(t8.node_price.shape[0], gen)
+    check_prepass(f"{CONS_LP} fleet, Np = 8192", t8, s8[1], errs)
     bx, bs = anneal(t8, *s8)
     bx_p, bs_p = anneal_plain(t8, *s8)
     torch.cuda.synchronize()
@@ -1046,13 +1086,19 @@ def time_consolidation(dev, launches: dict, errs: dict) -> list:
     bound8, by8 = bound_of(b8, o8)
     k7_8192 = dict(ms=cuda_ms(lambda: anneal(t8, *s8), 2, rounds=3), plain_ms=cuda_ms(lambda: anneal_plain(t8, *s8), 1,
                                                                                        rounds=2),
-                   bound_ms=bound8, bound_by=by8, pod_compat_mb=nbytes(t8.pod_compat) / 1e6)
+                   bound_ms=bound8, bound_by=by8, pod_compat_mb=nbytes(t8.pod_compat) / 1e6,
+                   pack_ms=cuda_ms(lambda: anneal_prepass(t8, s8[1]), 5, rounds=3))
+    pb8, pby8 = bound_of(*pack_cost(t8, *s8[1].shape))
     print(f"time anneal at Np={t8.node_price.shape[0]} (the 5000-node fleet, dense pod_compat "
-          f"{k7_8192['pod_compat_mb']:.0f} MB; == plain): {k7_8192['ms']:.4f} ms kernel, "
-          f"{k7_8192['plain_ms']:.4f} ms plain, bound {bound8:.5f} ms ({by8})")
+          f"{k7_8192['pod_compat_mb']:.0f} MB; == plain): {k7_8192['ms']:.4f} ms kernel (pre-pass and chains), "
+          f"{k7_8192['plain_ms']:.4f} ms plain, bound {bound8:.5f} ms ({by8}); the pre-pass alone "
+          f"{k7_8192['pack_ms']:.4f} ms, bound {pb8:.5f} ms ({pby8})")
     print(f"K7 at {CONS_ANNEAL}: C={streams[1].shape[0]} chains x {streams[1].shape[1]} steps, "
           f"Np={ta.node_price.shape[0]}, Tp={ta.row_price.shape[0]}")
-    return [kernel_row(r, launches, errs) for r in rows]
+    out = [kernel_row(r, launches, errs) for r in rows]
+    out[-1].update(np8192_ms=k7_8192["ms"], np8192_plain_ms=k7_8192["plain_ms"], np8192_bound_ms=bound8,
+                   np8192_pack_ms=k7_8192["pack_ms"])
+    return out
 
 
 def time_proposers(dev, runs: int = 5) -> dict:
@@ -1172,7 +1218,8 @@ def check_caps(dev, errs: dict) -> dict:
     (`k5_widened`: its builds other than the common shape's); then K5 (1 and 300 steps), K6 and K7 at Np = 32768 with
     R = 20 and Qp = 128, where K5's and K7's blocks' state is past their shared-memory
     budget (K5's arena and K7's per-chain state; K7 with the dense 4.3 GB
-    compatibility matrix). Returns the shapes checked."""
+    compatibility matrix); K7's pre-pass against its plain version on both
+    anneal problems. Returns the shapes checked."""
     import numpy as np
     import torch
 
@@ -1258,6 +1305,7 @@ def check_caps(dev, errs: dict) -> dict:
     problem_a, ref_a = tcons.load_npz(CAPS / "caps_anneal.npz")
     ta, _aux = tcons.tensors_from_problem(problem_a, dev, dense_compat=True)
     streams = [torch.as_tensor(ref_a[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
+    check_prepass("caps_anneal", ta, streams[1], errs)
     bx, bs = anneal(ta, *streams)
     bx_p, bs_p = anneal_plain(ta, *streams)
     torch.cuda.synchronize()
@@ -1308,6 +1356,7 @@ def check_caps(dev, errs: dict) -> dict:
     x0[:, big.n:] = False
     flips = torch.randint(0, big.n, (2, 8), generator=gen, device=dev, dtype=torch.int32)
     u = torch.rand((2, 8), generator=gen, device=dev)
+    check_prepass(f"Np={Np}", t, flips, errs)
     bx, bs = anneal(t, x0, flips, u)
     bx_p, bs_p = anneal_plain(t, x0, flips, u)
     torch.cuda.synchronize()
@@ -1505,7 +1554,7 @@ def run(dev, card: str) -> dict:
     names = sorted(p.stem for p in FIXTURES.glob("*.npz"))
     expect(HEADLINE in names and HEADLINE_AFF in names, "headline fixtures missing")
     errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0, "globalpack": 0.0,
-            "score_subsets": 0.0, "anneal": 0.0, "perpod_pack": 0.0}
+            "score_subsets": 0.0, "anneal_pack": 0.0, "anneal": 0.0, "perpod_pack": 0.0}
     for name in names:
         t1 = time.perf_counter()
         info = check_kernels(name, dev)
@@ -1566,7 +1615,8 @@ def run(dev, card: str) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in delta["full_stages"].items()))
     for k, v in delta["delta_kernels_ms"].items():
         print(f"time delta {k} at {CHURN} step 1: {v['ms']:.4f} ms kernel, {v['plain_ms']:.4f} ms plain, "
-              f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}), library {v['library_ms']}")
+              f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}), library {v['library_ms']}"
+              + (f"; graph-replayed (device only) {v['graph_ms']:.4f} ms" if "graph_ms" in v else ""))
     delta_k2 = delta["delta_kernels_ms"]["pack_scan"]
     delta_k2["place_calls"] = delta["delta_place_calls"]
     delta_k2["us_per_place"] = delta_k2["ms"] * 1e3 / delta_k2["place_calls"]
@@ -1588,6 +1638,9 @@ def run(dev, card: str) -> dict:
 
     rows = time_headline(dev, launches, errs)
     rows[0].update(perpod["feasibility_pods"])
+    k3d = delta["delta_kernels_ms"]["sparsify"]
+    rows[2].update(delta_ms=k3d["ms"], delta_graph_ms=k3d["graph_ms"], delta_library_ms=k3d["library_ms"],
+                   delta_bound_ms=k3d["bound_ms"])
     k2 = rows[1]
     k2.update(delta_ms=delta_k2["ms"], delta_place_calls=delta_k2["place_calls"], delta_us_per_place=delta_k2["us_per_place"])
     print(f"K2 per place() call: {HEADLINE} {k2['us_per_place']:.2f} us ({k2['place_calls']} calls, {k2['ms']:.4f} ms), "
@@ -1601,7 +1654,8 @@ def run(dev, card: str) -> dict:
     rows.append(kernel_row(perpod["perpod_pack"], perpod_runs[HEADLINE], errs))
     for r in rows:
         print(f"time {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}"
+              + (f"; graph-replayed (device only) {r['graph_ms']:.4f} ms" if "graph_ms" in r else ""))
     print(f"K5 d: max |kernel - plain| {errs['globalpack']:.3g}, max |kernel - JAX| {errs['globalpack_vs_jax']:.3g}")
     k1p = perpod["feasibility_pods"]
     print(f"time feasibility over the {HEADLINE} pods: {k1p['pods_ms']:.4f} ms kernel, {k1p['pods_plain_ms']:.4f} ms "

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 # kernel launches per wrapper, counted where each wrapper launches its kernel
 LAUNCHES = {"feasibility": 0, "pack_scan": 0, "sparsify": 0, "recredit": 0, "globalpack": 0, "score_subsets": 0,
-            "anneal": 0, "perpod_pack": 0}
+            "anneal_pack": 0, "anneal": 0, "perpod_pack": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -123,9 +123,11 @@ def lib() -> ctypes.CDLL:
             handle.kt_score_subsets.restype = ci
             handle.kt_score_subsets_scratch.argtypes = [ci] * 4
             handle.kt_score_subsets_scratch.restype = ctypes.c_longlong
-            handle.kt_anneal.argtypes = [vp] * 11 + [ci] * 5 + [cf] + [vp] * 4
+            handle.kt_anneal_pack.argtypes = [vp, ci, vp, vp, ci, ci, vp, ctypes.c_longlong] + [vp] * 5
+            handle.kt_anneal_pack.restype = ci
+            handle.kt_anneal.argtypes = [vp] * 14 + [ci] * 5 + [cf] + [vp] * 4
             handle.kt_anneal.restype = ci
-            handle.kt_anneal_scratch.argtypes = [ci] * 3
+            handle.kt_anneal_scratch.argtypes = [ci] * 5
             handle.kt_anneal_scratch.restype = ctypes.c_longlong
             handle.kt_perpod_pack.argtypes = [vp, vp, vp]
             handle.kt_perpod_pack.restype = ci

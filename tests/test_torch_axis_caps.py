@@ -19,18 +19,26 @@ in `chip_smoke.py`'s `caps` phase) must give the reference's outputs:
   and 70 classes (Qp = 128), run through the reference's proposers: K6 and
   K7 bit-equal, the LP proposals identical. K5's d is not within 2e-6 of
   JAX's here: the reference's unplaced hinge sits at a rounding-noise kink
-  (ROADMAP Queue 3 item 2); that test is a strict xfail.
+  (ROADMAP Queue 3 item 2); that test is a strict xfail. The reference
+  does not define d there either: `caps_lp_alt.npz` holds its d and
+  proposals from the same inputs under
+  `XLA_FLAGS=--xla_cpu_multi_thread_eigen=false` (single-threaded Eigen
+  contractions, another float32 summation order), 3.0e-8 from the stored d
+  after 1 step, 2.0e-4 after 5 and 2.9e-2 after 300, with the same
+  proposals. The contract on this round is the proposals.
 
 The JAX reference is slow to compile at these widths (minutes per problem),
 so its outputs are stored in `karpenter_tpu_torch/fixtures/caps/`, written
 by `JAX_PLATFORMS=cpu KARPENTER_SOLVER_BUCKET=0 python
 tests/test_torch_axis_caps.py --write`. The tests here check that a fresh
 encode (or synthetic round) equals the stored problem, then run the port's
-plain arms against the stored JAX outputs.
+plain arms against the stored JAX outputs. `--write-alt` writes
+`caps_lp_alt.npz` alone (~15 s; `--write` writes it too).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 from unittest import mock
@@ -167,7 +175,11 @@ def _encode(name: str):
 
 
 def _stored(name: str) -> dict:
-    with np.load(CAPS_DIR / f"{name}.npz", allow_pickle=False) as z:
+    return _stored_path(CAPS_DIR / f"{name}.npz")
+
+
+def _stored_path(path) -> dict:
+    with np.load(path, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
 
 
@@ -261,7 +273,10 @@ def test_score_subsets_plain_equals_reference():
     "Queue 3 item 2, shown: after the projection every class's route total is 1 up to rounding, so the "
     "unplaced hinge max(1 - route, 0) and its gradient 0/0.5/1 turn on summation noise (u = +-1.19e-7 or 0 "
     "on 122 of the 1024 (init, class) entries at the first step here); Adam's normalised step amplifies the "
-    "different gradient: K5's plain d is 3.0e-8 from JAX's after 1 step, 0.084 after 5, 0.124 after 300"))
+    "different gradient: K5's plain d is 3.0e-8 from JAX's after 1 step, 0.084 after 5, 0.124 after 300. "
+    "The reference itself moves by 2.9e-2 there after 300 steps (2.0e-4 after 5) under "
+    "XLA_FLAGS=--xla_cpu_multi_thread_eigen=false, with the same proposals (caps_lp_alt.npz, "
+    "test_reference_d_is_not_defined_on_caps_lp)"))
 def test_globalpack_plain_d_within_tolerance_of_reference():
     """K5's plain ascent from the stored JAX inits: d within D_TOL of JAX's
     after 1, 5 and 300 steps."""
@@ -275,12 +290,44 @@ def test_globalpack_plain_d_within_tolerance_of_reference():
         assert float(np.abs(d.numpy() - ref[key]).max()) <= D_TOL, (n_iters, key)
 
 
+@functools.lru_cache(maxsize=1)
+def _port_lp_proposals():
+    problem, ref, _t, _aux = _lp_case()
+    return tcons.propose_subsets_lp(problem, "cpu", inits=tcons.reference_inits(problem, ref))
+
+
 def test_lp_proposals_equal_reference():
     """The port's LP proposer from the stored JAX inits gives the JAX
     proposals (the rounding ladder absorbs the d gap above here)."""
-    problem, ref, _t, _aux = _lp_case()
-    out = tcons.propose_subsets_lp(problem, "cpu", inits=tcons.reference_inits(problem, ref))
-    assert out == tcons.reference_proposals(ref)
+    _problem, ref, _t, _aux = _lp_case()
+    assert _port_lp_proposals() == tcons.reference_proposals(ref)
+
+
+def test_reference_d_is_not_defined_on_caps_lp():
+    """The reference's two XLA:CPU settings (`caps_lp.npz`, the default; and
+    `caps_lp_alt.npz`, single-threaded Eigen) run from the same inputs give
+    d more than D_TOL apart after 5 steps, and the same proposals, which the
+    port's equal. So on this round the parity K5 owes is the proposals."""
+    _problem, ref, _t, _aux = _lp_case()
+    alt = _stored("caps_lp_alt")
+    gap = {n: float(np.abs(alt[f"ref_alt_d{n}"] - ref[f"ref_d{n}"]).max()) for n in ("_it1", "_it5", "")}
+    assert gap["_it5"] > D_TOL and gap[""] > D_TOL, gap
+    alt_proposals = tcons.reference_proposals({"ref_proposals": alt["ref_alt_proposals"],
+                                               "ref_proposal_lens": alt["ref_alt_proposal_lens"]})
+    assert alt_proposals == tcons.reference_proposals(ref)
+    assert _port_lp_proposals() == alt_proposals
+
+
+def test_alt_record_matches_a_fresh_run(tmp_path):
+    """`caps_lp_alt.npz` equals a fresh reference run under the other
+    setting (its own process: XLA reads the flag when it starts)."""
+    from test_torch_consolidation_fixtures import run_alt
+
+    run_alt(CAPS_DIR / "caps_lp.npz", tmp_path / "alt.npz")
+    fresh, stored = _stored_path(tmp_path / "alt.npz"), _stored("caps_lp_alt")
+    assert set(fresh) == set(stored)
+    for k in stored:
+        np.testing.assert_array_equal(fresh[k], stored[k], err_msg=k)
 
 
 def test_anneal_plain_equals_reference():
@@ -332,10 +379,22 @@ def write_all(names=None) -> None:
         tcons.save_npz(CAPS_DIR / f"{name}.npz", problem, **ref)
         print(name, problem.n, "nodes", problem.n_classes, "classes", len(ref["ref_proposal_lens"]), "proposals",
               file=sys.stderr)
+    if not names or "caps_lp" in names:
+        write_alt()
+
+
+def write_alt() -> None:
+    """Write `caps_lp_alt.npz`: the reference's d and proposals on the stored
+    `caps_lp` under the other XLA:CPU setting."""
+    from test_torch_consolidation_fixtures import run_alt
+
+    run_alt(CAPS_DIR / "caps_lp.npz", CAPS_DIR / "caps_lp_alt.npz")
 
 
 if __name__ == "__main__":
     if "--write" in sys.argv:
         write_all([a for a in sys.argv[1:] if a != "--write"])
+    elif "--write-alt" in sys.argv:
+        write_alt()
     else:
         print(__doc__)

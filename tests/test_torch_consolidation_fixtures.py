@@ -33,6 +33,7 @@ with
 from __future__ import annotations
 
 import os
+import subprocess
 import sys
 from pathlib import Path
 from unittest import mock
@@ -54,6 +55,15 @@ SEED = 0
 # 1e-6 of each other at a rounding cut or prefix boundary (init 6: nodes 39
 # and 239, 3.6e-7 apart, at the top-2 prefix)
 SEEDS = {"lp_300_near_tie": 4}
+# The reference's other XLA:CPU setting: single-threaded Eigen contractions.
+# Its float32 sums then run in another order; a fixture's `alt/<name>.npz`
+# holds the d (after 1 and 5 steps and the last) and the proposals of the
+# same JAX run under it, to show where the reference defines d to within
+# float32 noise and where it does not.
+ALT_FLAG = "--xla_cpu_multi_thread_eigen=false"
+ALT_DIR = CONS_DIR / "alt"
+ALT_KEYS = {"ref_alt_d_it1": "ref_d_it1", "ref_alt_d_it5": "ref_d_it5", "ref_alt_d": "ref_d",
+            "ref_alt_proposals": "ref_proposals", "ref_alt_proposal_lens": "ref_proposal_lens"}
 
 
 # -- fleets --------------------------------------------------------------------
@@ -283,6 +293,61 @@ def reference_run(kind: str, cands, its, pending, seed: int = SEED) -> tuple[Con
     return problem, ref
 
 
+def alt_env() -> dict:
+    """The environment of a reference run under the other setting: the
+    XLA_FLAGS that tests/conftest.py sets, with ALT_FLAG appended."""
+    import conftest  # noqa: F401  (sets XLA_FLAGS and the solver switches, once)
+
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " " + ALT_FLAG).strip()
+    env["JAX_PLATFORMS"] = "cpu"
+    return env
+
+
+def alt_run(src, out) -> None:
+    """Re-run the JAX proposer of a stored lp or global fixture (`src`) on its
+    own encoder output and seed, in this process, and write the ALT_KEYS
+    arrays to `out`. XLA reads its flags when the backend starts, so the
+    caller runs this in a process started with `alt_env()`."""
+    import jax
+
+    import karpenter_tpu.solver.consolidation as jcons
+
+    jax.config.update("jax_platforms", "cpu")
+    problem, ref = load_npz(src)
+    v = {k: a for k, a in problem.arrays().items()}
+    v["n_classes"], v["pend_npods"] = problem.n_classes, problem.pend_npods
+    with mock.patch.object(jcons, "_candidate_vectors", lambda *a, **k: v):
+        _p, run = reference_run(str(ref["kind"]), list(range(problem.n)), [], [], int(ref["seed"]))
+    np.savez_compressed(out, **{k: run[key] for k, key in ALT_KEYS.items()})
+
+
+def run_alt(src, out) -> None:
+    """`alt_run(src, out)` in a process of its own under the other setting."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--alt-run", str(src), str(out)], env=alt_env(),
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"alternate reference run of {src} failed:\n{res.stderr[-4000:]}")
+
+
+def alt_names() -> list[str]:
+    """The corpus fixtures with a d (the LP and global proposers')."""
+    return sorted(n for n, (_fleet, kind) in CORPUS.items() if kind != "anneal")
+
+
+def write_alt(names=None) -> None:
+    """Write `alt/<name>.npz` for the stored lp and global fixtures (one
+    process each, four at a time)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    ALT_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in alt_names() if not names or n in names]
+    with ThreadPoolExecutor(4) as ex:
+        list(ex.map(lambda n: run_alt(CONS_DIR / f"{n}.npz", ALT_DIR / f"{n}.npz"), todo))
+    for n in todo:
+        print(n, "alternate setting written", file=sys.stderr)
+
+
 def build_fixtures(names) -> dict:
     """{name: (problem, ref)} built from scratch, one fleet build per fleet."""
     from karpenter_tpu.models.scheduler_model import reset_bucket_highwater
@@ -308,6 +373,7 @@ def write_all(names=None) -> None:
         save_npz(CONS_DIR / f"{name}.npz", problem, **ref)
         print(name, problem.n, "nodes", problem.n_classes, "classes", len(ref["ref_proposal_lens"]), "proposals",
               file=sys.stderr)
+    write_alt(names)
 
 
 def _assert_same(name: str, problem, ref) -> None:
@@ -340,10 +406,31 @@ def test_large_fixtures_match_reference():
 
 def test_corpus_files_present():
     assert sorted(p.stem for p in CONS_DIR.glob("*.npz")) == sorted(CORPUS)
+    assert sorted(p.stem for p in ALT_DIR.glob("*.npz")) == alt_names()
+
+
+@pytest.mark.parametrize("name", alt_names())
+def test_reference_settings_agree(name):
+    """The reference's d after 1 and 5 steps and the last, and its proposals,
+    are bit-equal under the default XLA:CPU setting and ALT_FLAG: on these
+    rounds the reference defines d, and the D_TOL tests hold the port to it
+    (the one round where the settings differ is `caps_lp`,
+    tests/test_torch_axis_caps.py)."""
+    _problem, ref = load_npz(CONS_DIR / f"{name}.npz")
+    with np.load(ALT_DIR / f"{name}.npz", allow_pickle=False) as z:
+        alt = {k: z[k] for k in z.files}
+    assert set(alt) == set(ALT_KEYS)
+    for k, key in ALT_KEYS.items():
+        assert alt[k].dtype == ref[key].dtype, k
+        np.testing.assert_array_equal(alt[k], ref[key], err_msg=f"{name}: {k}")
 
 
 if __name__ == "__main__":
     if "--write" in sys.argv:
         write_all([a for a in sys.argv[1:] if a != "--write"])
+    elif "--write-alt" in sys.argv:
+        write_alt([a for a in sys.argv[1:] if a != "--write-alt"])
+    elif sys.argv[1:2] == ["--alt-run"]:
+        alt_run(*sys.argv[2:4])
     else:
         print(__doc__)

@@ -73,7 +73,7 @@ def test_gpusolver_on_card_matches_reference(cuda_device):
     build.reset_launches()
     res = GPUSolver().solve_encoded(problem)
     assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "sparsify": 1, "recredit": 0, "globalpack": 0,
-                              "score_subsets": 0, "anneal": 0, "perpod_pack": 0}
+                              "score_subsets": 0, "anneal_pack": 0, "anneal": 0, "perpod_pack": 0}
     assert res.errors == []
     np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
 
@@ -301,3 +301,94 @@ def test_caps_kernels_equal_plain_on_card(cuda_device):
 
     shapes = chip_smoke.check_caps(cuda_device, {"globalpack": 0.0})
     assert shapes["caps_groups"]["G"] > 256 and shapes["caps_wide"]["R"] > 16 and shapes["large"]["Np"] >= 32768
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(37, 1001), (640, 4096), (3, 30000), (0, 64), (1, 5)])
+def test_sparsify_one_launch_equals_plain_on_card(cuda_device, shape):
+    """K3 (one launch, decoupled look-back) against `flat_outputs_plain` on
+    random take matrices: a ragged slot axis, the headline's, rows longer
+    than the shared-memory copy, no rows, one row; with room for every
+    triple and with nnz_cap below the count (entries past it dropped);
+    several calls in a row on one scratch."""
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.sparsify import flat_outputs, flat_outputs_plain
+
+    W, N = shape
+    g = torch.Generator(device=cuda_device).manual_seed(W * 7 + N)
+    takes = (torch.rand((W, N), generator=g, device=cuda_device) < 0.01).int() * torch.randint(
+        1, 5, (W, N), generator=g, device=cuda_device, dtype=torch.int32)
+    args = (takes, torch.randint(0, 9, (W,), generator=g, device=cuda_device, dtype=torch.int32),
+            torch.randint(-1, 9, (N,), generator=g, device=cuda_device, dtype=torch.int32),
+            torch.rand((N, 3), generator=g, device=cuda_device) < 0.5,
+            torch.tensor(5, dtype=torch.int32, device=cuda_device))
+    nnz = int((takes != 0).sum())
+    for cap in (nnz + 64, max(1, nnz // 2), 1):
+        for _ in range(3):
+            build.reset_launches()
+            got = flat_outputs(*args, cap)
+            assert build.LAUNCHES["sparsify"] == 1
+            assert torch.equal(got, flat_outputs_plain(*args, cap)), cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["small_anneal_4", "anneal_256", "caps_anneal", "ragged"])
+def test_anneal_prepass_equals_plain_on_card(cuda_device, name):
+    """K7's pre-pass (bit rows by host and by deleted node, the undominated
+    rows, the flag) against its plain version, bit for bit."""
+    import dataclasses
+
+    from karpenter_tpu_torch.kernels.anneal import anneal_prepass, anneal_prepass_plain
+    from karpenter_tpu_torch.solver.consolidation import load_npz as cons_load
+    from karpenter_tpu_torch.solver.consolidation import tensors_from_problem
+    from test_torch_consolidation import load
+
+    if name == "caps_anneal":
+        problem, ref = cons_load(FIXTURE_DIR / "caps" / "caps_anneal.npz")
+    else:
+        problem, ref = load("small_anneal_7" if name == "ragged" else name)
+    t, _aux = tensors_from_problem(problem, cuda_device, dense_compat=True)
+    flips = torch.as_tensor(ref["ref_flips"], device=cuda_device)
+    if name == "ragged":  # a side that is not a multiple of 32
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        t = dataclasses.replace(t, pod_compat=(torch.rand((45, 45), generator=g, device=cuda_device) < 0.5).float())
+        flips = flips % 45
+    got = anneal_prepass(t, flips)
+    want = anneal_prepass_plain(t, flips)
+    assert int(got[3].item()) == 0
+    for a, b in zip(got[:3], want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_anneal_kernel_shapes_and_flags_on_card(cuda_device):
+    """K7 against `anneal_plain` at one warp (Np = 16), with R = 5 (the build
+    that reads R at run time), with no steps, and one pre-pass and one chain
+    launch per call; a non-0/1 pod_compat or a flip out of range raises."""
+    import dataclasses
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.anneal import anneal, anneal_plain
+    from karpenter_tpu_torch.solver.consolidation import tensors_from_problem
+    from test_torch_consolidation import load
+
+    problem, ref = load("small_anneal_4")
+    t, _aux = tensors_from_problem(problem, cuda_device, dense_compat=True)
+    streams = [torch.as_tensor(ref[k], device=cuda_device) for k in ("ref_x0", "ref_flips", "ref_u")]
+    t5 = dataclasses.replace(t, node_slack=torch.cat([t.node_slack, t.node_slack[:, :1] * 0.5], 1).contiguous(),
+                             node_used=torch.cat([t.node_used, t.node_used[:, :1] * 0.5], 1).contiguous(),
+                             row_alloc=torch.cat([t.row_alloc, t.row_alloc[:, :1] * 0.5], 1).contiguous())
+    for tt, ss in ((t, streams), (t5, streams), (t, [streams[0], streams[1][:, :0], streams[2][:, :0]])):
+        build.reset_launches()
+        got = anneal(tt, *[x.contiguous() for x in ss])
+        assert build.LAUNCHES["anneal_pack"] == 1 and build.LAUNCHES["anneal"] == 1
+        want = anneal_plain(tt, *ss)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    bad = t.pod_compat.clone()
+    bad[2, 3] = 0.5
+    with pytest.raises(ValueError, match="only 0 and 1"):
+        anneal(dataclasses.replace(t, pod_compat=bad), *streams)
+    flips = streams[1].clone()
+    flips[1, 2] = -1
+    with pytest.raises(ValueError, match="flips outside"):
+        anneal(t, streams[0], flips, streams[2])

@@ -13,7 +13,9 @@ the card's clocks shows as a difference between the two runs of one tree.
 Each run loads the fixtures with that checkout's `chip_smoke.py` and times,
 with CUDA events (median of 5 rounds after a warm-up call), the kernel
 wrappers alone: K2 `pack_scan` on the two headlines and the two existing
-fleets, K8 `perpod_pack` at the headline, K5 `globalpack` at `lp_5000` (Qp
+fleets, K3 `flat_outputs` at the headline and at the headline churn chain's
+delta step (`chip_smoke.drive_chain`), eagerly and from a replayed CUDA
+graph (device time), K8 `perpod_pack` at the headline, K5 `globalpack` at `lp_5000` (Qp
 = R = 4) and at two shapes of the same fleet that other builds of the
 kernel take (R = 5 and Qp = 8, from this checkout's
 `chip_smoke.k5_widened`), each beside its plain version's d, K6
@@ -60,7 +62,9 @@ def one(tree: str) -> dict:
     from karpenter_tpu_torch.kernels.pack_scan import pack_scan
     from karpenter_tpu_torch.kernels.perpod_pack import perpod_pack
     from karpenter_tpu_torch.kernels.score_subsets import score_subsets
+    from karpenter_tpu_torch.kernels.sparsify import flat_outputs
     from karpenter_tpu_torch.models.consolidation_model import draw_anneal_streams
+    from karpenter_tpu_torch.models.scheduler_model_grouped import delta_nnz_cap
     from karpenter_tpu_torch.solver.consolidation import lp_ladder, reference_inits, tensors_from_problem
 
     assert Path(build.__file__).resolve().is_relative_to(tree_path), build.__file__
@@ -71,6 +75,19 @@ def one(tree: str) -> dict:
         _problem, _ref, t, items, _nnz = cs.prepare(name, dev)
         compat, key = feasibility(t, items)
         out[f"pack_scan {name}"] = cs.cuda_ms(lambda: pack_scan(t, items, compat, key, n_slots=t.n_slots), 3)
+        if name == cs.HEADLINE:
+            takes, left, st = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+            k3 = (takes, left, st[0], st[2], st[6], _nnz)
+            out["sparsify headline"] = cs.cuda_ms(lambda: flat_outputs(*k3), 20)
+            out["sparsify headline graph"] = cs.graph_ms(lambda: flat_outputs(*k3), 20)
+            out["nonzero headline"] = cs.cuda_ms(lambda: torch.nonzero(takes), 20)
+    state, t, items, n_added = cs.drive_chain(cs.CHURN, dev)["steps"][1]["seen"]["dp"]
+    compat, key = feasibility(t, items)
+    takes, left, st = pack_scan(t, items, compat, key, n_slots=t.n_slots, init_state=state)
+    k3 = (takes, left, st[0], st[2], st[6], delta_nnz_cap(n_added))
+    out["sparsify churn step"] = cs.cuda_ms(lambda: flat_outputs(*k3), 20)
+    out["sparsify churn step graph"] = cs.graph_ms(lambda: flat_outputs(*k3), 20)
+    out["nonzero churn step"] = cs.cuda_ms(lambda: torch.nonzero(k3[0]), 20)
     _problem, _ref, t, pods = cs.perpod_load(cs.HEADLINE, dev)
     compat, key = compat_and_key(t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
     out["perpod_pack"] = cs.cuda_ms(lambda: perpod_pack(t, pods, compat, key), 3)
