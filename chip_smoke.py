@@ -52,7 +52,10 @@ with Qp = 128 classes), and a synthetic round at Np = 32768 whose K5 and K7
 state is past their shared-memory budget: K1, K2 (a full pack and the same
 items again from its carry) and K8 bit for bit against their plain
 versions and the stored JAX outputs; K5 within D_TOL of its plain version;
-K6 and K7 bit for bit against theirs (and JAX's, on the fixtures). The LP
+K6 and K7 bit for bit against theirs (and JAX's, on the fixtures); K6 also
+at Np = 256, 8192 and 32768 (`K6_SIZES`: a cluster of one block, of eight
+blocks of one 1024-node tile, of eight of four), without and with pending
+pods. The LP
 proposer is also driven on `lp_300_near_tie`, whose JAX d has two real
 nodes 3.6e-7 apart at a prefix boundary, and must give the JAX proposals.
 
@@ -61,7 +64,11 @@ perpod_pack against their plain versions on the card (the five outputs and
 the whole final carry), the five outputs against the stored JAX per-pod pack
 (`fixtures/perpod/`) and the `fast_validate` errors against the reference's
 own (the per-pod scan ignores host ports and required affinity, so those
-are not 0 everywhere). Its entry, `greedy_pack_encoded`, is driven on both
+are not 0 everywhere); K8 also on the synthetic problems of
+`PERPOD_REGIME_CASES`, whose open-slot counts stay below, cross, start at and
+start past the 64 open slots up to which one warp searches alone (the five
+outputs and the whole carry against its plain version). Its entry,
+`greedy_pack_encoded`, is driven on both
 headlines with the counts set to 0 just before and read just after: exactly
 one K1 and one K8 launch each.
 
@@ -69,12 +76,13 @@ Last it times each kernel, its plain version and the library yardstick with
 CUDA events at the headline shape (K4 and the delta pack at the headline
 churn step; K5-K7 at the 5000-node shapes, K7 also at the 5000-node fleet's
 Np = 8192 with the dense compatibility matrix; K8 and K1 over the 5000
-pods at the headline), the full solve, the delta solve beside a full solve
+pods at the headline, K8 also at the existing fleets of 1200 and 3800
+nodes), the full solve, the delta solve beside a full solve
 of the same problem, the LP and global proposers at 5000 nodes and the
 per-pod pack, with stage breakdowns (host clock, device synchronised). K2
 is also timed per `place()` call at both headlines, the churn step and
 the existing fleets of 1200 and 3800 nodes (open slots past its
-shared-memory tile); K3 (at the headline and the churn step), K4
+shared-memory tile); K3 (at the headline and the churn step), K4, K6
 and `index_add_` also from a replayed CUDA graph, which leaves out the
 host's time to issue each call.
 
@@ -1057,6 +1065,7 @@ def time_consolidation(dev, launches: dict, errs: dict) -> list:
     k6_args = (t, aux["onehot"], aux["compat_nq"], aux["pend_req"], aux["pend_npods"], aux["pend_active"], Xt)
     b, o = k6_cost(t, aux, Xt.shape[0])
     rows.append(dict(name="score_subsets", ms=cuda_ms(lambda: score_subsets(*k6_args), 20),
+                     graph_ms=graph_ms(lambda: score_subsets(*k6_args), 20),
                      plain_ms=cuda_ms(lambda: score_subsets_plain(*k6_args), 3), library_ms=None, bytes=b, ops=o))
     print(f"K5 at {CONS_LP}: C={d0.shape[0]} inits x {n_iters} steps, Np={t.node_price.shape[0]}, "
           f"Qp={aux['onehot'].shape[1]}, Tp={t.row_price.shape[0]}, R={t.row_alloc.shape[1]}; "
@@ -1096,6 +1105,7 @@ def time_consolidation(dev, launches: dict, errs: dict) -> list:
     print(f"K7 at {CONS_ANNEAL}: C={streams[1].shape[0]} chains x {streams[1].shape[1]} steps, "
           f"Np={ta.node_price.shape[0]}, Tp={ta.row_price.shape[0]}")
     out = [kernel_row(r, launches, errs) for r in rows]
+    out[1].update(graph_ms=rows[1]["graph_ms"])
     out[-1].update(np8192_ms=k7_8192["ms"], np8192_plain_ms=k7_8192["plain_ms"], np8192_bound_ms=bound8,
                    np8192_pack_ms=k7_8192["pack_ms"])
     return out
@@ -1175,6 +1185,46 @@ def synthetic_round(n: int = 100, n_classes: int = 70, n_rows: int = 24, R: int 
         pend_req=np.zeros(R, dtype=f32),
         pend_npods=0.0,
     )
+
+
+# K6 past one tile: synthetic rounds of n nodes, R resources and classes
+# (Np = 256: one block; 8192: 8 blocks of one 1024-node tile; 32768: 8 of 4)
+K6_SIZES = {256: (200, 4, 4), 8192: (5000, 4, 4), 32768: (20000, 20, 70)}
+
+
+def check_score_subsets_size(Np: int, pending: bool, dev) -> float:
+    """K6 against its plain version, bit for bit, on 32 rows of mixed
+    density (pad nodes set in some) of the `K6_SIZES` round at Np, without
+    or with pending pods; returns the largest difference (0)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.kernels.score_subsets import score_subsets, score_subsets_plain
+    from karpenter_tpu_torch.solver import consolidation as tcons
+
+    n, R, n_classes = K6_SIZES[Np]
+    v = synthetic_round(n=n, n_classes=n_classes, n_rows=64, R=R, seed=Np + pending)
+    if pending:
+        rng = np.random.default_rng(Np)
+        v["pend_req"] = rng.uniform(0.5, 4.0, R).astype(np.float32)
+        v["pend_npods"] = 3.0
+        v["pend_active"][:2] = 1.0
+        v["pend_mass"][:2] = rng.uniform(0.1, 1.0, (2, R)).astype(np.float32)
+    t, aux = tcons.tensors_from_problem(tcons.ConsolidationProblem.from_reference(v), dev)
+    expect(aux["onehot"].shape[0] == Np, f"K6 size case: Np {aux['onehot'].shape[0]} != {Np}")
+    gen = torch.Generator(device=dev).manual_seed(Np)
+    dens = torch.tensor([0.01, 0.1, 0.5, 0.9], device=dev).repeat(8).unsqueeze(1)
+    X = torch.rand((32, Np), generator=gen, device=dev) < dens
+    X[::3, n:] = False
+    X[0] = False
+    pend = (aux["pend_req"], aux["pend_npods"], aux["pend_active"])
+    got = score_subsets(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    want = score_subsets_plain(t, aux["onehot"], aux["compat_nq"], *pend, X)
+    torch.cuda.synchronize()
+    expect(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+           f"Np={Np}{' with pending pods' if pending else ''}: K6 differs from plain")
+    expect(bool(want[1].any()), f"Np={Np}: no feasible row")
+    return max_abs(*zip(got, want))
 
 
 def k5_widened(t, aux, d0, y0, n_iters: int) -> dict:
@@ -1365,12 +1415,149 @@ def check_caps(dev, errs: dict) -> dict:
     shapes["large"] = dict(Np=int(Np), Qp=int(Qp), R=int(t.node_used.shape[1]))
     print(f"caps Np={Np} Qp={Qp} R={shapes['large']['R']}: K5 (1, 300 steps) within {D_TOL} of plain, K6 (8 rows) and K7 "
           f"(2 chains x 8 steps) == plain ({time.perf_counter() - t1:.1f} s)")
+
+    # K6's clusters: one block, eight blocks of one tile, eight of four
+    t1 = time.perf_counter()
+    for size in K6_SIZES:
+        for pending in (False, True):
+            errs["score_subsets"] = max(errs.get("score_subsets", 0.0), check_score_subsets_size(size, pending, dev))
+    shapes["k6_sizes"] = sorted(K6_SIZES)
+    print(f"caps K6 at Np = {sorted(K6_SIZES)} (R = 4, 4, 20; without and with pending pods; 32 rows each) == plain "
+          f"({time.perf_counter() - t1:.1f} s)")
     return shapes
 
 
 # -- the per-pod pack (K1 over the pods, K8 perpod_pack) -------------------------------
 
 PERPOD_OUTPUTS = ("assignment", "slot_basis", "slot_domset", "slot_rank", "open_count")
+# synthetic per-pod problems around K8's WARP_REACH (64 open slots): case ->
+# (seed, existing slots, slot axis N, pods). "below" never passes the reach,
+# "cross" and "at_reach" start at or below it and pass it, "above" starts past it.
+PERPOD_REGIME_CASES = {"below": (0, 3, 48, 60), "cross": (1, 40, 120, 120), "at_reach": (2, 64, 128, 80),
+                       "above": (3, 100, 180, 80)}
+
+
+def perpod_regime_arrays(seed: int, n_ex: int, N: int, P: int) -> dict:
+    """A per-pod problem as numpy arrays (the layout of
+    `tests/test_torch_perpod._synthetic`) whose open-slot count starts at
+    `n_ex` and grows by a new slot every few pods: small existing nodes,
+    offering rows of 2-8 units, pods of 1-3 units that mostly fit any row
+    (so pods that take open slots and pods that open new ones alternate),
+    hostname anti-affinity owners that need a slot of their own, and the
+    groups and domains of `_synthetic` (spread, anti, hostname; two keys)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_off, R, K, C, Q, G = 12, 4, 3, 2, 3, 6
+    n_real = n_ex + n_off
+    Nrows = n_real + 4  # pad rows
+    dom_key_of = np.array([0, 1, 0, 0, 0, 1, 1], np.int32)
+    D, Kd = dom_key_of.shape[0], 2
+    alloc = rng.choice(np.array([2.0, 4.0, 8.0], np.float32), size=(Nrows, R)).astype(np.float32)
+    alloc[:n_ex] = rng.choice(np.array([1.0, 1.5, 2.0], np.float32), size=(n_ex, R))
+    alloc[:, -1] = np.float32(1e30)  # a pad resource
+    alloc[n_real:] = np.float32(-3.4e38)
+    rank = np.concatenate([np.full(n_ex, -1), rng.integers(0, Q, Nrows - n_ex)]).astype(np.int32)
+    rank[n_real:] = 0
+    kinds = rng.choice(np.array([0, 0, 1, 2, 3, -1], np.int32), size=G).astype(np.int32)
+    kinds[0], kinds[1] = 0, 2  # a spread group and a hostname anti group in every case
+    ex_dom = np.zeros((n_ex, D), bool)
+    for j in range(n_ex):
+        ex_dom[j, rng.choice(np.nonzero(dom_key_of == 0)[0])] = True
+        ex_dom[j, rng.choice(np.nonzero(dom_key_of == 1)[0])] = True
+    counts_host = np.zeros((G, N), np.int32)
+    counts_host[:, :n_ex] = rng.integers(0, 2, size=(G, n_ex))
+    pod_req = rng.choice(np.array([1.0, 1.0, 2.0, 3.0], np.float32), size=(P, R)).astype(np.float32)
+    pod_req[:, -1] = 0.0
+    pod_mask = np.full((P, K, 1), 0xFFFFFFFF, np.uint32)
+    odd = rng.random(P) < 0.1
+    pod_mask[odd] = rng.integers(0, 2**32, size=(int(odd.sum()), K, 1), dtype=np.uint64).astype(np.uint32)
+    return dict(
+        n_ex=n_ex, n_real=n_real, N=N, alloc=alloc, rank=rank,
+        labels=rng.integers(0, 20, size=(Nrows, K)).astype(np.int32),
+        taint_class=rng.integers(0, C, Nrows).astype(np.int32), rank_domset=rng.random((Q, D)) < 0.7,
+        dom_key_of=dom_key_of, kinds=kinds, skew=rng.integers(1, 3, G).astype(np.int32),
+        dom_key=np.where((kinds == 0) | (kinds == 3), rng.integers(0, Kd, G), -1).astype(np.int32),
+        min_domains=np.where(rng.random(G) < 0.3, 3, 0).astype(np.int32), registered=rng.random((G, D)) < 0.8,
+        counts_dom=rng.integers(0, 3, size=(G, D)).astype(np.int32), counts_host=counts_host, ex_dom=ex_dom,
+        pod_req=pod_req, pod_mask=pod_mask, pod_taint_ok=rng.random((P, C)) < 0.95,
+        pod_dom_allowed=rng.random((P, D)) < 0.8, pod_restrict=rng.random((P, Kd)) < 0.3,
+        member=rng.random((P, G)) < 0.25, owner=rng.random((P, G)) < 0.15,
+    )
+
+
+def perpod_tensors(s: dict, dev):
+    """(SchedulerTensors, PodTensors) on `dev` of a per-pod problem given as
+    numpy arrays (`perpod_regime_arrays`' layout; no host ports)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.models import scheduler_model as tsm
+
+    def f(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+
+    Nrows, R = s["alloc"].shape
+    ports = torch.zeros((Nrows, 4), dtype=torch.bool, device=dev)
+    ex_ports = torch.zeros((s["n_ex"], 4), dtype=torch.bool, device=dev)
+    b, i32 = torch.bool, torch.int32
+    t = tsm.SchedulerTensors(
+        n_rows_real=s["n_real"], row_alloc=f(s["alloc"], torch.float32), row_labels=f(s["labels"], i32),
+        row_pool_rank=f(s["rank"], i32), row_taint_class=f(s["taint_class"], i32),
+        rank_domset=f(s["rank_domset"], b),
+        rank_dom_cap=torch.zeros((s["rank_domset"].shape[0], s["dom_key_of"].shape[0], R), device=dev),
+        dom_key_of=f(s["dom_key_of"], i32), group_kind=f(s["kinds"], i32), group_skew=f(s["skew"], i32),
+        group_dom_key=f(s["dom_key"], i32), group_min_domains=f(s["min_domains"], i32),
+        group_registered=f(s["registered"], b), counts_dom_init=f(s["counts_dom"], i32),
+        counts_host_init=f(s["counts_host"], i32), existing_domset=f(s["ex_dom"], b), existing_port_any=ex_ports,
+        existing_port_wild=ex_ports, existing_port_spec=ex_ports, row_port_any=ports, row_port_wild=ports,
+        row_port_spec=ports, dom_keys=(2, -1), n_existing=s["n_ex"], n_slots=s["N"],
+    )
+    pods = tsm.PodTensors(
+        pod_req=f(s["pod_req"], torch.float32), pod_mask=f(s["pod_mask"].view(np.int32), i32),
+        pod_taint_ok=f(s["pod_taint_ok"], b), pod_dom_allowed=f(s["pod_dom_allowed"], b),
+        pod_restrict=f(s["pod_restrict"], b), member=f(s["member"], b), owner=f(s["owner"], b),
+    )
+    return t, pods
+
+
+def open_before(assignment, n_ex: int):
+    """The open-slot count each pod saw and whether it opened a new slot,
+    from a per-pod assignment (slots open in order)."""
+    import numpy as np
+
+    a = np.asarray(assignment)
+    seen, opened = np.zeros(a.shape[0], np.int64), np.zeros(a.shape[0], bool)
+    open_count = n_ex
+    for i, j in enumerate(a.tolist()):
+        seen[i] = open_count
+        opened[i] = j == open_count
+        open_count += int(opened[i])
+    return seen, opened
+
+
+def check_perpod_regimes(dev, errs: dict) -> dict:
+    """K8 against its plain version (the five outputs and the whole carry)
+    on `PERPOD_REGIME_CASES`, which stay below, cross and start past the
+    warp's reach; returns each case's first and final open-slot count."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key
+    from karpenter_tpu_torch.kernels.perpod_pack import WARP_REACH, perpod_pack, perpod_pack_plain
+
+    out = {}
+    for name, (seed, n_ex, N, P) in PERPOD_REGIME_CASES.items():
+        t, pods = perpod_tensors(perpod_regime_arrays(seed, n_ex, N, P), dev)
+        compat, key = compat_and_key(t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+        got = perpod_pack(t, pods, compat, key)
+        want = perpod_pack_plain(t, pods, compat, key)
+        torch.cuda.synchronize()
+        leaves = PERPOD_OUTPUTS + ("slot_rem", "counts_dom", "counts_host")
+        for leaf, a, b in zip(leaves, got, want):
+            expect(torch.equal(a, b), f"regime case {name}: K8 {leaf} differs from plain")
+        errs["perpod_pack"] = max(errs["perpod_pack"], max_abs(*zip(got, want)))
+        out[name] = dict(first_open=n_ex, final_open=int(got[4]), reach=WARP_REACH)
+    return out
 
 
 def perpod_fixture(name: str):
@@ -1514,6 +1701,11 @@ def time_perpod(dev, runs: int = 5) -> dict:
     k8 = dict(name="perpod_pack", ms=cuda_ms(lambda: perpod_pack(t, pods, compat, key), 3),
               plain_ms=cuda_ms(lambda: perpod_pack_plain(t, pods, compat, key), 1, rounds=2), library_ms=None,
               bytes=b8, ops=o8)
+    # the existing fleets: every pod past the warp's reach (all warps search)
+    for key_ms, name in (("fleet_ms", FLEET), ("fleet_big_ms", FLEET_BIG)):
+        _p, _r, tf, pf = perpod_load(name, dev)
+        cf, kf = compat_and_key(tf, pf.pod_mask, pf.pod_taint_ok, pf.pod_req)
+        k8[key_ms] = cuda_ms(lambda: perpod_pack(tf, pf, cf, kf), 3)
     wall, stages = [], {}
 
     def stage(name, fn):
@@ -1537,7 +1729,8 @@ def time_perpod(dev, runs: int = 5) -> dict:
         c, k = stage("K1 over the pods", lambda: compat_and_key(ts, ps.pod_mask, ps.pod_taint_ok, ps.pod_req))
         stage("K8 perpod_pack", lambda: perpod_pack(ts, ps, c, k))
     print(f"K8 at {HEADLINE}: P={pods.pod_req.shape[0]} pods, N={t.n_slots} slots, Nrows={t.row_alloc.shape[0]}, "
-          f"R={t.row_alloc.shape[1]}, G={t.counts_dom_init.shape[0]}, D={t.counts_dom_init.shape[1]}")
+          f"R={t.row_alloc.shape[1]}, G={t.counts_dom_init.shape[0]}, D={t.counts_dom_init.shape[1]}; "
+          f"at {FLEET} {k8['fleet_ms']:.4f} ms, at {FLEET_BIG} {k8['fleet_big_ms']:.4f} ms (CUDA events)")
     return dict(feasibility_pods=k1, perpod_pack=k8, entry_ms=statistics.median(wall[1:]), entry_runs=wall,
                 entry_stages={k: statistics.median(v[1:]) for k, v in stages.items()})
 
@@ -1633,6 +1826,10 @@ def run(dev, card: str) -> dict:
         print(f"per-pod kernels == plain == JAX reference: {name} P={info['P']} N={info['N']} placed {info['placed']} "
               f"open {info['open']}, {info['errors']} validation errors == reference "
               f"({time.perf_counter() - t1:.1f} s)")
+    regimes = check_perpod_regimes(dev, errs)
+    print(f"per-pod K8 == plain on the synthetic problems around the warp's reach: "
+          + ", ".join(f"{k} open {v['first_open']} -> {v['final_open']}" for k, v in regimes.items())
+          + f" (reach {next(iter(regimes.values()))['reach']})")
     perpod_runs = {name: drive_perpod(name, dev) for name in (HEADLINE, HEADLINE_AFF)}
     perpod = time_perpod(dev)
 
@@ -1652,6 +1849,7 @@ def run(dev, card: str) -> dict:
     rows.append(time_recredit(churn, delta_launches, errs))
     rows += time_consolidation(dev, cons_launches, errs)
     rows.append(kernel_row(perpod["perpod_pack"], perpod_runs[HEADLINE], errs))
+    rows[-1].update(fleet_ms=perpod["perpod_pack"]["fleet_ms"], fleet_big_ms=perpod["perpod_pack"]["fleet_big_ms"])
     for r in rows:
         print(f"time {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}"

@@ -1,10 +1,13 @@
-"""K8 perpod_pack: the per-pod FFD scan as one persistent CUDA block.
+"""K8 perpod_pack: the per-pod FFD scan as one persistent CUDA block, in
+which one warp decides each pod.
 
 `perpod_pack` launches `csrc/perpod_pack.cu` for CUDA tensors and runs the
 plain `greedy_pack_plain` for CPU tensors. The kernel updates a copy of the
 initial carry in place and returns it as the final carry, in the plain
 version's order: (assignment, slot_basis, slot_domset, slot_rank,
-open_count, slot_rem, counts_dom, counts_host)."""
+open_count, slot_rem, counts_dom, counts_host). While at most
+`WARP_REACH` slots are open, one warp searches them; past that every warp
+of the block joins the search (the source's `WARP_REACH`)."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from ..models.scheduler_model import greedy_pack_plain
 from . import build
 
 perpod_pack_plain = greedy_pack_plain
+WARP_REACH = 64  # csrc/perpod_pack.cu's WARP_REACH
 
 
 def perpod_pack(t, pods, compat, key):

@@ -1,13 +1,13 @@
 """K6 score_subsets: the discrete factored objective of each delete-set.
 
-`score_subsets` launches `csrc/score_subsets.cu` for CUDA tensors (one
-block per row, every row in one launch; any R, Qp and Np) and runs the plain
-`objective_factored_plain` for CPU tensors. Returns (score [M] f32,
-feasible [M] bool)."""
+`score_subsets` launches `csrc/score_subsets.cu` for CUDA tensors (a
+cluster of up to 8 blocks per row, each block a share of the node axis cut
+on XLA:CPU's summation windows; every row in one launch; any R, Qp and Np)
+and runs the plain `objective_factored_plain` for CPU tensors. Returns
+(score [M] f32, feasible [M] bool); `score_subsets_packed` returns both in
+one byte buffer (the scores' bytes, then the flags), for one download."""
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -18,12 +18,13 @@ from . import build
 score_subsets_plain = objective_factored_plain
 
 
-def score_subsets(t, onehot, compat_nq, pend_req, pend_npods: float, pend_active, X):
-    """t: ConsolidationTensors; onehot / compat_nq [Np, Qp], pend_req [R],
-    pend_active [Qp] (f32), pend_npods a float, X [M, Np] bool."""
+def score_subsets_packed(t, onehot, compat_nq, pend_req, pend_npods: float, pend_active, X):
+    """K6 (CUDA tensors) or its plain version (CPU tensors) into one uint8
+    tensor of 5M bytes: the M f32 scores, then the M feasibility flags."""
     dev = X.device
     if dev.type == "cpu":
-        return objective_factored_plain(t, onehot, compat_nq, pend_req, pend_npods, pend_active, X)
+        s, f = objective_factored_plain(t, onehot, compat_nq, pend_req, pend_npods, pend_active, X)
+        return torch.cat([s.contiguous().view(torch.uint8), f.contiguous().view(torch.uint8)])
     if dev.type != "cuda":
         raise ValueError(f"score_subsets: unsupported device {dev}")
     M, N = X.shape
@@ -33,30 +34,39 @@ def score_subsets(t, onehot, compat_nq, pend_req, pend_npods: float, pend_active
     if onehot.shape != (N, Q) or compat_nq.shape != (N, Q) or pend_req.shape != (R,) or pend_active.shape != (Q,):
         raise ValueError("score_subsets: node or class axes disagree")
     f = torch.float32
-    args = [
-        build.require(t.node_price, dev, f, "node_price"),
-        build.require(t.node_cost, dev, f, "node_cost"),
-        build.require(t.node_slack, dev, f, "node_slack"),
-        build.require(t.node_used, dev, f, "node_used"),
-        build.require(t.node_npods, dev, f, "node_npods"),
-        build.require(onehot, dev, f, "onehot"),
-        build.require(compat_nq, dev, f, "compat_nq"),
-        build.require(t.row_alloc, dev, f, "row_alloc"),
-        build.require(t.row_price, dev, f, "row_price"),
-        build.require(pend_req, dev, f, "pend_req"),
-        build.require(pend_active, dev, f, "pend_active"),
-        build.require(X, dev, torch.bool, "X"),
-    ]
-    score = torch.empty(M, dtype=f, device=dev)
-    feasible = torch.empty(M, dtype=torch.bool, device=dev)
-    # the kernel's tables past its shared-memory budget (large Np) go here
-    n_scratch = build.lib().kt_score_subsets_scratch(M, N, R, Q)
+    args = (t.node_price, t.node_cost, t.node_slack, t.node_used, t.node_npods, onehot, compat_nq, t.row_alloc,
+            t.row_price, pend_req, pend_active)
+    # the node and row arrays stay where tensors_from_problem put them: the
+    # checks copy nothing (one pass; `build.require` names the culprit)
+    if not all(a.device == dev and a.dtype == f and a.is_contiguous() for a in args):
+        for k, a in enumerate(args):
+            build.require(a, dev, f, f"score_subsets argument {k}")
+    build.require(X, dev, torch.bool, "X")
+    lib = build.lib()
+    out = torch.empty(5 * M, dtype=torch.uint8, device=dev)
+    # the blocks' tables past their shared-memory budget (large Np or R) go here
+    n_scratch = lib.kt_score_subsets_scratch(M, N, R, Q)
     scratch = torch.empty(n_scratch, dtype=f, device=dev) if n_scratch else None
-    rc = build.lib().kt_score_subsets(*[a.data_ptr() for a in args], M, N, R, Q, T,
-                                      ctypes.c_float(float(np.float32(pend_npods))),
-                                      ctypes.c_float(float(np.float32(t.churn_weight))),
-                                      score.data_ptr(), feasible.data_ptr(),
-                                      scratch.data_ptr() if scratch is not None else None, build.stream_ptr(dev))
+    ptr = out.data_ptr()
+    rc = lib.kt_score_subsets(*[a.data_ptr() for a in args], X.data_ptr(), M, N, R, Q, T,
+                              float(np.float32(pend_npods)), float(np.float32(t.churn_weight)), ptr, ptr + 4 * M,
+                              scratch.data_ptr() if scratch is not None else None, build.stream_ptr(dev))
     build.check(rc, "score_subsets")
     build.LAUNCHES["score_subsets"] += 1
-    return score, feasible
+    return out
+
+
+def unpack(packed, M: int):
+    """(score [M] f32, feasible [M] bool) views of a packed K6 output
+    (a tensor or a numpy array)."""
+    if isinstance(packed, np.ndarray):
+        return packed[:4 * M].view(np.float32), packed[4 * M:].view(np.bool_)
+    return packed[:4 * M].view(torch.float32), packed[4 * M:].view(torch.bool)
+
+
+def score_subsets(t, onehot, compat_nq, pend_req, pend_npods: float, pend_active, X):
+    """t: ConsolidationTensors; onehot / compat_nq [Np, Qp], pend_req [R],
+    pend_active [Qp] (f32), pend_npods a float, X [M, Np] bool."""
+    if X.device.type == "cpu":
+        return objective_factored_plain(t, onehot, compat_nq, pend_req, pend_npods, pend_active, X)
+    return unpack(score_subsets_packed(t, onehot, compat_nq, pend_req, pend_npods, pend_active, X), X.shape[0])

@@ -167,12 +167,13 @@ def lp_repack(t: ConsolidationTensors, onehot, compat_qn, d0, y0, n_iters: int =
     return global_repack(t, onehot, compat_qn, pend_mass, pend_weight, d0, y0, n_iters=n_iters)
 
 
-def score_subsets(t: ConsolidationTensors, onehot, compat_nq, X):
-    """Score delete-sets X [M, Np] with no pending pods (host numpy out)."""
+def score_subsets(t: ConsolidationTensors, onehot, compat_nq, X, stage=None):
+    """Score delete-sets X [M, Np] with no pending pods (host numpy out);
+    `stage` as `score_subsets_global`'s."""
     from .globalpack import score_subsets_global
 
     R, Q = t.node_used.shape[1], onehot.shape[1]
     dev = onehot.device
     pend_req = torch.zeros(R, dtype=torch.float32, device=dev)
     pend_active = torch.zeros(Q, dtype=torch.float32, device=dev)
-    return score_subsets_global(t, onehot, compat_nq, pend_req, 0.0, pend_active, X)
+    return score_subsets_global(t, onehot, compat_nq, pend_req, 0.0, pend_active, X, stage)

@@ -19,6 +19,8 @@ rule.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
@@ -172,19 +174,30 @@ def objective_factored_plain(t: ConsolidationTensors, onehot, compat_nq, pend_re
     return finish_score(t, xf, displaced, usable, replacement_cost(t, shortfall, multi))
 
 
-def score_subsets_global(t: ConsolidationTensors, onehot, compat_nq, pend_req, pend_npods: float, pend_active, X):
+def score_subsets_global(t: ConsolidationTensors, onehot, compat_nq, pend_req, pend_npods: float, pend_active, X,
+                         stage=None):
     """Score delete-sets X [M, Np] (numpy or tensor, bool) against a fixed
     pending load: pads the rows to a multiple of LP_SCORE_BATCH with
     all-False rows, as the reference does, and scores them in one kernel K6
-    launch. Returns numpy (scores [M] f32, feasible [M] bool)."""
-    from ..kernels.score_subsets import score_subsets as k6
+    launch: one upload of the rows, one download of the scores and flags
+    together. Returns numpy (scores [M] f32, feasible [M] bool). `stage`
+    (a context-manager factory, e.g. the proposers' stage timer) brackets
+    the upload, the kernel and the download."""
+    from ..kernels.score_subsets import score_subsets_packed, unpack
 
+    stage = stage or (lambda _name: nullcontext())
     X = np.asarray(X, dtype=bool)
     m = X.shape[0]
     Xp = np.zeros((m + (-m % LP_SCORE_BATCH), X.shape[1]), dtype=bool)
     Xp[:m] = X
-    s, f = k6(t, onehot, compat_nq, pend_req, pend_npods, pend_active, torch.from_numpy(Xp).to(onehot.device))
-    return s.cpu().numpy()[:m], f.cpu().numpy()[:m]
+    with stage("K6 upload"):
+        Xt = torch.from_numpy(Xp).to(onehot.device)
+    with stage("K6 kernel"):
+        packed = score_subsets_packed(t, onehot, compat_nq, pend_req, pend_npods, pend_active, Xt)
+    with stage("K6 download"):
+        host = packed.cpu().numpy()
+    s, f = unpack(host, Xp.shape[0])
+    return s[:m], f[:m]
 
 
 def rank_ladder(scores, feas, X, n, max_proposals, floor=0.0, skip_rows=frozenset()):

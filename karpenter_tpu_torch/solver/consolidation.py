@@ -310,8 +310,7 @@ def lp_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, stage
     if not rows:
         return [], None, None, None
     X = np.stack(rows)
-    with stage("K6 score_subsets"):
-        scores, feas = score_subsets(t, aux["onehot"], aux["compat_nq"], X)
+    scores, feas = score_subsets(t, aux["onehot"], aux["compat_nq"], X, stage)
     with stage("ladder"):
         ladder, _ = rank_ladder(scores, feas, X, n, max_proposals)
         out = [s for s, _sc in ladder]
@@ -365,9 +364,8 @@ def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, s
                     seen_rows.add(key)
                     rows.append(mrow)
         X = np.stack(rows)
-    with stage("K6 score_subsets"):
-        scores, feas = score_subsets_global(t, aux["onehot"], aux["compat_nq"], aux["pend_req"], aux["pend_npods"],
-                                            aux["pend_active"], X)
+    scores, feas = score_subsets_global(t, aux["onehot"], aux["compat_nq"], aux["pend_req"], aux["pend_npods"],
+                                        aux["pend_active"], X, stage)
     with stage("ladder"):
         base = scores[0]
         ladder, best = rank_ladder(scores, feas, X, n, max_proposals, floor=float(base), skip_rows=frozenset((0,)))

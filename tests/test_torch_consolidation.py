@@ -179,7 +179,7 @@ def test_stage_times_name_every_stage():
     problem, ref = load("small_lp_6")
     stages: dict = {}
     propose_subsets_lp(problem, "cpu", inits=reference_inits(problem, ref), stages=stages)
-    assert list(stages) == ["tensors", "K5 globalpack", "round", "K6 score_subsets", "ladder"]
+    assert list(stages) == ["tensors", "K5 globalpack", "round", "K6 upload", "K6 kernel", "K6 download", "ladder"]
 
 
 def test_global_repack_plan_encoded():

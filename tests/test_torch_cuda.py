@@ -304,6 +304,36 @@ def test_caps_kernels_equal_plain_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["below", "cross", "at_reach", "above"])
+def test_perpod_kernel_across_the_warp_reach_on_card(cuda_device, case):
+    """K8 against its plain version (the five outputs and the whole carry)
+    on the synthetic problems whose open-slot counts stay below, cross and
+    start past the warp path's reach (`chip_smoke.PERPOD_REGIME_CASES`)."""
+    import chip_smoke
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key
+    from karpenter_tpu_torch.kernels.perpod_pack import perpod_pack, perpod_pack_plain
+
+    s = chip_smoke.perpod_regime_arrays(*chip_smoke.PERPOD_REGIME_CASES[case])
+    t, pods = chip_smoke.perpod_tensors(s, cuda_device)
+    compat, key = compat_and_key(t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+    got = perpod_pack(t, pods, compat, key)
+    want = perpod_pack_plain(t, pods, compat, key)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Np", [256, 8192, 32768])
+@pytest.mark.parametrize("pending", [False, True])
+def test_score_subsets_clusters_on_card(cuda_device, Np, pending):
+    """K6 (a cluster of 1 or 8 blocks per row) against its plain version,
+    bit for bit, at Np = 256, 8192 and 32768 (`chip_smoke.K6_SIZES`)."""
+    import chip_smoke
+
+    assert chip_smoke.check_score_subsets_size(Np, pending, cuda_device) == 0.0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(37, 1001), (640, 4096), (3, 30000), (0, 64), (1, 5)])
 def test_sparsify_one_launch_equals_plain_on_card(cuda_device, shape):
     """K3 (one launch, decoupled look-back) against `flat_outputs_plain` on

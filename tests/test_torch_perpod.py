@@ -34,6 +34,7 @@ from __future__ import annotations
 import os
 import re
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +47,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from karpenter_tpu.models import scheduler_model as jsm  # noqa: E402
 from karpenter_tpu.ops import select as jselect  # noqa: E402
+import chip_smoke  # noqa: E402
 from karpenter_tpu_torch.kernels import build  # noqa: E402
+from karpenter_tpu_torch.kernels import perpod_pack as perpod_pack_module  # noqa: E402
 from karpenter_tpu_torch.kernels.feasibility import compat_and_key, compat_and_key_plain  # noqa: E402
 from karpenter_tpu_torch.kernels.perpod_pack import perpod_pack  # noqa: E402
 from karpenter_tpu_torch.models import scheduler_model as tsm  # noqa: E402
@@ -232,31 +235,7 @@ def _jax_tensors(s: dict):
 
 
 def _port_tensors(s: dict):
-    def f(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(dtype)
-
-    Nrows, R = s["alloc"].shape
-    ports = torch.zeros((Nrows, 4), dtype=torch.bool)
-    ex_ports = torch.zeros((s["n_ex"], 4), dtype=torch.bool)
-    b, i32 = torch.bool, torch.int32
-    t = tsm.SchedulerTensors(
-        n_rows_real=s["n_real"], row_alloc=f(s["alloc"], torch.float32), row_labels=f(s["labels"], i32),
-        row_pool_rank=f(s["rank"], i32), row_taint_class=f(s["taint_class"], i32),
-        rank_domset=f(s["rank_domset"], b),
-        rank_dom_cap=torch.zeros((s["rank_domset"].shape[0], s["dom_key_of"].shape[0], R)),
-        dom_key_of=f(s["dom_key_of"], i32), group_kind=f(s["kinds"], i32), group_skew=f(s["skew"], i32),
-        group_dom_key=f(s["dom_key"], i32), group_min_domains=f(s["min_domains"], i32),
-        group_registered=f(s["registered"], b), counts_dom_init=f(s["counts_dom"], i32),
-        counts_host_init=f(s["counts_host"], i32), existing_domset=f(s["ex_dom"], b), existing_port_any=ex_ports,
-        existing_port_wild=ex_ports, existing_port_spec=ex_ports, row_port_any=ports, row_port_wild=ports,
-        row_port_spec=ports, dom_keys=(2, -1), n_existing=s["n_ex"], n_slots=s["N"],
-    )
-    pods = tsm.PodTensors(
-        pod_req=f(s["pod_req"], torch.float32), pod_mask=f(s["pod_mask"].view(np.int32), i32),
-        pod_taint_ok=f(s["pod_taint_ok"], b), pod_dom_allowed=f(s["pod_dom_allowed"], b),
-        pod_restrict=f(s["pod_restrict"], b), member=f(s["member"], b), owner=f(s["owner"], b),
-    )
-    return t, pods
+    return chip_smoke.perpod_tensors(s, "cpu")
 
 
 @pytest.mark.parametrize("seed", range(10))
@@ -288,6 +267,40 @@ def test_synthetic_cases_reach_the_scan_corners():
         no_key_dom = ~(pods.pod_dom_allowed & kmask).any(dim=1)
         sentinel += int((dm & spread & no_key_dom & (a >= 0)).sum())
     assert unplaced and full and ties and sentinel
+    # K8's warp path (at most WARP_REACH open slots) and the block's past it:
+    # open-slot counts on both sides, the switch, and on each side a pod that
+    # opens a slot right after a pod that took an open one
+    reach = perpod_pack_module.WARP_REACH
+    firsts, lasts, after = [], [], set()
+    for seed, n_ex, N, P in chip_smoke.PERPOD_REGIME_CASES.values():
+        t, pods = _port_tensors(chip_smoke.perpod_regime_arrays(seed, n_ex, N, P))
+        a = tsm.greedy_pack(t, pods)[0].numpy()
+        seen, opened = chip_smoke.open_before(a, n_ex)
+        firsts.append(int(seen[0]))
+        lasts.append(int(seen[-1]))
+        took = (a >= 0) & ~opened
+        after |= {bool(seen[i] > reach) for i in range(1, len(a)) if opened[i] and took[i - 1]}
+    assert any(x <= reach for x in lasts) and any(x > reach for x in firsts)
+    assert any(f <= reach < x for f, x in zip(firsts, lasts)) and reach in firsts
+    assert after == {False, True}
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.PERPOD_REGIME_CASES))
+def test_plain_scan_matches_reference_across_the_warp_reach(case):
+    """The plain scan against JAX on the synthetic problems whose open-slot
+    counts stay below, cross and start past K8's warp path reach."""
+    s = chip_smoke.perpod_regime_arrays(*chip_smoke.PERPOD_REGIME_CASES[case])
+    want = [np.asarray(x) for x in jsm._greedy_pack_impl(_jax_tensors(s), (2, -1), s["N"])]
+    t, pods = _port_tensors(s)
+    got = tsm.greedy_pack(t, pods)
+    _assert_outputs(got, want, case)
+
+
+def test_warp_reach_is_the_kernels():
+    """The wrapper's WARP_REACH (which the synthetic cases cross) is the
+    one the CUDA source defines."""
+    src = (Path(perpod_pack_module.__file__).parent / "csrc" / "perpod_pack.cu").read_text()
+    assert re.search(r"^#define WARP_REACH (\d+)", src, re.M).group(1) == str(perpod_pack_module.WARP_REACH)
 
 
 def test_wrappers_take_plain_version_only_for_cpu_tensors():

@@ -8,10 +8,14 @@ fused multiply-add (`fma_score`); the plain version and the kernel do the
 same, so scores are bit-identical and feasibility flags equal. Checked on
 every rounded row the reference scored in the fixtures, on random
 delete-sets with and without pending pods (including pad nodes, which the
-global proposer's prefixes can reach), and for the summation order itself.
+global proposer's prefixes can reach), and for the summation order itself,
+including the kernel's (`cluster_order_sum`: a cluster's blocks sum their
+1024-node tiles and finish the levels above in rank order).
 """
 
 from __future__ import annotations
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +27,7 @@ from karpenter_tpu.models import globalpack as jgp
 from karpenter_tpu.models.consolidation_model import ConsolidationTensors as JaxTensors
 from karpenter_tpu_torch.kernels import build
 from karpenter_tpu_torch.kernels.score_subsets import score_subsets
-from karpenter_tpu_torch.models.consolidation_model import fma_score, xla_sum
+from karpenter_tpu_torch.models.consolidation_model import _ordered_sum, fma_score, xla_sum
 from karpenter_tpu_torch.models.globalpack import objective_factored_plain, score_subsets_global
 from karpenter_tpu_torch.solver.consolidation import tensors_from_problem
 from test_torch_consolidation import GP_NAMES, load
@@ -99,6 +103,58 @@ def test_xla_sum_is_xla_cpus_order(n):
         assert not np.array_equal(x.astype(np.float64).sum(1).astype(np.float32), want)
     with pytest.raises(ValueError):
         xla_sum(torch.zeros(2, 48), 1)
+
+
+K6_SOURCE = build.CSRC / "score_subsets.cu"
+TILE, CLUSTER = 1024, 8  # the kernel's K6_TILE and K6_CLUSTER
+
+
+def cluster_shape(n: int) -> tuple[int, int]:
+    """How K6 splits an n-node axis: (tile nodes S, cluster blocks C); each
+    block owns n / (S C) consecutive tiles."""
+    s = min(n, TILE)
+    c = CLUSTER
+    while (n // s) % c:
+        c //= 2
+    return s, c
+
+
+def cluster_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sums over the last axis in K6's order: each block's tiles
+    summed as 32-term windows added in order, then the windows' sums in
+    order; every block's tile sums gathered in rank order; then XLA:CPU's
+    levels above them (`xla_sum`)."""
+    n = x.shape[-1]
+    s, c = cluster_shape(n)
+    tiles = n // s
+    windows = s // 32 if s >= 32 else 1
+    per_block = []
+    for b in range(c):  # block b owns tiles [b * tiles / c, (b + 1) * tiles / c)
+        mine = x[..., b * (n // c):(b + 1) * (n // c)]
+        w = _ordered_sum(mine.reshape(*x.shape[:-1], tiles // c, windows, s // windows))
+        per_block.append(_ordered_sum(w))
+    return xla_sum(torch.cat(per_block, dim=-1), -1)
+
+
+def test_cluster_model_is_the_kernels_split():
+    src = K6_SOURCE.read_text()
+    assert re.search(r"^#define K6_TILE (\d+)", src, re.M).group(1) == str(TILE)
+    assert re.search(r"^#define K6_CLUSTER (\d+)", src, re.M).group(1) == str(CLUSTER)
+
+
+@pytest.mark.parametrize("n", [32, 256, 1024, 8192, 32768])
+def test_cluster_order_is_xla_cpus_order(n):
+    """K6's cluster order (a block's tiles of 1024 nodes summed as 32-term
+    windows, then every block's tile sums in rank order and XLA's levels
+    above) is bit-equal to `xla_sum` and to XLA:CPU's own sum."""
+    rng = np.random.default_rng(n + 1)
+    x = (rng.standard_normal((6, n)) * rng.choice([1.0, 1e-3, 1e4], (6, n))).astype(np.float32)
+    want = np.asarray(jax.jit(jax.vmap(lambda a: a.sum()))(x))
+    got = cluster_order_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(xla_sum(torch.from_numpy(x), 1).numpy().view(np.int32), want.view(np.int32))
+    tile, blocks = cluster_shape(n)
+    assert (tile, blocks) == (min(n, 1024), min(8, max(1, n // 1024)))
 
 
 def test_fma_score_is_xlas_fused_multiply_add():

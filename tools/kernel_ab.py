@@ -15,13 +15,16 @@ with CUDA events (median of 5 rounds after a warm-up call), the kernel
 wrappers alone: K2 `pack_scan` on the two headlines and the two existing
 fleets, K3 `flat_outputs` at the headline and at the headline churn chain's
 delta step (`chip_smoke.drive_chain`), eagerly and from a replayed CUDA
-graph (device time), K8 `perpod_pack` at the headline, K5 `globalpack` at `lp_5000` (Qp
+graph (device time), K8 `perpod_pack` at the headline and the two existing
+fleets, K5 `globalpack` at `lp_5000` (Qp
 = R = 4) and at two shapes of the same fleet that other builds of the
 kernel take (R = 5 and Qp = 8, from this checkout's
 `chip_smoke.k5_widened`), each beside its plain version's d, K6
 `score_subsets` on that proposer's rows, K7 `anneal` on `anneal_256` and at
-the 5000-node fleet's Np = 8192. It prints one JSON line per run and one
-with the medians per tree.
+the 5000-node fleet's Np = 8192, and the three proposers at 5000 nodes end to
+end and by stage (`chip_smoke.time_proposers`; "K6 stage" sums the stages
+named "K6 ..."). It prints one JSON line per run and one with the medians
+per tree.
 """
 
 from __future__ import annotations
@@ -88,9 +91,11 @@ def one(tree: str) -> dict:
     out["sparsify churn step"] = cs.cuda_ms(lambda: flat_outputs(*k3), 20)
     out["sparsify churn step graph"] = cs.graph_ms(lambda: flat_outputs(*k3), 20)
     out["nonzero churn step"] = cs.cuda_ms(lambda: torch.nonzero(k3[0]), 20)
-    _problem, _ref, t, pods = cs.perpod_load(cs.HEADLINE, dev)
-    compat, key = compat_and_key(t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
-    out["perpod_pack"] = cs.cuda_ms(lambda: perpod_pack(t, pods, compat, key), 3)
+    for name in (cs.HEADLINE, cs.FLEET, cs.FLEET_BIG):
+        _problem, _ref, t, pods = cs.perpod_load(name, dev)
+        compat, key = compat_and_key(t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+        out["perpod_pack" if name == cs.HEADLINE else f"perpod_pack {name}"] = cs.cuda_ms(
+            lambda: perpod_pack(t, pods, compat, key), 3)
     problem, ref = cs.cons_load(cs.CONS_LP)
     t, aux = tensors_from_problem(problem, dev)
     d0, y0 = (torch.as_tensor(a, device=dev) for a in reference_inits(problem, ref))
@@ -108,6 +113,14 @@ def one(tree: str) -> dict:
     Xt = torch.as_tensor(Xp, device=dev)
     k6 = (t, aux["onehot"], aux["compat_nq"], aux["pend_req"], aux["pend_npods"], aux["pend_active"], Xt)
     out["score_subsets"] = cs.cuda_ms(lambda: score_subsets(*k6), 20)
+    # the proposers' K6 stage (host clock, synchronised): the tree's stages
+    # whose names start with "K6", summed (one stage before the split into
+    # upload, kernel and download)
+    for name, st in cs.time_proposers(dev).items():
+        for k, v in st["stages"].items():
+            out[f"proposer {name} stage {k}"] = v
+        out[f"proposer {name} K6 stage"] = sum(v for k, v in st["stages"].items() if k.startswith("K6"))
+        out[f"proposer {name}"] = st["ms"]
     a_problem, a_ref = cs.cons_load(cs.CONS_ANNEAL)
     ta, _ = tensors_from_problem(a_problem, dev, dense_compat=True)
     streams = [torch.as_tensor(a_ref[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
