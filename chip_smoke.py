@@ -10,7 +10,11 @@ from `karpenter_tpu_torch/kernels/csrc/`, and for every fixture in
 `karpenter_tpu_torch/fixtures/` holds each pack kernel against its plain
 PyTorch version on the card (`torch.equal`: integer, bool and identically
 computed f32 outputs) and the pack's flat output and final carry against the
-JAX reference stored in the fixture. It then drives the full path,
+JAX reference stored in the fixture, and K1 on its own cases (`K1_CASES`:
+negative label ids, ids past the last word, forced keys of -1, 0, K - 1
+and K, out-of-range taint classes, zero requests and pad rows, K = 40,
+no items, 70000 items, a ragged row axis, a K whose rows go to the global
+scratch), key bits included. It then drives the full path,
 `GPUSolver().solve_encoded`, on the headline problem (5000 pods x 100
 instance types) and its required-affinity variant with every launch count
 set to 0 just before and read just after, and requires 0 validation errors,
@@ -84,7 +88,10 @@ is also timed per `place()` call at both headlines, the churn step and
 the existing fleets of 1200 and 3800 nodes (open slots past its
 shared-memory tile); K3 (at the headline and the churn step), K4, K6
 and `index_add_` also from a replayed CUDA graph, which leaves out the
-host's time to issue each call.
+host's time to issue each call. K1 is timed at each of its call sites
+(`k1_sites`: both headlines' items, the churn step's, the headline's 5000
+pods, `existing_fleet_3800`, `caps_wide`) eagerly and from a replayed
+CUDA graph, each beside an empty kernel's launch timed the same two ways.
 
 Output: a `kernels` JSON line, the card line, then as the last line
 `{"ok": true, "device": {...}}`. Any mismatch or exception exits non-zero.
@@ -157,6 +164,13 @@ def expect(cond: bool, what: str) -> None:
 
 def nbytes(*tensors) -> int:
     return sum(int(x.numel()) * x.element_size() for x in tensors)
+
+
+def same_bits(a, b) -> bool:
+    """f32 tensors equal bit for bit (-0.0 != +0.0, a NaN equals its own bits)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def max_abs(*pairs) -> float:
@@ -245,7 +259,7 @@ def check_kernels(name: str, dev) -> dict:
     compat_p, key_p = feasibility_plain(t, items)
     torch.cuda.synchronize()
     expect(torch.equal(compat, compat_p), f"{name}: K1 compat differs from plain")
-    expect(torch.equal(key, key_p), f"{name}: K1 key differs from plain")
+    expect(same_bits(key, key_p), f"{name}: K1 key differs from plain")
 
     takes, left, state = pack_scan(t, items, compat, key, n_slots=t.n_slots)
     takes_p, left_p, state_p = pack_scan_plain(t, items, n_slots=t.n_slots, precomputed=(compat_p, key_p))
@@ -313,12 +327,160 @@ def run_main_path(name: str, dev) -> tuple[dict, dict]:
 
 def k1_cost(t, items, compat, key) -> tuple[int, int]:
     """(bytes K1 must move, operations it must do): inputs read once,
-    outputs written once."""
+    outputs written once; per (item, row) three operations for each key it
+    tests (the keys no dom key forces, up to the first false one; none
+    where the row's taint class is not tolerated), and 3R + 4 for the
+    taint test and the key."""
+    import torch
+
+    from karpenter_tpu_torch.ops.bitset import test_bit
+
     W, R = items.item_req.shape
     Nrows, K = t.row_labels.shape
     k1_in = nbytes(t.row_labels, t.row_taint_class, t.row_alloc, t.row_pool_rank, items.item_mask,
                    items.item_taint_ok, items.item_req)
-    return k1_in + nbytes(compat, key), W * Nrows * (3 * K + 3 * R + 4)
+    tested = [k for k in range(K) if k not in set(t.dom_keys)]
+    C = items.item_taint_ok.shape[1]
+    tc = t.row_taint_class.long()
+    taint = items.item_taint_ok[:, torch.clamp(torch.where(tc < 0, tc + C, tc), 0, C - 1)]
+    tests = torch.zeros((W, Nrows), dtype=torch.int64, device=taint.device)
+    if tested and W:
+        masks = items.item_mask[:, None, tested, :].expand(W, Nrows, len(tested), items.item_mask.shape[2])
+        ok = test_bit(masks, t.row_labels[None, :, tested].expand(W, Nrows, len(tested)))
+        tests = torch.where(ok.all(dim=2), len(tested), ok.int().argmin(dim=2) + 1)
+    n_tests = int(torch.where(taint, tests, 0).sum())
+    return k1_in + nbytes(compat, key), 3 * n_tests + W * Nrows * (3 * R + 4)
+
+
+# K1's own cases: name -> (seed, B, Nrows, K, Words, C, R, dom_keys). Every
+# case has negative label ids (one under a forced key in every fifth row)
+# and ids past the last word, taint classes out of range both ways (a
+# negative one wraps once, as the reference's gather reads it), zero
+# requests and two pad rows at -3.4e38, and its dom keys force K1's keys 0
+# and K - 1 and hold -1 and K, which force nothing. "edges" has 21 mask
+# words an item (copied a word at a time, not 16 bytes), "wide" K = 40 and
+# Words = 2, "none" no items, "b70000" more items than the old grid's y axis
+# held (65535), "rows_1000" a row axis of four tiles that is not a multiple
+# of 32, "spill" a K past what a block's shared memory holds even for 32
+# rows: its row side and item buffers go to the global scratch.
+K1_CASES = {
+    "edges": (1, 24, 40, 7, 3, 3, 4, (-1, 0, 6, 7)),
+    "wide": (2, 300, 128, 40, 2, 4, 4, (0, 39, 40, -1)),
+    "none": (3, 0, 128, 16, 2, 4, 4, (-1, 0, 15, 16)),
+    "b70000": (4, 70000, 128, 16, 2, 4, 4, (-1, 0, 15, 16)),
+    "rows_1000": (5, 50, 1000, 16, 3, 4, 4, (-1, 0, 15, 16)),
+    "spill": (6, 40, 300, 2100, 1, 4, 4, (-1, 0, 2099, 2100)),
+}
+
+
+def k1_case(name: str, dev):
+    """(t, masks, taints_ok, req) of a `K1_CASES` entry, made from its seed
+    with numpy; `t` holds the row tensors, dom_keys and forced_keys."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.models.scheduler_model import forced_key_mask
+
+    seed, B, Nrows, K, Words, C, R, dom_keys = K1_CASES[name]
+    rng = np.random.default_rng(seed)
+
+    def words():
+        return rng.integers(0, 1 << 32, size=(B, K, Words), dtype=np.uint64).astype(np.uint32)
+
+    masks = words() | words() | words()  # 7/8 of the bits set
+    masks[::2] = np.uint32(0xFFFFFFFF)  # every second item allows every value
+    masks[:, :, 0] |= np.uint32(1)  # the absent id 0 is allowed
+    labels = np.where(rng.random((Nrows, K)) < 0.8, 0, rng.integers(1, Words * 32 + 40, (Nrows, K))).astype(np.int32)
+    neg = np.arange(0, Nrows, 3)
+    labels[neg, rng.integers(0, K, neg.size)] = rng.choice(np.array([-1, -2], np.int32), neg.size)
+    labels[::5, 0] = -1
+    alloc = (rng.integers(1, 64, (Nrows, R))
+             * rng.choice(np.array([1000.0, 250.0, 0.25, 3.0, 7.0], np.float32), (Nrows, R))).astype(np.float32)
+    alloc[rng.random((Nrows, R)) < 0.1] = np.float32(1e30)
+    alloc[-2:] = np.float32(-3.4e38)
+    req = rng.choice(np.array([0.0, 0.25, 100.0, 250.0, 1000.0, 3.0], np.float32), size=(B, R))
+
+    def f(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+
+    t = types.SimpleNamespace(row_labels=f(labels, torch.int32),
+                              row_taint_class=f(rng.integers(-C - 2, C + 2, Nrows), torch.int32),
+                              row_alloc=f(alloc, torch.float32), row_pool_rank=f(rng.integers(-1, 4, Nrows), torch.int32),
+                              dom_keys=dom_keys, forced_keys=forced_key_mask(dom_keys, K, dev))
+    return t, f(masks.view(np.int32), torch.int32), f(rng.random((B, C)) < 0.8, torch.bool), f(req, torch.float32)
+
+
+def check_k1_case(name: str, dev, errs: dict) -> None:
+    """K1 against its plain version on one of `K1_CASES`: compat equal, key
+    equal bit for bit; only "spill" asks for the global scratch."""
+    import torch
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, compat_and_key_plain
+
+    _seed, B, Nrows, K, Words, C, R, _dk = K1_CASES[name]
+    t, *args = k1_case(name, dev)
+    compat, key = compat_and_key(t, *args)
+    compat_p, key_p = compat_and_key_plain(t, *args)
+    torch.cuda.synchronize()
+    expect(torch.equal(compat, compat_p) and same_bits(key, key_p), f"K1 differs from plain on the case {name}")
+    scratch = build.lib().kt_feasibility_scratch(B, Nrows, K, Words, C, R)
+    expect((scratch > 0) == (name == "spill"), f"K1 case {name}: {scratch} words of global scratch")
+    if B:
+        errs["feasibility"] = max(errs["feasibility"], max_abs((compat, compat_p), (key, key_p)))
+    print(f"K1 == plain (bit for bit): case {name} B={B} Nrows={Nrows} K={K} Words={Words} C={C} R={R}, "
+          f"{int(compat.sum())} compatible pairs, {scratch} words of global scratch")
+
+
+def k1_sites(dev, churn: dict) -> dict:
+    """K1's inputs (t, masks, taints_ok, req) at its timed call sites: the
+    items of both headlines, of the churn chain's step 1 (`churn`, a
+    `drive_chain` run), of the 3800-node fleet and of `caps_wide`, and the
+    headline's 5000 pods."""
+    from karpenter_tpu_torch.models.scheduler_model import make_tensors, reset_bucket_highwater
+    from karpenter_tpu_torch.models.scheduler_model_grouped import build_items, make_item_tensors
+    from karpenter_tpu_torch.solver.encoded import load_npz
+
+    def of(t, items):
+        return t, items.item_mask, items.item_taint_ok, items.item_req
+
+    sites = {name: of(*prepare(name, dev)[2:4]) for name in (HEADLINE, HEADLINE_AFF)}
+    sites[f"{CHURN} step 1"] = of(*churn["steps"][1]["seen"]["dp"][1:3])
+    _p, _r, t, pods = perpod_load(HEADLINE, dev)
+    sites[f"{HEADLINE} pods"] = (t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+    sites[FLEET_BIG] = of(*prepare(FLEET_BIG, dev)[2:4])
+    problem, ref = load_npz(CAPS / "caps_wide.npz")
+    reset_bucket_highwater()
+    items = make_item_tensors(build_items(problem)[0], dev)
+    sites["caps_wide"] = of(make_tensors(problem, dev, n_slots=int(ref["ref_n_slots"])), items)
+    return sites
+
+
+def time_k1_sites(dev, churn: dict) -> dict:
+    """At each of `k1_sites`: K1 eagerly (CUDA events around back-to-back
+    wrapper calls) and graph-replayed (device time), its bound, and an empty
+    kernel's launch timed the same two ways right after it."""
+    import types
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key
+
+    out = {}
+    for name, (t, masks, taints_ok, req) in k1_sites(dev, churn).items():
+        compat, key = compat_and_key(t, masks, taints_ok, req)
+        n_bytes, ops = k1_cost(t, types.SimpleNamespace(item_req=req, item_mask=masks, item_taint_ok=taints_ok),
+                               compat, key)
+        bound_ms, bound_by = bound_of(n_bytes, ops)
+        B, K, Words = masks.shape
+        out[name] = dict(B=B, Nrows=int(t.row_alloc.shape[0]), K=K, Words=Words, R=int(req.shape[1]),
+                         ms=cuda_ms(lambda: compat_and_key(t, masks, taints_ok, req), 20),
+                         graph_ms=graph_ms(lambda: compat_and_key(t, masks, taints_ok, req), 20),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         empty_ms=cuda_ms(lambda: build.empty_launch(dev), 20),
+                         empty_graph_ms=graph_ms(lambda: build.empty_launch(dev), 20))
+    return out
 
 
 def k2_cost(t, items, compat, key, init, takes, left) -> tuple[int, int]:
@@ -648,7 +810,7 @@ def check_chain(run: dict, dev, errs: dict) -> None:
             flat = flat_outputs(takes, left, out[0], out[2], out[6], nnz)
             flat_p = flat_outputs_plain(takes_p, left_p, out_p[0], out_p[2], out_p[6], nnz)
             torch.cuda.synchronize()
-            expect(torch.equal(compat, compat_p) and torch.equal(key, key_p), f"{what}: delta K1 differs from plain")
+            expect(torch.equal(compat, compat_p) and same_bits(key, key_p), f"{what}: delta K1 differs from plain")
             expect(torch.equal(takes, takes_p) and torch.equal(left, left_p), f"{what}: delta K2 differs from plain")
             leaves = list(zip(list(out[:7]) + list(out[7]), list(out_p[:7]) + list(out_p[7])))
             for leaf, (a, b) in zip(STATE_LEAVES, leaves):
@@ -1293,8 +1455,8 @@ def check_caps(dev, errs: dict) -> dict:
         items = make_item_tensors(arrays, dev)
         t = make_tensors(problem, dev, n_slots=int(ref["ref_n_slots"]))
         compat, key = feasibility(t, items)
-        expect(all(torch.equal(a, b) for a, b in zip((compat, key), feasibility_plain(t, items))),
-               f"{name}: K1 differs from plain")
+        compat_p, key_p = feasibility_plain(t, items)
+        expect(torch.equal(compat, compat_p) and same_bits(key, key_p), f"{name}: K1 differs from plain")
         takes, left, state = pack_scan(t, items, compat, key, n_slots=t.n_slots)
         takes_p, left_p, state_p = pack_scan_plain(t, items, n_slots=t.n_slots, precomputed=(compat, key))
         torch.cuda.synchronize()
@@ -1511,7 +1673,8 @@ def perpod_tensors(s: dict, dev):
         group_registered=f(s["registered"], b), counts_dom_init=f(s["counts_dom"], i32),
         counts_host_init=f(s["counts_host"], i32), existing_domset=f(s["ex_dom"], b), existing_port_any=ex_ports,
         existing_port_wild=ex_ports, existing_port_spec=ex_ports, row_port_any=ports, row_port_wild=ports,
-        row_port_spec=ports, dom_keys=(2, -1), n_existing=s["n_ex"], n_slots=s["N"],
+        row_port_spec=ports, dom_keys=(2, -1), forced_keys=tsm.forced_key_mask((2, -1), s["labels"].shape[1], dev),
+        n_existing=s["n_ex"], n_slots=s["N"],
     )
     pods = tsm.PodTensors(
         pod_req=f(s["pod_req"], torch.float32), pod_mask=f(s["pod_mask"].view(np.int32), i32),
@@ -1537,18 +1700,21 @@ def open_before(assignment, n_ex: int):
 
 
 def check_perpod_regimes(dev, errs: dict) -> dict:
-    """K8 against its plain version (the five outputs and the whole carry)
-    on `PERPOD_REGIME_CASES`, which stay below, cross and start past the
+    """K1 and K8 against their plain versions (K8: the five outputs and the
+    whole carry) on `PERPOD_REGIME_CASES`, which stay below, cross and start past the
     warp's reach; returns each case's first and final open-slot count."""
     import torch
 
-    from karpenter_tpu_torch.kernels.feasibility import compat_and_key
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, compat_and_key_plain
     from karpenter_tpu_torch.kernels.perpod_pack import WARP_REACH, perpod_pack, perpod_pack_plain
 
     out = {}
     for name, (seed, n_ex, N, P) in PERPOD_REGIME_CASES.items():
         t, pods = perpod_tensors(perpod_regime_arrays(seed, n_ex, N, P), dev)
-        compat, key = compat_and_key(t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+        args = (t, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)
+        compat, key = compat_and_key(*args)
+        compat_p, key_p = compat_and_key_plain(*args)
+        expect(torch.equal(compat, compat_p) and same_bits(key, key_p), f"regime case {name}: K1 differs from plain")
         got = perpod_pack(t, pods, compat, key)
         want = perpod_pack_plain(t, pods, compat, key)
         torch.cuda.synchronize()
@@ -1613,7 +1779,7 @@ def check_perpod(name: str, dev, errs: dict) -> dict:
     compat, key = compat_and_key(*args)
     compat_p, key_p = compat_and_key_plain(*args)
     torch.cuda.synchronize()
-    expect(torch.equal(compat, compat_p) and torch.equal(key, key_p), f"{name}: K1 over the pods differs from plain")
+    expect(torch.equal(compat, compat_p) and same_bits(key, key_p), f"{name}: K1 over the pods differs from plain")
     out = perpod_pack(t, pods, compat, key)
     out_p = perpod_pack_plain(t, pods, compat_p, key_p)
     torch.cuda.synchronize()
@@ -1753,6 +1919,8 @@ def run(dev, card: str) -> dict:
         info = check_kernels(name, dev)
         errs = {k: max(v, info["errs"].get(k, 0.0)) for k, v in errs.items()}
         print(f"kernels == plain == JAX reference: {name} W={info['W']} N={info['N']} ({time.perf_counter() - t1:.1f} s)")
+    for name in K1_CASES:
+        check_k1_case(name, dev, errs)
 
     launches, summary = run_main_path(HEADLINE, dev)
     print(f"main path {HEADLINE}: {summary} launches {launches}")
@@ -1835,6 +2003,13 @@ def run(dev, card: str) -> dict:
 
     rows = time_headline(dev, launches, errs)
     rows[0].update(perpod["feasibility_pods"])
+    k1_sites_ms = time_k1_sites(dev, churn)
+    rows[0].update(graph_ms=k1_sites_ms[HEADLINE]["graph_ms"], sites=k1_sites_ms)
+    for name, v in k1_sites_ms.items():
+        print(f"time feasibility at {name} (B={v['B']}, Nrows={v['Nrows']}, K={v['K']}, Words={v['Words']}, "
+              f"R={v['R']}): {v['ms']:.4f} ms eager, {v['graph_ms']:.4f} ms graph-replayed (device only), bound "
+              f"{v['bound_ms']:.5f} ms ({v['bound_by']}); empty launch {v['empty_ms']:.4f} ms eager, "
+              f"{v['empty_graph_ms']:.4f} ms graph-replayed")
     k3d = delta["delta_kernels_ms"]["sparsify"]
     rows[2].update(delta_ms=k3d["ms"], delta_graph_ms=k3d["graph_ms"], delta_library_ms=k3d["library_ms"],
                    delta_bound_ms=k3d["bound_ms"])

@@ -104,8 +104,12 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            handle.kt_feasibility.argtypes = [vp] * 8 + [ci] * 6 + [vp] * 3
+            handle.kt_feasibility.argtypes = [vp] * 8 + [ci] * 6 + [vp] * 4
             handle.kt_feasibility.restype = ci
+            handle.kt_feasibility_scratch.argtypes = [ci] * 6
+            handle.kt_feasibility_scratch.restype = ctypes.c_longlong
+            handle.kt_empty.argtypes = [vp]
+            handle.kt_empty.restype = ci
             handle.kt_pack_scan.argtypes = [vp, vp, vp]
             handle.kt_pack_scan.restype = ci
             handle.kt_pack_scan_scratch.argtypes = [vp]
@@ -162,3 +166,9 @@ def require(t, device, dtype, name: str):
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     return t
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel (`kt_empty` in `csrc/feasibility.cu`): the
+    floor of any launch, timed beside the kernels. Counted nowhere."""
+    check(lib().kt_empty(stream_ptr(device)), "empty")

@@ -177,6 +177,7 @@ class SchedulerTensors:
     row_port_wild: torch.Tensor  # [Nrows, P1] bool
     row_port_spec: torch.Tensor  # [Nrows, P2] bool
     dom_keys: tuple  # vocab key id per dom key (-1 if absent)
+    forced_keys: torch.Tensor  # [K] bool: the label keys compat_matrix forces true (from dom_keys)
     n_existing: int
     n_slots: int
 
@@ -262,6 +263,7 @@ def make_tensors(p, device, n_slots: int | None = None) -> SchedulerTensors:
         row_port_wild=dev(row_port_wild, torch.bool),
         row_port_spec=dev(row_port_spec, torch.bool),
         dom_keys=tuple(int(k) for k in p.dom_vocab_keys),
+        forced_keys=forced_key_mask(p.dom_vocab_keys, K_p, device),
         n_existing=int(p.n_existing),
         n_slots=int(n_slots),
     )
@@ -309,20 +311,31 @@ def make_pod_tensors(p, device, t: SchedulerTensors) -> PodTensors:
     )
 
 
+def forced_key_mask(dom_keys, K: int, device) -> torch.Tensor:
+    """[K] bool on `device`: the label keys that are dom keys, which
+    compat_matrix forces true. An id outside [0, K) (-1 for an absent key)
+    forces nothing, as the reference's out-of-bounds scatter drops it."""
+    forced = np.zeros(K, dtype=bool)
+    for kk in dom_keys:
+        if 0 <= kk < K:
+            forced[kk] = True
+    return torch.as_tensor(forced).to(device)
+
+
 def compat_matrix(row_labels, row_taint_class, masks, taints_ok, dom_keys: tuple) -> torch.Tensor:
     """Plain requirement-mask x row compatibility: [B, Nrows] bool. `masks`
     are [B, K, Words] int32 words; dom-key columns are forced true (the slot
-    domain sets handle them); the taint class of each row must be tolerated."""
+    domain sets handle them); the taint class of each row must be tolerated
+    (read as the reference's gather reads it: a negative class counts from
+    the end once, then it is clamped to [0, C))."""
     B = masks.shape[0]
     Nrows, K = row_labels.shape
     bm = masks.unsqueeze(1).expand(B, Nrows, K, masks.shape[-1])
     ok = test_bit(bm, row_labels.unsqueeze(0).expand(B, Nrows, K))  # [B, Nrows, K]
-    forced = torch.zeros(K, dtype=torch.bool, device=masks.device)
-    for kk in dom_keys:
-        if 0 <= kk < K:
-            forced[kk] = True
-    ok = ok | forced
-    tcls = torch.clamp(row_taint_class.to(torch.int64), 0, taints_ok.shape[1] - 1)
+    ok = ok | forced_key_mask(dom_keys, K, masks.device)
+    C = taints_ok.shape[1]
+    tc = row_taint_class.to(torch.int64)
+    tcls = torch.clamp(torch.where(tc < 0, tc + C, tc), 0, C - 1)  # the reference's gather: wrap once, clamp
     return ok.all(dim=2) & taints_ok[:, tcls]
 
 

@@ -422,3 +422,47 @@ def test_anneal_kernel_shapes_and_flags_on_card(cuda_device):
     flips[1, 2] = -1
     with pytest.raises(ValueError, match="flips outside"):
         anneal(t, streams[0], flips, streams[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["edges", "wide", "none", "b70000", "rows_1000", "spill"])
+def test_feasibility_cases_equal_plain_on_card(cuda_device, case):
+    """K1 against `compat_and_key_plain` on `chip_smoke.K1_CASES`, bit for
+    bit: negative label ids and ids past the last word, forced keys of -1,
+    0, K - 1 and K, out-of-range taint classes, zero requests and pad rows,
+    K = 40 with Words = 2, no items, 70000 items (past the old grid's y
+    axis), a row axis that is not a multiple of 32, and a K whose rows go to
+    the global scratch."""
+    import chip_smoke
+
+    errs = {"feasibility": 0.0}
+    chip_smoke.check_k1_case(case, cuda_device, errs)
+    assert errs["feasibility"] == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(4))
+def test_feasibility_random_edges_equal_plain_on_card(cuda_device, seed):
+    """K1 against its plain version on `test_torch_feasibility._random_case`
+    (the inputs its CPU test holds to the reference), one launch each."""
+    import types
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, compat_and_key_plain
+    from karpenter_tpu_torch.ops.bitset import as_int32_words
+    from test_torch_feasibility import _random_case
+
+    masks, labels, taint_class, taints_ok, req, alloc, rank, dom_keys = _random_case(seed)
+
+    def f(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=cuda_device, dtype=dtype)
+
+    t = types.SimpleNamespace(row_labels=f(labels, torch.int32), row_taint_class=f(taint_class, torch.int32),
+                              row_alloc=f(alloc, torch.float32), row_pool_rank=f(rank, torch.int32), dom_keys=dom_keys,
+                              forced_keys=tsm.forced_key_mask(dom_keys, labels.shape[1], cuda_device))
+    args = (t, f(as_int32_words(masks), torch.int32), f(taints_ok, torch.bool), f(req, torch.float32))
+    build.reset_launches()
+    compat, key = compat_and_key(*args)
+    assert build.LAUNCHES["feasibility"] == 1
+    compat_p, key_p = compat_and_key_plain(*args)
+    assert torch.equal(compat, compat_p) and torch.equal(key.view(torch.int32), key_p.view(torch.int32))

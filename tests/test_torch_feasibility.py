@@ -101,3 +101,68 @@ def test_bitset_helpers_match_reference():
             i = int(idx[a, b])
             want[a, b] = i >= 0 and bool((int(ref_pack_bool_masks(bools)[a, b, w[a, b]]) >> (i % 32)) & 1)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- the forced-key mask K1 reads (`SchedulerTensors.forced_keys`) -------------
+
+
+def _reference_forced(dom_keys, K):
+    """The keys the reference's compat_matrix forces true, read from the
+    reference itself: row k carries a negative id (never a match) at key k
+    and the absent id elsewhere, the one mask allows everything, so row k
+    is compatible exactly when key k is forced."""
+    labels = np.zeros((K, K), np.int32)
+    np.fill_diagonal(labels, -1)
+    masks = np.full((1, K, 1), 0xFFFFFFFF, np.uint32)
+    compat = ref_compat_matrix(labels, np.zeros(K, np.int32), masks, np.ones((1, 1), bool), tuple(dom_keys))
+    return np.asarray(compat)[0]
+
+
+PROVISIONING = sorted(p.stem for p in FIXTURE_DIR.glob("*.npz")) + ["caps/caps_groups", "caps/caps_wide"]
+
+
+@pytest.mark.parametrize("name", PROVISIONING)
+def test_forced_keys_field_matches_reference_on_fixtures(name):
+    problem, _ref = load_npz(FIXTURE_DIR / f"{name}.npz")
+    tsm.reset_bucket_highwater()
+    t = tsm.make_tensors(problem, "cpu")
+    K = t.row_labels.shape[1]
+    assert t.forced_keys.dtype == torch.bool and t.forced_keys.shape == (K,)
+    np.testing.assert_array_equal(t.forced_keys.numpy(), _reference_forced(t.dom_keys, K))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_forced_key_mask_matches_reference_random(seed):
+    """dom keys with -1 (absent), duplicates and ids at and past K."""
+    rng = np.random.default_rng(seed)
+    K = int(rng.integers(1, 24))
+    dom_keys = tuple(int(k) for k in rng.integers(-1, K + 3, size=int(rng.integers(0, 12))))
+    dom_keys += (-1, K) + dom_keys[:2]
+    got = tsm.forced_key_mask(dom_keys, K, "cpu")
+    assert got.dtype == torch.bool and got.shape == (K,)
+    np.testing.assert_array_equal(got.numpy(), _reference_forced(dom_keys, K))
+
+
+@pytest.mark.parametrize("case", ["edges", "wide", "none", "rows_1000"])
+def test_wrapper_on_cpu_tensors_is_the_plain_version(case):
+    """K1's wrapper on CPU tensors returns exactly `compat_and_key_plain`'s
+    outputs, launches nothing, and both equal the reference on the card's
+    edge cases (`chip_smoke.K1_CASES`, the ones small enough for the CPU)."""
+    import chip_smoke
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, compat_and_key_plain
+
+    t, masks, taints_ok, req = chip_smoke.k1_case(case, "cpu")
+    build.reset_launches()
+    compat, key = compat_and_key(t, masks, taints_ok, req)
+    assert all(v == 0 for v in build.LAUNCHES.values())
+    compat_p, key_p = compat_and_key_plain(t, masks, taints_ok, req)
+    assert torch.equal(compat, compat_p) and torch.equal(key.view(torch.int32), key_p.view(torch.int32))
+    np.testing.assert_array_equal(t.forced_keys.numpy(), _reference_forced(t.dom_keys, masks.shape[1]))
+    if masks.shape[0]:
+        want_c = np.asarray(ref_compat_matrix(t.row_labels.numpy(), t.row_taint_class.numpy(),
+                                              masks.numpy().view(np.uint32), taints_ok.numpy(), t.dom_keys))
+        want_k = np.asarray(ref_row_choose_key(t.row_alloc.numpy(), t.row_pool_rank.numpy(), req.numpy()))
+        np.testing.assert_array_equal(compat.numpy(), want_c)
+        np.testing.assert_array_equal(key.numpy().view(np.int32), want_k.view(np.int32))

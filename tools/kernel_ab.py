@@ -23,8 +23,18 @@ kernel take (R = 5 and Qp = 8, from this checkout's
 `score_subsets` on that proposer's rows, K7 `anneal` on `anneal_256` and at
 the 5000-node fleet's Np = 8192, and the three proposers at 5000 nodes end to
 end and by stage (`chip_smoke.time_proposers`; "K6 stage" sums the stages
-named "K6 ..."). It prints one JSON line per run and one with the medians
-per tree.
+named "K6 ..."). K1 `compat_and_key` is timed at its call sites
+(`chip_smoke.k1_sites` of this checkout: both headlines' items, the churn
+step's, the headline's 5000 pods, `existing_fleet_3800` and `caps_wide`),
+eagerly and graph-replayed, beside an empty kernel's launch where the tree
+has one (`build.empty_launch`). A tree whose tensors carry no `forced_keys`
+(before K1's wrapper stopped copying the forced-key mask from the host on
+every call, which cannot be captured in a graph) is graph-timed through its
+`kt_feasibility` called directly, with the mask and outputs made before the
+capture. It prints one JSON line per run and one with the medians per tree.
+
+    python3 tools/kernel_ab.py --only k1 build/parent .   # K1 and the empty launch alone
+    python3 tools/kernel_ab.py --only empty .             # the empty launch alone
 """
 
 from __future__ import annotations
@@ -49,8 +59,66 @@ def current_chip_smoke():
     return mod
 
 
-def one(tree: str) -> dict:
-    """The times of the kernels of the checkout at `tree` (this process)."""
+def k1_direct(build, t, masks, taints_ok, req, dev):
+    """A call of the tree's `kt_feasibility` without its wrapper, for a tree
+    whose wrapper copies the forced-key mask from the host on every call:
+    the mask and the outputs are made once, here, and the call checked
+    against the wrapper's outputs."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key
+
+    B, K, Words = masks.shape
+    Nrows, R = t.row_alloc.shape
+    C = taints_ok.shape[1]
+    forced = torch.zeros(K, dtype=torch.bool)
+    for kk in t.dom_keys:
+        if 0 <= kk < K:
+            forced[kk] = True
+    keep = [t.row_labels, t.row_taint_class, t.row_alloc, t.row_pool_rank, masks, taints_ok, req, forced.to(dev)]
+    compat = torch.empty((B, Nrows), dtype=torch.bool, device=dev)
+    key = torch.empty((B, Nrows), dtype=torch.float32, device=dev)
+    lib = build.lib()
+
+    def call():
+        rc = lib.kt_feasibility(*[x.data_ptr() for x in keep], B, Nrows, K, Words, C, R, compat.data_ptr(),
+                                key.data_ptr(), build.stream_ptr(dev))
+        build.check(rc, "feasibility")
+
+    call()
+    want = compat_and_key(t, masks, taints_ok, req)
+    torch.cuda.synchronize()
+    assert torch.equal(compat, want[0]) and torch.equal(key.view(torch.int32), want[1].view(torch.int32))
+    return call
+
+
+def time_k1(cs, build, dev, churn) -> dict:
+    """K1 at its call sites, eagerly and graph-replayed, with its bound; the
+    empty launch after each where the tree has one."""
+    import types
+
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key
+
+    cur = current_chip_smoke()
+    out = {}
+    for name, (t, *args) in cur.k1_sites(dev, churn).items():
+        compat, key = compat_and_key(t, *args)
+        n_bytes, ops = cur.k1_cost(t, types.SimpleNamespace(item_mask=args[0], item_taint_ok=args[1], item_req=args[2]),
+                                   compat, key)
+        out[f"K1 {name} bound"] = cur.bound_of(n_bytes, ops)[0]
+        out[f"K1 {name}"] = cur.cuda_ms(lambda: compat_and_key(t, *args), 20)
+        direct = (lambda: compat_and_key(t, *args)) if hasattr(t, "forced_keys") else k1_direct(build, t, *args, dev)
+        out[f"K1 {name} graph"] = cur.graph_ms(direct, 20)
+        if hasattr(build, "empty_launch"):
+            out[f"empty after {name}"] = cur.cuda_ms(lambda: build.empty_launch(dev), 20)
+            out[f"empty after {name} graph"] = cur.graph_ms(lambda: build.empty_launch(dev), 20)
+    return out
+
+
+def one(tree: str, only: str = "") -> dict:
+    """The times of the kernels of the checkout at `tree` (this process);
+    `only` = "k1" times K1 and the empty launch alone, "empty" the empty
+    launch alone."""
     tree_path = Path(tree).resolve()
     sys.path.insert(0, str(tree_path))
     os.environ["KARPENTER_SOLVER_BUCKET"] = "0"
@@ -74,6 +142,14 @@ def one(tree: str) -> dict:
     dev = torch.device("cuda")
     build.lib()
     out = {"tree": tree}
+    if only == "empty":
+        cur = current_chip_smoke()
+        return out | {"empty": cur.cuda_ms(lambda: build.empty_launch(dev), 20),
+                      "empty graph": cur.graph_ms(lambda: build.empty_launch(dev), 20)}
+    churn = cs.drive_chain(cs.CHURN, dev)
+    out.update(time_k1(cs, build, dev, churn))
+    if only == "k1":
+        return out
     for name in (cs.HEADLINE, cs.HEADLINE_AFF, cs.FLEET, cs.FLEET_BIG):
         _problem, _ref, t, items, _nnz = cs.prepare(name, dev)
         compat, key = feasibility(t, items)
@@ -84,7 +160,7 @@ def one(tree: str) -> dict:
             out["sparsify headline"] = cs.cuda_ms(lambda: flat_outputs(*k3), 20)
             out["sparsify headline graph"] = cs.graph_ms(lambda: flat_outputs(*k3), 20)
             out["nonzero headline"] = cs.cuda_ms(lambda: torch.nonzero(takes), 20)
-    state, t, items, n_added = cs.drive_chain(cs.CHURN, dev)["steps"][1]["seen"]["dp"]
+    state, t, items, n_added = churn["steps"][1]["seen"]["dp"]
     compat, key = feasibility(t, items)
     takes, left, st = pack_scan(t, items, compat, key, n_slots=t.n_slots, init_state=state)
     k3 = (takes, left, st[0], st[2], st[6], delta_nnz_cap(n_added))
@@ -133,9 +209,12 @@ def one(tree: str) -> dict:
 
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        print(json.dumps(one(sys.argv[2])))
+        print(json.dumps(one(*sys.argv[2:4])))
         return 0
     trees = sys.argv[1:]
+    only = []
+    if trees[:1] == ["--only"]:
+        only, trees = trees[1:2], trees[2:]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
@@ -144,7 +223,7 @@ def main() -> int:
     print(f"card: {smi.stdout.strip()}")
     runs: dict = {tree: [] for tree in trees}
     for tree in trees + trees[::-1]:
-        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", tree],
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", tree, *only],
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout, res.stderr[-4000:], file=sys.stderr)
