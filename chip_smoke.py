@@ -21,6 +21,26 @@ set to 0 just before and read just after, and requires 0 validation errors,
 every pod placed and the stored JAX assignment; and the dense pack
 (`greedy_pack_grouped`) against its plain version and the JAX takes.
 
+Then the snapshot phase (`check_snapshot`): the port builds the headline
+`SolverSnapshot` itself (`testing/scenarios.build_snapshot(5000, 100)`, pod
+names counted from pod-1 and every uid drawn from a generator seeded with
+`SNAPSHOT_SEED`, the fixture's seed), encodes it with its own encoder
+and requires every numpy array and name list of the encoding to equal
+`fixtures/snapshot/headline_5000x100_seeded.npz` (written by the JAX package
+from the same seeded build), and solves it with `GPUSolver().solve_encoded`,
+the counts set to 0 just before and read just after: K1-K3 launched once
+each, K4 not, the JAX assignment and open count. It then removes 600 pods,
+appends 800 made by the builder, encodes through its `EncodeCache` (the
+delta encode, equal to the fixture's) and solves from the resident carry:
+K4 and K1-K3 launched once each, the JAX delta step's assignment and open
+count. The inputs of each pack (K1 -> K2 -> K3) and recredit (K4) the two
+solves made are kept, and each kernel is run again on them and held
+against its plain version and against what the solve got, bit for bit
+(K2 with every carry leaf). It times the full encode, the delta encode and
+snapshot to placement (encode, the copy into the device path's problem,
+`solve_encoded`; the solver is built before the window, as in the main
+path's timing), median of 5 warm runs each.
+
 Then the delta path: every chain in `fixtures/chains/` is driven through
 `GPUSolver().solve_encoded` step by step, the counts set to 0 before each
 step and read after it. Each step must give the reference's mode and
@@ -323,6 +343,273 @@ def run_main_path(name: str, dev) -> tuple[dict, dict]:
         expect(counts[k] > 0, f"{name}: kernel {k} was not launched on the main path")
     expect(counts["recredit"] == 0, f"{name}: a full solve launched the recredit kernel")
     return counts, dict(placed=res.n_placed, pods=problem.n_pods, open=res.open_count, items=res.item_info["n_items"])
+
+
+# -- the snapshot phase: the port's own object model, encoder and solve ------------------
+
+SNAPSHOT_FIXTURE = FIXTURES / "snapshot" / "headline_5000x100_seeded.npz"
+SNAPSHOT_SHAPE = (5000, 100)  # pods x instance types: the headline
+SNAPSHOT_DELTA = (600, 800)  # the delta step: pods removed, pods appended by the builder
+SNAPSHOT_SEED = 0  # the uids' generator and the delta step's removals (the fixture's)
+
+
+def seeded_snapshot(seed: int = SNAPSHOT_SEED, build_snapshot=None, names=None):
+    """The headline `SolverSnapshot` and the pods its delta step appends,
+    made by `build_snapshot` (the port's `testing/scenarios.build_snapshot`
+    by default) with pod names counted from pod-1 (`names` is the module
+    whose `_seq` counter names pods) and every uid drawn from a generator
+    seeded with `seed` (the FFD queue and the encoder order pods by uid).
+    The fixture's writer runs the same recipe over the reference's
+    builder."""
+    import itertools
+    import random
+    import uuid
+
+    if build_snapshot is None:
+        from karpenter_tpu_torch.testing import scenarios as names
+
+        build_snapshot = names.build_snapshot
+    names._seq = itertools.count(1)
+    rng = random.Random(seed)
+    real = uuid.uuid4
+    uuid.uuid4 = lambda: uuid.UUID(int=rng.getrandbits(128), version=4)
+    try:
+        snap = build_snapshot(*SNAPSHOT_SHAPE)
+        added = build_snapshot(SNAPSHOT_DELTA[1], SNAPSHOT_SHAPE[1]).pods
+    finally:
+        uuid.uuid4 = real
+    return snap, added
+
+
+def delta_step_pods(pods: list, added: list, seed: int = SNAPSHOT_SEED, n_removed: int = SNAPSHOT_DELTA[0]) -> list:
+    """`pods` with `n_removed` of them (drawn with `seed`) removed, the
+    survivors in order, and `added` appended."""
+    import numpy as np
+
+    drop = set(np.random.default_rng(seed).choice(len(pods), n_removed, replace=False).tolist())
+    return [p for i, p in enumerate(pods) if i not in drop] + list(added)
+
+
+def expect_encoding(enc, stored: dict, step: int) -> None:
+    """Every numpy array and name list of the port's encoding equals the
+    fixture's (written by the JAX package from the same seeded build)."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver.encoded import encoding_arrays
+
+    pre = f"s{step}."
+    want = {k[len(pre):]: v for k, v in stored.items() if k.startswith(pre) and not k.startswith(pre + "ref_")}
+    got = encoding_arrays(enc)
+    expect(sorted(got) == sorted(want), f"snapshot step {step}: encoding fields {sorted(set(got) ^ set(want))} differ")
+    for key, w in want.items():
+        g = np.asarray(got[key])
+        expect(g.dtype == w.dtype and g.shape == w.shape and bool(np.array_equal(g, w)),
+               f"snapshot step {step}: encoding {key} differs from the JAX reference's")
+
+
+def expect_placement(res, solver, stored: dict, step: int, counts: dict, mode: str) -> None:
+    what = f"snapshot step {step}"
+    expect(solver.last_solve_mode == mode == str(stored[f"s{step}.ref_mode"]),
+           f"{what}: mode {solver.last_solve_mode}, reference {stored[f's{step}.ref_mode']}")
+    expect(res.errors == [], f"{what}: validation errors {res.errors[:3]}")
+    expect(bool((res.assignment == stored[f"s{step}.ref_assignment"]).all()),
+           f"{what}: assignment differs from the JAX reference")
+    expect(res.open_count == int(stored[f"s{step}.ref_open_count"]), f"{what}: open count differs from the JAX reference")
+    want = dict(feasibility=1, pack_scan=1, sparsify=1, recredit=int(mode == "delta"))
+    for k, n in want.items():
+        expect(counts[k] == n, f"{what}: kernel {k} launched {counts[k]} times, not {n}")
+
+
+def clone_carry(state):
+    """A copy of a pack carry (seven tensors and the port tuple)."""
+    return tuple(x.clone() for x in state[:7]) + (tuple(x.clone() for x in state[7]),)
+
+
+def carry_leaves(state) -> list:
+    return list(state[:7]) + list(state[7])
+
+
+@contextmanager
+def kept_snapshot_inputs(seen: dict):
+    """Keep the inputs (a copy of any carry, taken before the call) and the
+    outputs of every pack (`_pack_flat`: K1 -> K2 -> K3) and recredit (K4)
+    the path makes, in `seen["pack"]` and `seen["rc"]`."""
+    import karpenter_tpu_torch.kernels.recredit as k4
+    import karpenter_tpu_torch.models.scheduler_model_grouped as grouped
+
+    real_k4, real_pack = k4.recredit, grouped._pack_flat
+
+    def recredit(state, t, *args):
+        kept = clone_carry(state)
+        out = real_k4(state, t, *args)
+        seen["rc"].append((kept, t, args, out))
+        return out
+
+    def pack_flat(t, items, nnz_cap, init_state=None):
+        kept = None if init_state is None else clone_carry(init_state)
+        out = real_pack(t, items, nnz_cap, init_state=init_state)
+        seen["pack"].append((t, items, nnz_cap, kept, out))
+        return out
+
+    k4.recredit, grouped._pack_flat = recredit, pack_flat
+    try:
+        yield
+    finally:
+        k4.recredit, grouped._pack_flat = real_k4, real_pack
+
+
+def check_snapshot_kernels(seen: dict, what: str, errs: dict) -> None:
+    """Each pack and recredit a snapshot solve made, repeated on its kept
+    inputs: the kernel against its plain version and against the solve's
+    own output, bit for bit (K2 with every carry leaf)."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.feasibility import feasibility, feasibility_plain
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_plain
+    from karpenter_tpu_torch.kernels.recredit import recredit, recredit_plain
+    from karpenter_tpu_torch.kernels.sparsify import flat_outputs, flat_outputs_plain
+
+    for state, t, args, path_out in seen["rc"]:
+        got = recredit(state, t, *args)
+        plain = recredit_plain(state, t, *args)
+        torch.cuda.synchronize()
+        pairs = list(zip(carry_leaves(got), carry_leaves(plain)))
+        for leaf, (a, b), c in zip(STATE_LEAVES, pairs, carry_leaves(path_out)):
+            expect(torch.equal(a, b), f"{what}: K4 {leaf} differs from plain")
+            expect(torch.equal(a, c), f"{what}: K4 {leaf} differs from the solve's")
+        errs["recredit"] = max(errs["recredit"], max_abs(*pairs))
+    for t, items, nnz, init, path_out in seen["pack"]:
+        compat, key = feasibility(t, items)
+        compat_p, key_p = feasibility_plain(t, items)
+        takes, left, out = pack_scan(t, items, compat, key, n_slots=t.n_slots, init_state=init)
+        takes_p, left_p, out_p = pack_scan_plain(t, items, n_slots=t.n_slots, init_state=init,
+                                                 precomputed=(compat_p, key_p))
+        flat = flat_outputs(takes, left, out[0], out[2], out[6], nnz)
+        flat_p = flat_outputs_plain(takes_p, left_p, out_p[0], out_p[2], out_p[6], nnz)
+        torch.cuda.synchronize()
+        expect(torch.equal(compat, compat_p), f"{what}: K1 compat differs from plain")
+        expect(same_bits(key, key_p), f"{what}: K1 key differs from plain")
+        expect(torch.equal(takes, takes_p) and torch.equal(left, left_p), f"{what}: K2 differs from plain")
+        leaves = list(zip(carry_leaves(out), carry_leaves(out_p)))
+        for leaf, (a, b), c in zip(STATE_LEAVES, leaves, carry_leaves(path_out["state"])):
+            expect(torch.equal(a, b), f"{what}: K2 carry {leaf} differs from plain")
+            expect(torch.equal(a, c), f"{what}: K2 carry {leaf} differs from the solve's")
+        expect(torch.equal(flat, flat_p), f"{what}: K3 flat output differs from plain")
+        expect(torch.equal(flat, path_out["flat"]), f"{what}: K3 flat output differs from the solve's")
+        errs["feasibility"] = max(errs["feasibility"], max_abs((compat, compat_p), (key, key_p)))
+        errs["pack_scan"] = max(errs["pack_scan"], max_abs((takes, takes_p), (left, left_p), *leaves))
+        errs["sparsify"] = max(errs["sparsify"], max_abs((flat, flat_p)))
+
+
+def check_snapshot(dev, card: str, errs: dict, runs: int = 5) -> dict:
+    """The snapshot phase: the port builds the seeded headline snapshot,
+    encodes it (equal to the fixture array by array), solves it on the card
+    (K1-K3 once each, no K4; the JAX assignment and open count), then takes
+    one delta step through its EncodeCache (600 pods removed, 800 appended)
+    solved from the resident carry (K4 and K1-K3 once each; the JAX delta
+    reference). Each kernel the two solves launched is run again on its
+    kept inputs against its plain version (`check_snapshot_kernels`). Then
+    it times, median of `runs` warm runs: the full encode, the delta encode
+    and snapshot to placement (encode, copy to the device path's problem,
+    `solve_encoded`)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.solver.encode import EncodeCache, encode
+    from karpenter_tpu_torch.solver.encoded import from_reference
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+
+    with np.load(SNAPSHOT_FIXTURE, allow_pickle=False) as z:
+        stored = {k: z[k] for k in z.files}
+    expect(int(stored["seed"]) == SNAPSHOT_SEED,
+           f"the snapshot fixture was written for seed {int(stored['seed'])}, not {SNAPSHOT_SEED}")
+    t0 = time.perf_counter()
+    snap, added = seeded_snapshot()
+    build_s = time.perf_counter() - t0
+    base_pods = list(snap.pods)
+    step_pods = delta_step_pods(base_pods, added)
+
+    cache = EncodeCache()
+    enc0 = encode(snap, cache=cache)
+    expect_encoding(enc0, stored, 0)
+    problem0 = from_reference(enc0)
+    solver = GPUSolver(dev)
+    reset_bucket_highwater()
+    seen0: dict = {"pack": [], "rc": []}
+    with kept_snapshot_inputs(seen0):
+        build.reset_launches()
+        res0 = solver.solve_encoded(problem0)
+        full_counts = dict(build.LAUNCHES)
+    expect_placement(res0, solver, stored, 0, full_counts, "full")
+    expect(len(seen0["pack"]) == 1 and not seen0["rc"], "snapshot step 0: not one pack and no recredit")
+    check_snapshot_kernels(seen0, "snapshot step 0", errs)
+
+    snap.pods = step_pods
+    enc1 = encode(snap, cache=cache)
+    expect(enc1.delta_base is enc0, "snapshot step 1: the encode did not take the delta path")
+    expect_encoding(enc1, stored, 1)
+    problem1 = from_reference(enc1, base=problem0)
+    seen1: dict = {"pack": [], "rc": []}
+    with kept_snapshot_inputs(seen1):
+        build.reset_launches()
+        res1 = solver.solve_encoded(problem1)
+        delta_counts = dict(build.LAUNCHES)
+    expect_placement(res1, solver, stored, 1, delta_counts, "delta")
+    expect(len(seen1["pack"]) == 1 and len(seen1["rc"]) == 1, "snapshot step 1: not one pack and one recredit")
+    check_snapshot_kernels(seen1, "snapshot step 1", errs)
+    del seen0, seen1
+    print(f"snapshot {SNAPSHOT_SHAPE[0]}x{SNAPSHOT_SHAPE[1]} (seed {SNAPSHOT_SEED}, built in {build_s:.2f} s): encoding "
+          f"== JAX reference, {res0.n_placed} placed, open {res0.open_count}, launches {full_counts}; delta step "
+          f"(-{SNAPSHOT_DELTA[0]} +{SNAPSHOT_DELTA[1]}, {problem1.n_pods} pods): encoding == JAX reference, "
+          f"{res1.n_placed} placed, open {res1.open_count}, launches {delta_counts}; K1-K4 on both solves' "
+          "inputs == plain == the solves' outputs")
+
+    full_ms, delta_ms, e2e_ms, e2e_stages = [], [], [], []
+    for _ in range(runs + 1):
+        snap.pods = base_pods
+        t0 = time.perf_counter()
+        enc = encode(snap, cache=EncodeCache())
+        full_ms.append((time.perf_counter() - t0) * 1e3)
+        expect(getattr(enc, "delta_base", None) is None and enc.n_pods == len(base_pods),
+               "timed full encode took another path")
+
+        cache = EncodeCache()
+        encode(snap, cache=cache)
+        snap.pods = step_pods
+        t0 = time.perf_counter()
+        enc = encode(snap, cache=cache)
+        delta_ms.append((time.perf_counter() - t0) * 1e3)
+        expect(enc.delta_base is not None, "timed delta encode took the full path")
+
+        snap.pods = base_pods
+        reset_bucket_highwater()
+        timed = GPUSolver(dev)  # a fresh solver: every run is a full solve
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encode(snap, cache=EncodeCache())
+        t1 = time.perf_counter()
+        problem = from_reference(enc)
+        t2 = time.perf_counter()
+        res = timed.solve_encoded(problem)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        expect(res.errors == [] and res.n_placed == problem.n_pods, "timed snapshot solve failed validation")
+        e2e_ms.append((t3 - t0) * 1e3)
+        e2e_stages.append(dict(encode=(t1 - t0) * 1e3, copy=(t2 - t1) * 1e3, solve_encoded=(t3 - t2) * 1e3))
+    out = dict(encode_ms=statistics.median(full_ms[1:]), delta_encode_ms=statistics.median(delta_ms[1:]),
+               e2e_ms=statistics.median(e2e_ms[1:]), full_counts=full_counts, delta_counts=delta_counts,
+               e2e_stages={k: statistics.median(s[k] for s in e2e_stages[1:]) for k in e2e_stages[-1]})
+    out["pods_per_s"] = SNAPSHOT_SHAPE[0] / (out["e2e_ms"] / 1e3)
+    print(f"time encode {SNAPSHOT_SHAPE[0]}x{SNAPSHOT_SHAPE[1]} (full, host): median of {runs} warm runs "
+          f"{out['encode_ms']:.3f} ms (runs ms: {[round(x, 3) for x in full_ms]}) on {card}")
+    print(f"time delta encode (-{SNAPSHOT_DELTA[0]} +{SNAPSHOT_DELTA[1]}, host): median of {runs} warm runs "
+          f"{out['delta_encode_ms']:.3f} ms (runs ms: {[round(x, 3) for x in delta_ms]}) on {card}")
+    print(f"time snapshot to placement {SNAPSHOT_SHAPE[0]}x{SNAPSHOT_SHAPE[1]}: median of {runs} warm runs "
+          f"{out['e2e_ms']:.3f} ms, {out['pods_per_s']:.1f} pods/s (runs ms: {[round(x, 3) for x in e2e_ms]}; "
+          "stages ms: " + ", ".join(f"{k} {v:.3f}" for k, v in out["e2e_stages"].items()) + f") on {card}")
+    return out
 
 
 def k1_cost(t, items, compat, key) -> tuple[int, int]:
@@ -1926,6 +2213,7 @@ def run(dev, card: str) -> dict:
     print(f"main path {HEADLINE}: {summary} launches {launches}")
     aff_launches, aff_summary = run_main_path(HEADLINE_AFF, dev)
     print(f"main path {HEADLINE_AFF}: {aff_summary} launches {aff_launches}")
+    snapshot = check_snapshot(dev, card, errs)
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
           f"{dense['ms']:.4f} ms (K1 + K2, CUDA events), {dense['plain_ms']:.4f} ms plain, "
@@ -2037,8 +2325,26 @@ def run(dev, card: str) -> dict:
           f"(runs ms: {[round(x, 3) for x in perpod['entry_runs']]}); stages ms (median of 5, synchronised): "
           + ", ".join(f"{k} {v:.3f}" for k, v in perpod["entry_stages"].items()))
     return {"kernels": rows, "caps": caps, "paths": {"full": launches, "full_affinity": aff_launches, "delta": delta_launches,
-                                       "dense": dense["launches"], "consolidation": cons_runs, "perpod": perpod_runs},
-            "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"]}
+                                       "dense": dense["launches"], "consolidation": cons_runs, "perpod": perpod_runs,
+                                       "snapshot": snapshot["full_counts"], "snapshot_delta": snapshot["delta_counts"]},
+            "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"],
+            "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")}}
+
+
+def host_cpu() -> str:
+    """The host CPU's model (the host stages' times depend on it): the first
+    of /proc/cpuinfo's model fields that is present, else the machine type."""
+    import platform
+
+    try:
+        info = dict(line.split(":", 1) for line in Path("/proc/cpuinfo").read_text().splitlines() if ":" in line)
+    except OSError:
+        info = {}
+    info = {k.strip(): v.strip() for k, v in info.items()}
+    for key in ("model name", "Model", "cpu model", "CPU part"):
+        if info.get(key):
+            return f"{info[key]} ({platform.machine()})"
+    return platform.machine() or "unknown CPU"
 
 
 def main() -> int:
@@ -2063,6 +2369,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi unavailable"
     print(f"card: {card}")
+    print(f"host: {host_cpu()}, {os.cpu_count()} logical CPUs")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

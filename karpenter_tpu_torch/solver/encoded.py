@@ -12,7 +12,9 @@ refreshed existing-node rows. `GPUSolver` solves such a problem from the
 base's resident pack carry instead of packing it whole.
 
 `from_reference(enc)` copies those fields off an encoded snapshot object by
-attribute name, and `save_npz` / `load_npz` carry a problem (plus any extra
+attribute name: the port's own (`solver.encode.encode`) or the reference's.
+`encoding_arrays(enc)` flattens every numpy array and name list of such an
+object into one dict (the seeded snapshot fixture's layout), and `save_npz` / `load_npz` carry a problem (plus any extra
 arrays, such as reference outputs) through a compressed npz file;
 `save_chain` / `load_chain` do the same for a chain of problems, each with
 its delta against an earlier one.
@@ -176,6 +178,39 @@ def from_reference(enc, base: EncodedProblem | None = None) -> EncodedProblem:
         delta=delta_of_reference(enc, base),
         **kw,
     )
+
+
+def _row_name(meta) -> str:
+    if meta[0] == "existing":
+        return f"existing/{meta[1].name()}"
+    _kind, template, it, offering = meta
+    return (f"offering/{template.nodepool_name}/{it.name}/{offering.zone()}/{offering.capacity_type()}/"
+            f"{offering.reservation_id()}")
+
+
+def encoding_arrays(enc) -> dict:
+    """Every numpy array and name list of an encoded snapshot, read by
+    attribute name: its public array attributes as they are (delta arrays
+    included; a solver's private caches left out), the pod keys and uids in encode order, the resource, domain,
+    dom-key and fallback-reason names, one name per candidate row, and the
+    scalar counts."""
+    out = {name: v for name, v in vars(enc).items() if isinstance(v, np.ndarray) and not name.startswith("_")}
+    names = {
+        "pod_keys": [p.key() for p in enc.pods],
+        "pod_uids": [p.metadata.uid for p in enc.pods],
+        "resource_names": enc.resource_names,
+        "dom_values": enc.dom_values,
+        "dom_key_names": enc.dom_key_names,
+        "fallback_reasons": enc.fallback_reasons,
+        "row_names": [_row_name(m) for m in enc.row_meta],
+    }
+    for name, values in names.items():
+        out[name] = np.asarray([str(v) for v in values], dtype=np.str_).reshape(-1)
+    out["dom_vocab_keys"] = np.asarray(enc.dom_vocab_keys, dtype=np.int64).reshape(-1)
+    for name in ("n_existing", "n_doms"):
+        out[name] = np.int64(getattr(enc, name))
+    out["has_relaxable"] = np.bool_(enc.has_relaxable)
+    return out
 
 
 def problem_arrays(p: EncodedProblem) -> dict:

@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and its
-default device is CUDA (no silent CPU fallback)."""
+"""The port stands alone: it imports neither jax nor the JAX package, every
+relative import of its modules names a module of the port, and its default
+device is CUDA (no silent CPU fallback). With both blocked it builds a
+snapshot with its own builder, encodes it and solves it on the CPU."""
 
 from __future__ import annotations
 
@@ -31,6 +33,17 @@ _CHILD = textwrap.dedent(
     res = GPUSolver(device="cpu").solve_encoded(p)
     assert res.errors == [], res.errors
     assert (res.assignment == ref["ref_assignment"]).all()
+    from karpenter_tpu_torch.solver.encode import encode
+    from karpenter_tpu_torch.solver.encoded import from_reference
+    from karpenter_tpu_torch.solver.ffd import FFDSolver
+    from karpenter_tpu_torch.testing.scenarios import build_snapshot
+    snap = build_snapshot(120, 40, affinity_frac=0.1)
+    enc = encode(snap)
+    assert enc.n_pods == 120 and not enc.fallback_reasons, enc.fallback_reasons
+    res = GPUSolver(device="cpu").solve_encoded(from_reference(enc))
+    assert res.errors == [] and res.n_placed == 120, res.errors
+    host = FFDSolver().solve(snap)
+    assert not host.pod_errors and sum(len(c.pods) for c in host.new_node_claims) == 120
     import torch
     torch.cuda.is_available = lambda: False
     try:
@@ -68,6 +81,37 @@ def test_no_port_file_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_relative_imports_name_port_modules():
+    """Every relative import (lazy ones inside functions too) resolves to a
+    module of the port, or a name in one: a reference module left out of the
+    port (DRA, the native tables, metrics, tracing) is never reached."""
+    import importlib
+    import importlib.util
+
+    def resolves(module: str, name: str | None) -> bool:
+        try:
+            if importlib.util.find_spec(module) is None:
+                return False
+        except ModuleNotFoundError:
+            return False
+        return name is None or hasattr(importlib.import_module(module), name) or \
+            importlib.util.find_spec(f"{module}.{name}") is not None
+
+    bad = []
+    for f in sorted(PORT.rglob("*.py")):
+        pkg = list(f.relative_to(ROOT).with_suffix("").parts)[:-1]
+        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                base = ".".join(pkg[: len(pkg) - (node.level - 1)])
+                if node.module:
+                    ok = resolves(f"{base}.{node.module}", None)
+                else:
+                    ok = all(resolves(base, a.name) for a in node.names)
+                if not ok:
+                    bad.append((str(f.relative_to(ROOT)), node.lineno))
     assert bad == []
 
 
