@@ -41,6 +41,21 @@ snapshot to placement (encode, the copy into the device path's problem,
 `solve_encoded`; the solver is built before the window, as in the main
 path's timing), median of 5 warm runs each.
 
+Then the solve phase (`check_solve`): `GPUSolver().solve(snap)`, snapshot
+to NodeClaims, over the seeded headline's `SOLVE_STEPS`: a full solve, an
+identical resubmit, the -600 +800 delta and one more pod appended, the
+counts set to 0 just before each step and read just after. Each step's
+canonical `Results` (claims with their instance types and requirements,
+pods on existing nodes, pod errors), mode, backend and delta-reject reason
+must equal the JAX reference's
+(`fixtures/snapshot/headline_5000x100_seeded_results.json`), with K1-K3
+launched once on step 0, nothing on the resubmit, K4 and K1-K3 on the
+delta, K1-K3 on the last step; each pack and recredit is run again on its
+kept inputs against its plain version. No step may fall back to the host.
+It times, median of 5 warm runs (host clock, device synchronised after
+each stage), a cold solve on a fresh solver, the resubmit, the delta and
+the warm one-pod delta, decode split out.
+
 Then the delta path: every chain in `fixtures/chains/` is driven through
 `GPUSolver().solve_encoded` step by step, the counts set to 0 before each
 step and read after it. Each step must give the reference's mode and
@@ -354,13 +369,15 @@ SNAPSHOT_SEED = 0  # the uids' generator and the delta step's removals (the fixt
 
 
 def seeded_snapshot(seed: int = SNAPSHOT_SEED, build_snapshot=None, names=None):
-    """The headline `SolverSnapshot` and the pods its delta step appends,
-    made by `build_snapshot` (the port's `testing/scenarios.build_snapshot`
-    by default) with pod names counted from pod-1 (`names` is the module
-    whose `_seq` counter names pods) and every uid drawn from a generator
+    """The headline `SolverSnapshot`, the pods its delta step appends and
+    the one pod the solve phase's last step appends (`bench.py`'s warm
+    one-pod delta: 500m, 512Mi), made by `build_snapshot` (the port's
+    `testing/scenarios.build_snapshot` by default) with pod names counted
+    from pod-1 (`names` is the module whose `_seq` counter names pods and
+    whose `make_pod` makes the one pod) and every uid drawn from a generator
     seeded with `seed` (the FFD queue and the encoder order pods by uid).
-    The fixture's writer runs the same recipe over the reference's
-    builder."""
+    The fixtures' writers run the same recipe over the reference's
+    builders."""
     import itertools
     import random
     import uuid
@@ -376,9 +393,10 @@ def seeded_snapshot(seed: int = SNAPSHOT_SEED, build_snapshot=None, names=None):
     try:
         snap = build_snapshot(*SNAPSHOT_SHAPE)
         added = build_snapshot(SNAPSHOT_DELTA[1], SNAPSHOT_SHAPE[1]).pods
+        one = names.make_pod(cpu="500m", memory="512Mi")
     finally:
         uuid.uuid4 = real
-    return snap, added
+    return snap, added, one
 
 
 def delta_step_pods(pods: list, added: list, seed: int = SNAPSHOT_SEED, n_removed: int = SNAPSHOT_DELTA[0]) -> list:
@@ -388,6 +406,20 @@ def delta_step_pods(pods: list, added: list, seed: int = SNAPSHOT_SEED, n_remove
 
     drop = set(np.random.default_rng(seed).choice(len(pods), n_removed, replace=False).tolist())
     return [p for i, p in enumerate(pods) if i not in drop] + list(added)
+
+
+# the solve phase's steps over the seeded headline, and the reference's
+# Results for them (written by `tests/test_torch_solve.py --write`)
+SOLVE_FIXTURE = FIXTURES / "snapshot" / "headline_5000x100_seeded_results.json"
+SOLVE_STEPS = ("step 0", "resubmit", "step 1", "step 2")
+
+
+def solve_step_pods(base: list, added: list, one) -> list:
+    """The pod list of each solve step: the headline (a full solve), the
+    same again (an identical resubmit), the delta step (600 removed, 800
+    appended) and the delta step with `one` more pod appended."""
+    step1 = delta_step_pods(base, added)
+    return [list(base), list(base), step1, step1 + [one]]
 
 
 def expect_encoding(enc, stored: dict, step: int) -> None:
@@ -526,7 +558,7 @@ def check_snapshot(dev, card: str, errs: dict, runs: int = 5) -> dict:
     expect(int(stored["seed"]) == SNAPSHOT_SEED,
            f"the snapshot fixture was written for seed {int(stored['seed'])}, not {SNAPSHOT_SEED}")
     t0 = time.perf_counter()
-    snap, added = seeded_snapshot()
+    snap, added, _one = seeded_snapshot()
     build_s = time.perf_counter() - t0
     base_pods = list(snap.pods)
     step_pods = delta_step_pods(base_pods, added)
@@ -610,6 +642,116 @@ def check_snapshot(dev, card: str, errs: dict, runs: int = 5) -> dict:
           f"{out['e2e_ms']:.3f} ms, {out['pods_per_s']:.1f} pods/s (runs ms: {[round(x, 3) for x in e2e_ms]}; "
           "stages ms: " + ", ".join(f"{k} {v:.3f}" for k, v in out["e2e_stages"].items()) + f") on {card}")
     return out
+
+
+SOLVE_LAUNCHES = (  # kernels each solve step must launch, once each (every other kernel: none)
+    ("feasibility", "pack_scan", "sparsify"),  # step 0: the full pack
+    (),  # the identical resubmit: served from the carry
+    ("recredit", "feasibility", "pack_scan", "sparsify"),  # step 1: removals re-credited, the additions packed
+    ("feasibility", "pack_scan", "sparsify"),  # step 2: the one pod packed
+)
+
+
+def check_solve(dev, card: str, errs: dict, runs: int = 5) -> dict:
+    """The solve phase: `GPUSolver(cuda).solve(snap)` from the seeded
+    headline snapshot to NodeClaims over `SOLVE_STEPS` (a full solve, an
+    identical resubmit, the -600 +800 delta, one more pod), the counts set
+    to 0 just before each step and read just after. Each step's canonical
+    Results, mode, backend and delta-reject reason must equal the JAX
+    reference's (`SOLVE_FIXTURE`), with the launches of `SOLVE_LAUNCHES`;
+    each pack and recredit a step made is run again on its kept inputs
+    against its plain version (`check_snapshot_kernels`). Then it times,
+    median of `runs` warm runs, host clock, device synchronised after each
+    stage: a cold solve on a fresh solver (encode, copy, pack, decode), the
+    identical resubmit, the delta solve and the warm one-pod delta."""
+    import json
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+    from karpenter_tpu_torch.testing import scenarios
+    from karpenter_tpu_torch.testing.canonical import canonical_results, json_form
+
+    stored = json.loads(SOLVE_FIXTURE.read_text())
+    expect(stored["seed"] == SNAPSHOT_SEED, f"the solve fixture was written for seed {stored['seed']}, not {SNAPSHOT_SEED}")
+    snap, added, one = seeded_snapshot()
+    pods_of = solve_step_pods(list(snap.pods), added, one)
+    reset_bucket_highwater()
+    solver = GPUSolver(dev, force=True)  # raises where it would fall back to the host
+    paths = []
+    for step, pods, want, launched in zip(SOLVE_STEPS, pods_of, stored["steps"], SOLVE_LAUNCHES):
+        what = f"solve {step}"
+        expect(want["step"] == step, f"{what}: the fixture's step is {want['step']}")
+        snap.pods = pods
+        random.seed(0)
+        seen: dict = {"pack": [], "rc": []}
+        with kept_snapshot_inputs(seen):
+            build.reset_launches()
+            results = solver.solve(snap)
+            counts = dict(build.LAUNCHES)
+        backend = {"gpu": "tpu"}.get(solver.last_backend, solver.last_backend)
+        expect(solver.last_solve_mode != "fallback", f"{what}: the solve fell back to the host")
+        got = dict(mode=solver.last_solve_mode, backend=backend, reject=solver.last_delta_reject,
+                   reasons=list(solver.last_fallback_reasons))
+        for key, value in got.items():
+            expect(value == want[key], f"{what}: {key} {value!r}, the JAX reference's {want[key]!r}")
+        expect(json_form(canonical_results(results)) == want["results"], f"{what}: Results differ from the JAX reference's")
+        need = {k: int(k in launched) for k in counts}
+        expect(counts == need, f"{what}: launches {counts}, not {need}")
+        expect(len(seen["pack"]) == int("pack_scan" in launched) and len(seen["rc"]) == int("recredit" in launched),
+               f"{what}: {len(seen['pack'])} packs and {len(seen['rc'])} recredits")
+        check_snapshot_kernels(seen, what, errs)
+        del seen
+        paths.append({k: v for k, v in counts.items() if v})
+        print(f"{what} ({len(pods)} pods): mode {solver.last_solve_mode}, {len(results.new_node_claims)} claims, "
+              f"{len(results.pod_errors)} pod errors, Results == JAX reference; launches {paths[-1]}; decode "
+              f"{solver.last_decode}")
+
+    def timed(gpu, what: str, mode: str):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gpu.solve(snap)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        expect(gpu.last_solve_mode == mode and not res.pod_errors, f"timed {what}: mode {gpu.last_solve_mode}")
+        return ms, dict(gpu.last_stages)
+
+    base, step1 = pods_of[0], pods_of[2]
+    extra = [scenarios.make_pod(cpu="500m", memory="512Mi") for _ in range(runs + 1)]
+    cold, resub, delta, one_pod = [], [], [], []
+    for r in range(runs + 1):
+        reset_bucket_highwater()
+        gpu = GPUSolver(dev, force=True, stage_times=True)  # a fresh solver: a cold solve
+        snap.pods = base
+        cold.append(timed(gpu, "cold solve", "full"))
+        resub.append(timed(gpu, "resubmit", "delta"))
+        snap.pods = step1
+        delta.append(timed(gpu, "delta solve", "delta"))
+    for r in range(runs + 1):
+        snap.pods = step1 + extra[: r + 1]
+        one_pod.append(timed(gpu, "one-pod delta", "delta"))
+
+    def summary(rows):
+        ms = [x[0] for x in rows]
+        stages = {k: statistics.median(x[1].get(k, 0.0) for x in rows[1:]) for k in rows[-1][1]}
+        return dict(ms=statistics.median(ms[1:]), runs=ms, stages=stages)
+
+    out = {name: summary(rows) for name, rows in
+           (("cold", cold), ("resubmit", resub), ("delta", delta), ("delta_1pod", one_pod))}
+    labels = {"cold": f"cold solve {SNAPSHOT_SHAPE[0]}x{SNAPSHOT_SHAPE[1]} (fresh solver: encode, copy, pack, decode)",
+              "resubmit": "identical resubmit (served from the carry)",
+              "delta": f"delta solve (-{SNAPSHOT_DELTA[0]} +{SNAPSHOT_DELTA[1]})",
+              "delta_1pod": "warm one-pod delta"}
+    for name, v in out.items():
+        print(f"time snapshot to NodeClaims, {labels[name]}: median of {runs} warm runs {v['ms']:.3f} ms "
+              f"(runs ms: {[round(x, 3) for x in v['runs']]}; stages ms: "
+              + ", ".join(f"{k} {x:.3f}" for k, x in v["stages"].items()) + f") on {card}")
+    return dict(paths=paths, ms={name: v["ms"] for name, v in out.items()},
+                decode_ms={name: v["stages"].get("decode", 0.0) for name, v in out.items()},
+                stages={name: v["stages"] for name, v in out.items()})
 
 
 def k1_cost(t, items, compat, key) -> tuple[int, int]:
@@ -2214,6 +2356,7 @@ def run(dev, card: str) -> dict:
     aff_launches, aff_summary = run_main_path(HEADLINE_AFF, dev)
     print(f"main path {HEADLINE_AFF}: {aff_summary} launches {aff_launches}")
     snapshot = check_snapshot(dev, card, errs)
+    solve = check_solve(dev, card, errs)
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
           f"{dense['ms']:.4f} ms (K1 + K2, CUDA events), {dense['plain_ms']:.4f} ms plain, "
@@ -2326,9 +2469,11 @@ def run(dev, card: str) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in perpod["entry_stages"].items()))
     return {"kernels": rows, "caps": caps, "paths": {"full": launches, "full_affinity": aff_launches, "delta": delta_launches,
                                        "dense": dense["launches"], "consolidation": cons_runs, "perpod": perpod_runs,
-                                       "snapshot": snapshot["full_counts"], "snapshot_delta": snapshot["delta_counts"]},
+                                       "snapshot": snapshot["full_counts"], "snapshot_delta": snapshot["delta_counts"],
+                                       **dict(zip(("solve", "solve_resubmit", "solve_delta", "solve_delta_1pod"), solve["paths"]))},
             "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"],
-            "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")}}
+            "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")},
+            "solve_ms": {**solve["ms"], "decode": solve["decode_ms"], "stages": solve["stages"]}}
 
 
 def host_cpu() -> str:

@@ -118,6 +118,30 @@ class SchedulingNodeClaim:
         # after this claim's options narrow or its requirements tighten
         self._version = 0
 
+    def rehydrate(self, topology, allocator=None, reservation_manager=None, reserved_offering_mode: str = "fallback", filter_cache: Optional[dict] = None) -> None:
+        """Re-wire the solve-scoped plumbing `__init__` normally provides, for
+        claims built OUTSIDE a Scheduler: the tensor decode constructs claims
+        with `__new__` (the device result fully determines them), and the
+        decode's minValues repair then adopts them as live in-flight claims.
+        The field list lives here, next to `__init__`, so new per-solve state
+        cannot be missed on the adoption path (solver/ffd.py _adopt_claim)."""
+        self.topology = topology
+        self.filter_cache = filter_cache
+        # decode shares one group list per template across claims (and across
+        # solves via its cache); Add() mutates group port usage, so a live
+        # claim needs its own copies — exactly like __init__
+        self.daemon_overhead_groups = [g.copy() for g in self.daemon_overhead_groups]
+        self.allocator = allocator
+        self.dra_trackers = {}
+        self._pending_dra = None
+        self._pending_dra_meta = None
+        self._dra_claim_keys = set()
+        self.reservation_manager = reservation_manager
+        self.reserved_offering_mode = reserved_offering_mode
+        self.reserved_offerings = getattr(self, "reserved_offerings", [])
+        self._pending_reserved = []
+        self._version = 0
+
     @property
     def nodepool_name(self) -> str:
         return self.template.nodepool_name

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .contracts import maybe_check_pack_arrays
 from .encoded import (
     KIND_DOM_AFF,
     KIND_DOM_ANTI,
@@ -45,6 +46,8 @@ def fast_validate(enc, assignment: np.ndarray, slot_basis: np.ndarray, slot_doms
     assignment = np.asarray(assignment)
     slot_basis = np.asarray(slot_basis)
     slot_domset = np.asarray(slot_domset)
+    # KARPENTER_SOLVER_TYPECHECK=1: shape/dtype contracts on the pack outputs
+    maybe_check_pack_arrays(enc, assignment, slot_basis, slot_domset)
     N = slot_basis.shape[0]
     valid = assignment >= 0
     if not valid.any():

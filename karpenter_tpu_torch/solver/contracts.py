@@ -157,3 +157,30 @@ def check_encoded(enc, where: str = "encode") -> None:
 def maybe_check_encoded(enc, where: str = "encode") -> None:
     if typecheck_enabled():
         check_encoded(enc, where=where)
+
+
+def check_pack_arrays(enc, assignment: np.ndarray, slot_basis: np.ndarray, slot_domset: np.ndarray, where: str = "fast_validate") -> None:
+    """Contracts on the pack outputs handed to validation/decode: assignment
+    [P] int in [-1, n_slots); slot_basis [M] int in [-1, N); slot_domset
+    [M, D] bool."""
+    P, N, D = enc.n_pods, enc.row_alloc.shape[0], enc.n_doms
+    if assignment.shape != (P,) or not np.issubdtype(assignment.dtype, np.integer):
+        raise ContractError(f"{where}: assignment must be int [P={P}], got {assignment.dtype} {assignment.shape}")
+    if slot_basis.ndim != 1 or not np.issubdtype(slot_basis.dtype, np.integer):
+        raise ContractError(f"{where}: slot_basis must be int [M], got {slot_basis.dtype} {slot_basis.shape}")
+    M = slot_basis.shape[0]
+    if slot_domset.shape != (M, D) or not np.issubdtype(slot_domset.dtype, np.bool_):
+        raise ContractError(
+            f"{where}: slot_domset must be bool [M={M}, D={D}], got {slot_domset.dtype} {slot_domset.shape}"
+        )
+    if assignment.size and int(assignment.max()) >= M:
+        raise ContractError(f"{where}: assignment points past the slot axis (max {int(assignment.max())} >= {M})")
+    if assignment.size and int(assignment.min()) < -1:
+        raise ContractError(f"{where}: assignment below -1 (min {int(assignment.min())})")
+    if slot_basis.size and int(slot_basis.max()) >= N:
+        raise ContractError(f"{where}: slot_basis points past the row axis (max {int(slot_basis.max())} >= {N})")
+
+
+def maybe_check_pack_arrays(enc, assignment, slot_basis, slot_domset, where: str = "fast_validate") -> None:
+    if typecheck_enabled():
+        check_pack_arrays(enc, assignment, slot_basis, slot_domset, where=where)

@@ -17,6 +17,7 @@ Only tests call this.
 from __future__ import annotations
 
 import importlib
+import itertools
 import threading
 from enum import Enum
 
@@ -72,7 +73,8 @@ class _Carrier:
         elif t is tuple:
             out = self.memo[id(x)] = tuple(self(v) for v in x)
         elif t is set or t is frozenset:
-            out = self.memo[id(x)] = t(self(v) for v in x)
+            items = [self(v) for v in x]
+            out = self.memo[id(x)] = _same_order(t, items) if all(type(v) in _ATOMS for v in items) else t(items)
         elif isinstance(x, Enum):
             out = self.memo[id(x)] = port_class(t)[x.name]
         elif t is _LOCK or t is _RLOCK or t.__name__ == "InstrumentedLock":
@@ -96,6 +98,27 @@ class _Carrier:
                 if k not in _DROPPED:
                     out.__dict__[k] = self(v)
         return out
+
+
+def _same_order(t: type, items: list):
+    """A set (or frozenset) of the atoms `items` that iterates in their
+    order, the original set's. A set's order follows the hash table's
+    layout, which depends on the order its elements went in; the host
+    scheduler breaks some ties by the order of a set (a spread's candidate
+    domains), so a carried set must iterate as its original does. Insertion
+    orders are tried until one gives the original's order: the original's
+    own, sorted, reversed, then (up to 7 elements) every permutation."""
+    out = t(items)
+    if list(out) == items:
+        return out
+    tries = [sorted(items, key=repr), sorted(items, key=repr, reverse=True)]
+    if len(items) <= 7:
+        tries = itertools.chain(tries, itertools.permutations(items))
+    for order in tries:
+        cand = t(order)
+        if list(cand) == items:
+            return cand
+    return out
 
 
 def _slots(t: type) -> list:
@@ -153,3 +176,83 @@ def snapshot_from_reference(ref_snap) -> SolverSnapshot:
         deleting_node_names=set(ref_snap.deleting_node_names),
         **{name: getattr(ref_snap, name) for name in _SETTINGS},
     )
+
+
+class SnapshotMirror:
+    """A sequence of reference snapshots over one cluster, carried over step
+    after step into one port-side cluster, as a chain of solves needs it.
+
+    One carrier serves the whole sequence, so a reference object carried
+    once stays the same port object (the encoder's delta path walks the pod
+    list by identity, and its row key holds the instance types' identity);
+    the top-level lists are rebuilt each step, since the reference mutates
+    them in place. One port store follows the reference's: objects the
+    reference store gained since the last step are created in the port's
+    in revision order (both stores then hand out the same revisions), and
+    the port's informers keep its cluster in step. An update or a deletion
+    in the reference store raises `NotImplementedError`."""
+
+    def __init__(self):
+        self.carry = _Carrier()
+        self.ref_store = None
+        self.store: Store | None = None
+        self.cluster: Cluster | None = None
+
+    def _sync(self) -> None:
+        ref = self.ref_store
+        with ref._lock:
+            objects = {kind: dict(objs) for kind, objs in ref._objects.items()}
+            rv = ref._rv
+        new = []
+        for kind, objs in objects.items():
+            mine = self.store._objects.get(kind, {})
+            for key, obj in objs.items():
+                have = mine.get(key)
+                if have is None:
+                    new.append(obj)
+                elif have.metadata.resource_version != obj.metadata.resource_version:
+                    raise NotImplementedError(f"{kind} {key} was updated in the reference store")
+            if set(mine) - set(objs):
+                raise NotImplementedError(f"a {kind} was deleted from the reference store")
+        for obj in sorted(new, key=lambda o: o.metadata.resource_version):
+            self.store.create(self.carry(obj))
+        if self.store._rv != rv:
+            raise NotImplementedError(f"the stores' revisions differ: {self.store._rv} != {rv}")
+
+    def snapshot(self, ref_snap) -> SolverSnapshot:
+        """The port's snapshot of this step of the sequence."""
+        if getattr(ref_snap, "registry", None) is not None:
+            raise NotImplementedError("a metrics registry cannot be carried over: the port has none")
+        carry = self.carry
+        clock = carry(ref_snap.clock)
+        clock.set(ref_snap.clock.now())
+        if ref_snap.store is not None:
+            if self.ref_store is None:
+                self.ref_store = ref_snap.store
+                self.store = _store(ref_snap.store, carry)
+                self.cluster = Cluster(self.store, clock)
+                start_informers(self.store, self.cluster)
+            elif ref_snap.store is not self.ref_store:
+                raise ValueError("a mirror follows the store of one reference cluster")
+            else:
+                self._sync()
+        return SolverSnapshot(
+            store=self.store if ref_snap.store is not None else None,
+            cluster=self.cluster if ref_snap.store is not None else None,
+            node_pools=[carry(np_) for np_ in ref_snap.node_pools],
+            instance_types={name: carry(its) for name, its in ref_snap.instance_types.items()},
+            state_nodes=[carry(sn) for sn in ref_snap.state_nodes],
+            daemonset_pods=[carry(p) for p in ref_snap.daemonset_pods],
+            pods=[carry(p) for p in ref_snap.pods],
+            clock=clock,
+            deleting_node_names=set(ref_snap.deleting_node_names),
+            **{name: getattr(ref_snap, name) for name in _SETTINGS},
+        )
+
+    def reference(self, port_obj):
+        """The reference object a port object was carried from."""
+        back = getattr(self, "_back", None)
+        if back is None or len(back) != len(self.carry.memo):
+            by_id = {id(x): x for x in self.carry.keep}
+            back = self._back = {id(v): by_id[k] for k, v in self.carry.memo.items()}
+        return back[id(port_obj)]

@@ -97,8 +97,8 @@ def canon(x, top: bool = False):
     return (name, tuple((k, canon(v)) for k, v in sorted(state.items())))
 
 
-# what the reference's device path and decode cache on an encoding they
-# solved (the port has no decode yet)
+# what a solver's device path and decode cache on an encoding it solved:
+# not part of the encoder's output
 SOLVER_CACHES = frozenset({"_sig_restrict", "decode_cache"})
 
 
@@ -200,7 +200,7 @@ def test_seeded_headline_fixture_matches_port():
         stored = {k: z[k] for k in z.files}
     assert int(stored["seed"]) == SNAPSHOT_SEED
     clear_globals()
-    snap, added = seeded_snapshot(SNAPSHOT_SEED)
+    snap, added, _one = seeded_snapshot(SNAPSHOT_SEED)
     cache = port_encode_mod.EncodeCache()
     encs = [port_encode_mod.encode(snap, cache=cache)]
     snap.pods = delta_step_pods(snap.pods, added, SNAPSHOT_SEED)
@@ -224,7 +224,7 @@ def write_fixture() -> None:
     os.environ["KARPENTER_SOLVER_BUCKET"] = "0"
     reset_bucket_highwater()
     clear_globals()
-    snap, added = seeded_snapshot(SNAPSHOT_SEED, bench.build_snapshot, helpers)
+    snap, added, _one = seeded_snapshot(SNAPSHOT_SEED, bench.build_snapshot, helpers)
     solver = TPUSolver(force=True)
     out = {"seed": np.int64(SNAPSHOT_SEED)}
     for step in range(2):

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither jax nor the JAX package, every
 relative import of its modules names a module of the port, and its default
 device is CUDA (no silent CPU fallback). With both blocked it builds a
-snapshot with its own builder, encodes it and solves it on the CPU."""
+snapshot with its own builder, encodes it and solves it on the CPU, from the
+encoding (`solve_encoded`) and from the snapshot into node claims
+(`solve`)."""
 
 from __future__ import annotations
 
@@ -44,6 +46,10 @@ _CHILD = textwrap.dedent(
     assert res.errors == [] and res.n_placed == 120, res.errors
     host = FFDSolver().solve(snap)
     assert not host.pod_errors and sum(len(c.pods) for c in host.new_node_claims) == 120
+    solver = GPUSolver(device="cpu")
+    results = solver.solve(snap)
+    assert solver.last_backend == "gpu" and not results.pod_errors, results.pod_errors
+    assert sum(len(c.pods) for c in results.new_node_claims) == 120
     import torch
     torch.cuda.is_available = lambda: False
     try:
