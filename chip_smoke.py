@@ -56,6 +56,28 @@ It times, median of 5 warm runs (host clock, device synchronised after
 each stage), a cold solve on a fresh solver, the resubmit, the delta and
 the warm one-pod delta, decode split out.
 
+Then the hybrid phase (`check_hybrid`): the same recipe with 5% of the
+pods carrying a preferred pod affinity (`bench.py`'s `bench_hybrid_path`
+shape; pod-local fallback reasons), solved by `GPUSolver().solve` over
+`HYBRID_STEPS`: a cold hybrid solve (the in-window majority masked out of
+the encoding and packed on the card, the flagged residual on the host
+FFD), an identical resubmit and one pod appended (hybrid-delta from the
+masked carry), 600 pods removed (the reference's masked delta re-credits
+them, fails validation and the cold hybrid packs again), every flagged pod
+removed (a pure delta from the masked carry), the counts set to 0 just
+before each step and read just after. Each step's canonical `Results`,
+mode, backend, fallback and delta-reject reasons must equal the JAX
+reference's (`fixtures/snapshot/headline_5000x100_hybrid_results.json`),
+with the launches of `HYBRID_LAUNCHES`, each pack and recredit held to its
+plain version on its kept inputs; no step may fall back. Then the
+provisioner phase (`check_provision`): a store holding that headline's
+pods pending, one `Provisioner(..., solver=GPUSolver()).reconcile(force=True)`:
+its `Results`, mode, backend and the NodeClaims created in the store equal
+the JAX reference's pass, K1-K3 launched once. Both time, median of 5 warm
+runs: a cold hybrid solve by stage (encode, mask_encode, the masked pack,
+decode, residual), the warm one-pod hybrid-delta and one provisioning pass
+on a fresh store and solver.
+
 Then the delta path: every chain in `fixtures/chains/` is driven through
 `GPUSolver().solve_encoded` step by step, the counts set to 0 before each
 step and read after it. Each step must give the reference's mode and
@@ -368,7 +390,7 @@ SNAPSHOT_DELTA = (600, 800)  # the delta step: pods removed, pods appended by th
 SNAPSHOT_SEED = 0  # the uids' generator and the delta step's removals (the fixture's)
 
 
-def seeded_snapshot(seed: int = SNAPSHOT_SEED, build_snapshot=None, names=None):
+def seeded_snapshot(seed: int = SNAPSHOT_SEED, build_snapshot=None, names=None, fallback_frac: float = 0.0):
     """The headline `SolverSnapshot`, the pods its delta step appends and
     the one pod the solve phase's last step appends (`bench.py`'s warm
     one-pod delta: 500m, 512Mi), made by `build_snapshot` (the port's
@@ -376,8 +398,10 @@ def seeded_snapshot(seed: int = SNAPSHOT_SEED, build_snapshot=None, names=None):
     from pod-1 (`names` is the module whose `_seq` counter names pods and
     whose `make_pod` makes the one pod) and every uid drawn from a generator
     seeded with `seed` (the FFD queue and the encoder order pods by uid).
-    The fixtures' writers run the same recipe over the reference's
-    builders."""
+    `fallback_frac` is the share of the headline's pods that carry a
+    preferred pod affinity (`bench.py`'s out-of-window pods; the hybrid
+    phase's snapshot has 0.05). The fixtures' writers run the same recipe
+    over the reference's builders."""
     import itertools
     import random
     import uuid
@@ -391,7 +415,7 @@ def seeded_snapshot(seed: int = SNAPSHOT_SEED, build_snapshot=None, names=None):
     real = uuid.uuid4
     uuid.uuid4 = lambda: uuid.UUID(int=rng.getrandbits(128), version=4)
     try:
-        snap = build_snapshot(*SNAPSHOT_SHAPE)
+        snap = build_snapshot(*SNAPSHOT_SHAPE, fallback_frac=fallback_frac)
         added = build_snapshot(SNAPSHOT_DELTA[1], SNAPSHOT_SHAPE[1]).pods
         one = names.make_pod(cpu="500m", memory="512Mi")
     finally:
@@ -752,6 +776,239 @@ def check_solve(dev, card: str, errs: dict, runs: int = 5) -> dict:
     return dict(paths=paths, ms={name: v["ms"] for name, v in out.items()},
                 decode_ms={name: v["stages"].get("decode", 0.0) for name, v in out.items()},
                 stages={name: v["stages"] for name, v in out.items()})
+
+
+# -- the hybrid phase: out-of-window snapshots through the default solver ----------
+
+# the hybrid headline: `bench.py`'s `bench_hybrid_path` shape, 5% of the pods
+# with a preferred pod affinity (pod-local fallback reasons), and the
+# reference's default `TPUSolver` over it (written by
+# `tests/test_torch_hybrid.py --write`)
+HYBRID_FIXTURE = FIXTURES / "snapshot" / "headline_5000x100_hybrid_results.json"
+HYBRID_FALLBACK_FRAC = 0.05
+HYBRID_STEPS = ("H0 cold", "H1 resubmit", "H2 one pod", "H3 removal", "H4 residual gone")
+HYBRID_LAUNCHES = (  # kernels each hybrid step must launch, once each (every other kernel: none)
+    ("feasibility", "pack_scan", "sparsify"),  # H0: the masked problem packed in full
+    (),  # H1: an empty masked delta
+    ("feasibility", "pack_scan", "sparsify"),  # H2: the one pod packed from the masked carry
+    # H3: the removals re-credited into the masked carry; the kept placement
+    # fails validation (spread skew), so the cold hybrid packs the masked
+    # problem in full, as the reference's step does
+    ("recredit", "feasibility", "pack_scan", "sparsify"),
+    (),  # H4: only flagged pods left; an empty masked delta, no residual
+)
+PROVISION_LAUNCHES = ("feasibility", "pack_scan", "sparsify")  # the pass: a cold hybrid solve
+
+
+def hybrid_step_pods(step: int, pods: list, one, enc) -> list:
+    """The pod list of hybrid step `step`, from the previous step's `pods`
+    (the headline's on step 0) and encoding `enc` (the solver's EncodeCache
+    holds it): the same pods on H0 and H1, `one` appended on H2, 600 pods
+    removed on H3 (drawn as `delta_step_pods` draws them) and on H4 every
+    pod of a signature the encoding flagged (read by attribute name, so
+    either package's encoding serves)."""
+    if step <= 1:
+        return list(pods)
+    if step == 2:
+        return list(pods) + [one]
+    if step == 3:
+        return delta_step_pods(pods, [])
+    flagged = {int(s) for s in enc.fallback_sig_local}
+    gone = {id(p) for p, s in zip(enc.pods, enc.sig_of_pod) if int(s) in flagged}
+    return [p for p in pods if id(p) not in gone]
+
+
+def pending_store(snap) -> None:
+    """Create the snapshot's pods in its store, pending (the provisioner
+    reads them there)."""
+    for p in snap.pods:
+        snap.store.create(p)
+
+
+def check_hybrid(dev, card: str, errs: dict, runs: int = 5) -> dict:
+    """The hybrid phase: `GPUSolver(cuda).solve(snap)` over the hybrid
+    headline's `HYBRID_STEPS` (a cold hybrid solve, an identical resubmit,
+    one pod appended, 600 pods removed, the flagged pods removed), the
+    counts set to 0 just before each step and read just after. Each step's
+    canonical Results, mode, backend, fallback and delta-reject reasons
+    must equal the JAX reference's (`HYBRID_FIXTURE`), with the launches of
+    `HYBRID_LAUNCHES`; each pack and recredit is run again on its kept
+    inputs against its plain version. No step may fall back. Then it times,
+    median of `runs` warm runs (host clock, device synchronised after each
+    stage): a cold hybrid solve on a fresh solver, by stage, and the warm
+    one-pod hybrid-delta."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+    from karpenter_tpu_torch.testing import scenarios
+    from karpenter_tpu_torch.testing.canonical import canonical_results, json_form
+
+    stored = json.loads(HYBRID_FIXTURE.read_text())
+    expect(stored["seed"] == SNAPSHOT_SEED, f"the hybrid fixture was written for seed {stored['seed']}, not {SNAPSHOT_SEED}")
+    snap, _added, one = seeded_snapshot(fallback_frac=HYBRID_FALLBACK_FRAC)
+    base = list(snap.pods)
+    reset_bucket_highwater()
+    solver = GPUSolver(dev)
+    pods = base
+    paths = []
+    for i, (step, want, launched) in enumerate(zip(HYBRID_STEPS, stored["steps"], HYBRID_LAUNCHES)):
+        what = f"hybrid {step}"
+        expect(want["step"] == step, f"{what}: the fixture's step is {want['step']}")
+        pods = hybrid_step_pods(i, pods, one, solver.encode_cache.last_enc)
+        snap.pods = pods
+        random.seed(0)
+        seen: dict = {"pack": [], "rc": []}
+        with kept_snapshot_inputs(seen):
+            build.reset_launches()
+            results = solver.solve(snap)
+            counts = dict(build.LAUNCHES)
+        expect(solver.last_solve_mode != "fallback", f"{what}: the solve fell back to the host")
+        backend = {"gpu": "tpu"}.get(solver.last_backend, solver.last_backend)
+        got = dict(mode=solver.last_solve_mode, backend=backend, reject=solver.last_delta_reject,
+                   reasons=list(solver.last_fallback_reasons))
+        for key, value in got.items():
+            expect(value == want[key], f"{what}: {key} {value!r}, the JAX reference's {want[key]!r}")
+        expect(json_form(canonical_results(results)) == want["results"], f"{what}: Results differ from the JAX reference's")
+        need = {k: int(k in launched) for k in counts}
+        expect(counts == need, f"{what}: launches {counts}, not {need}")
+        expect(len(seen["pack"]) == int("pack_scan" in launched) and len(seen["rc"]) == int("recredit" in launched),
+               f"{what}: {len(seen['pack'])} packs and {len(seen['rc'])} recredits")
+        check_snapshot_kernels(seen, what, errs)
+        del seen
+        paths.append({k: v for k, v in counts.items() if v})
+        print(f"{what} ({len(pods)} pods): mode {solver.last_solve_mode}, backend {solver.last_backend}, reject "
+              f"{solver.last_delta_reject}, {len(results.new_node_claims)} claims, {len(results.pod_errors)} pod errors, "
+              f"Results == JAX reference; launches {paths[-1]}")
+
+    def timed(gpu, what: str, mode: str):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gpu.solve(snap)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        expect(gpu.last_solve_mode == mode and not res.pod_errors, f"timed {what}: mode {gpu.last_solve_mode}")
+        return ms, dict(gpu.last_stages)
+
+    extra = [scenarios.make_pod(cpu="500m", memory="512Mi") for _ in range(runs + 1)]
+    cold, one_pod = [], []
+    for r in range(runs + 1):
+        reset_bucket_highwater()
+        gpu = GPUSolver(dev, stage_times=True)  # a fresh solver: a cold hybrid solve
+        snap.pods = base
+        cold.append(timed(gpu, "cold hybrid solve", "hybrid"))
+    for r in range(runs + 1):
+        snap.pods = base + extra[: r + 1]
+        one_pod.append(timed(gpu, "one-pod hybrid-delta", "hybrid-delta"))
+    out = {}
+    for name, rows, label in (("cold", cold, f"cold hybrid solve {SNAPSHOT_SHAPE[0]}x{SNAPSHOT_SHAPE[1]} (fresh solver)"),
+                              ("delta_1pod", one_pod, "warm one-pod hybrid-delta")):
+        ms = [x[0] for x in rows]
+        stages = {k: statistics.median(x[1].get(k, 0.0) for x in rows[1:]) for k in rows[-1][1]}
+        out[name] = dict(ms=statistics.median(ms[1:]), stages=stages)
+        print(f"time hybrid snapshot to NodeClaims, {label}: median of {runs} warm runs {out[name]['ms']:.3f} ms "
+              f"(runs ms: {[round(x, 3) for x in ms]}; stages ms: "
+              + ", ".join(f"{k} {x:.3f}" for k, x in stages.items()) + f") on {card}")
+    return dict(paths=paths, ms={k: v["ms"] for k, v in out.items()}, stages={k: v["stages"] for k, v in out.items()})
+
+
+def check_provision(dev, card: str, errs: dict, runs: int = 5) -> dict:
+    """The provisioner phase: a fresh store holding the hybrid headline's
+    nodepool and its 5000 pods created pending, wired to its `Cluster`
+    (informers), `FakeCloudProvider(instance_types_assorted(100))` and a
+    `FakeClock`; one `Provisioner(..., solver=GPUSolver(cuda))
+    .reconcile(force=True)`, the counts set to 0 just before and read just
+    after. The returned canonical Results, the solver's mode and backend and
+    the NodeClaims created in the store must equal the JAX reference's
+    pass (`HYBRID_FIXTURE`), with K1-K3 launched once each; each pack is
+    run again on its kept inputs against its plain version. Then it times
+    one pass on a fresh store and solver, median of `runs` warm runs."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types_assorted
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import Provisioner
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+    from karpenter_tpu_torch.testing.canonical import canonical_node_claims, canonical_results, json_form
+
+    want = json.loads(HYBRID_FIXTURE.read_text())["provision"]
+
+    def fresh():
+        snap, _added, _one = seeded_snapshot(fallback_frac=HYBRID_FALLBACK_FRAC)
+        pending_store(snap)
+        reset_bucket_highwater()
+        gpu = GPUSolver(dev, stage_times=True)
+        cloud = FakeCloudProvider(instance_types_assorted(SNAPSHOT_SHAPE[1]))
+        return snap, gpu, Provisioner(snap.store, snap.cluster, cloud, snap.clock, solver=gpu)
+
+    snap, gpu, prov = fresh()
+    random.seed(0)
+    seen: dict = {"pack": [], "rc": []}
+    with kept_snapshot_inputs(seen):
+        build.reset_launches()
+        results = prov.reconcile(force=True)
+        counts = dict(build.LAUNCHES)
+    what = "provision"
+    expect(results is not None, f"{what}: the pass did not run")
+    backend = {"gpu": "tpu"}.get(gpu.last_backend, gpu.last_backend)
+    for key, value in (("mode", gpu.last_solve_mode), ("backend", backend)):
+        expect(value == want[key], f"{what}: {key} {value!r}, the JAX reference's {want[key]!r}")
+    expect(json_form(canonical_results(results)) == want["results"], f"{what}: Results differ from the JAX reference's")
+    claims = json_form(canonical_node_claims(snap.store))
+    expect(claims == want["claims"], f"{what}: the NodeClaims in the store differ from the JAX reference's")
+    need = {k: int(k in PROVISION_LAUNCHES) for k in counts}
+    expect(counts == need, f"{what}: launches {counts}, not {need}")
+    expect(len(seen["pack"]) == 1 and not seen["rc"], f"{what}: {len(seen['pack'])} packs and {len(seen['rc'])} recredits")
+    check_snapshot_kernels(seen, what, errs)
+    del seen
+    path = {k: v for k, v in counts.items() if v}
+    print(f"{what} ({len(snap.pods)} pending pods in the store): mode {gpu.last_solve_mode}, backend {gpu.last_backend}, "
+          f"{len(claims)} NodeClaims created, {len(results.pod_errors)} pod errors, Results and NodeClaims == JAX "
+          f"reference; launches {path}")
+
+    def split_into(split: dict, obj, name: str, key: str) -> None:
+        """Time each call of `obj.name` into `split[key]` (ms)."""
+        real = getattr(obj, name)
+
+        def timed_call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                split[key] = split.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+
+        setattr(obj, name, timed_call)
+
+    passes, stages, splits = [], [], []
+    for r in range(runs + 1):
+        snap, gpu, prov = fresh()
+        split: dict = {}
+        for obj, name, key in ((prov, "get_pending_pods", "pending pods"), (prov, "make_snapshot", "snapshot"),
+                               (gpu, "solve", "solve"), (prov, "create_node_claim", "create NodeClaims")):
+            split_into(split, obj, name, key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prov.reconcile(force=True)
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0) * 1e3)
+        split["other"] = passes[-1] - sum(split.values())
+        splits.append(split)
+        stages.append(dict(gpu.last_stages))
+        expect(gpu.last_solve_mode == "hybrid" and not res.pod_errors, f"timed provisioning pass: mode {gpu.last_solve_mode}")
+    ms = statistics.median(passes[1:])
+    med = {k: statistics.median(x.get(k, 0.0) for x in stages[1:]) for k in stages[-1]}
+    med_split = {k: statistics.median(x.get(k, 0.0) for x in splits[1:]) for k in splits[-1]}
+    print(f"time provisioning pass (Provisioner.reconcile, {SNAPSHOT_SHAPE[0]} pending pods, fresh store and solver): "
+          f"median of {runs} warm runs {ms:.3f} ms (runs ms: {[round(x, 3) for x in passes]}; pass ms: "
+          + ", ".join(f"{k} {x:.3f}" for k, x in med_split.items()) + "; solver stages ms: "
+          + ", ".join(f"{k} {x:.3f}" for k, x in med.items()) + f") on {card}")
+    return dict(path=path, ms=ms, stages=med, split=med_split)
 
 
 def k1_cost(t, items, compat, key) -> tuple[int, int]:
@@ -2357,6 +2614,11 @@ def run(dev, card: str) -> dict:
     print(f"main path {HEADLINE_AFF}: {aff_summary} launches {aff_launches}")
     snapshot = check_snapshot(dev, card, errs)
     solve = check_solve(dev, card, errs)
+    t1 = time.perf_counter()
+    hybrid = check_hybrid(dev, card, errs)
+    t2 = time.perf_counter()
+    provision = check_provision(dev, card, errs)
+    print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {time.perf_counter() - t2:.1f} s")
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
           f"{dense['ms']:.4f} ms (K1 + K2, CUDA events), {dense['plain_ms']:.4f} ms plain, "
@@ -2470,10 +2732,15 @@ def run(dev, card: str) -> dict:
     return {"kernels": rows, "caps": caps, "paths": {"full": launches, "full_affinity": aff_launches, "delta": delta_launches,
                                        "dense": dense["launches"], "consolidation": cons_runs, "perpod": perpod_runs,
                                        "snapshot": snapshot["full_counts"], "snapshot_delta": snapshot["delta_counts"],
-                                       **dict(zip(("solve", "solve_resubmit", "solve_delta", "solve_delta_1pod"), solve["paths"]))},
+                                       **dict(zip(("solve", "solve_resubmit", "solve_delta", "solve_delta_1pod"), solve["paths"])),
+                                       **dict(zip(("hybrid", "hybrid_resubmit", "hybrid_delta_1pod", "hybrid_delta_removal",
+                                                   "hybrid_residual_gone"), hybrid["paths"])),
+                                       "provision": provision["path"]},
             "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"],
             "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")},
-            "solve_ms": {**solve["ms"], "decode": solve["decode_ms"], "stages": solve["stages"]}}
+            "solve_ms": {**solve["ms"], "decode": solve["decode_ms"], "stages": solve["stages"]},
+            "hybrid_ms": {**hybrid["ms"], "stages": hybrid["stages"], "provision": provision["ms"],
+                          "provision_split": provision["split"], "provision_stages": provision["stages"]}}
 
 
 def host_cpu() -> str:

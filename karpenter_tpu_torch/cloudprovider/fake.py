@@ -1,6 +1,11 @@
-"""The fake cloud provider's assorted instance-type generator (reference:
-pkg/cloudprovider/fake/instancetype.go:369 InstanceTypesAssorted). The fake
-provider itself is not ported yet.
+"""Fake cloud provider for unit tests and the assorted instance-type
+generator (reference: pkg/cloudprovider/fake/cloudprovider.go:51-96 and
+instancetype.go:369 InstanceTypesAssorted).
+
+The port's `FakeCloudProvider` serves the provisioner's instance-type
+reads; the claim lifecycle calls (`create`, `delete`, `get`, `list`,
+drift, repair policies) and their scripted errors come with the
+controllers that make them.
 """
 
 from __future__ import annotations
@@ -10,6 +15,17 @@ import itertools
 from ..apis import labels as wk
 from . import catalog
 from .types import InstanceType
+
+
+class FakeCloudProvider:
+    def __init__(self, instance_types: list[InstanceType]):
+        self.instance_types = instance_types
+
+    def get_instance_types(self, node_pool=None) -> list[InstanceType]:
+        return self.instance_types
+
+    def name(self) -> str:
+        return "fake"
 
 
 def instance_types_assorted(count: int = 400) -> list[InstanceType]:

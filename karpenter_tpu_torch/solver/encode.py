@@ -1116,6 +1116,190 @@ def _pod_window_reasons(snap, pod, respect: bool, resolve_comp) -> list[str]:
     return []
 
 
+def hybrid_partition(snap, enc) -> tuple[list, list] | None:
+    """Split an out-of-window snapshot into (tensor_pods, residual_pods), or
+    None when the whole snapshot must take the host FFD.
+
+    Eligible iff every fallback reason is POD-LOCAL (fallback.py tiers) and
+    the two halves are CONSTRAINT-INDEPENDENT: no AFFINITY or ANTI-AFFINITY
+    topology group counts or constrains signatures on both sides (a shared
+    group of those kinds would need joint blocking/bootstrap accounting the
+    split cannot provide), and no flagged pod's explicit-namespace
+    (anti-)affinity term selects a tensor-side pod across namespaces — the
+    one coupling channel the same-namespace `sig_member` matrix cannot see.
+    SPREAD groups (keyed and hostname) may span the seam: the solver exports
+    the tensor side's per-(key, domain) occupancy into the residual
+    scheduler's Topology (gpu._seam_records + ffd.solve_residual), so the
+    residual's per-placement skew rule runs against the true combined
+    counts. Preferred (soft) terms are exempt from the coupling gate: the
+    host relaxation loop peels them on failure, so they can never make the
+    combined placement infeasible."""
+    if not enc.fallback_reasons or enc.fallback_has_global:
+        return None
+    sig_local = enc.fallback_sig_local
+    if not sig_local:
+        return None
+    S = enc.n_sigs
+    flagged = np.zeros(S, dtype=bool)
+    flagged[list(sig_local)] = True
+    if flagged.all():
+        return None
+    # group coupling over the full-snapshot encode: `sig_member` marks every
+    # signature a group SELECTS, `sig_owner` every signature that DECLARES
+    # it. Spread kinds are exempt — their tensor-side occupancy is exported
+    # to the residual, so joint accounting holds across the seam.
+    if enc.n_groups:
+        touches = enc.sig_member | enc.sig_owner
+        kinds = np.asarray(enc.group_kind)
+        coupled = ~((kinds == KIND_DOM_SPREAD) | (kinds == KIND_HOST_SPREAD))
+        cross = touches[flagged].any(axis=0) & touches[~flagged].any(axis=0)
+        if (cross & coupled).any():
+            return None
+    # explicit-namespace required terms of flagged pods vs tensor-side reps;
+    # one representative per signature via a vectorized first-occurrence scan
+    # (the old per-pod Python walk here ran O(P) on every hybrid solve)
+    sig_arr = np.asarray(enc.sig_of_pod)
+    _, first_idx = np.unique(sig_arr, return_index=True)
+    reps: dict[int, object] = {int(sig_arr[i]): enc.pods[i] for i in first_idx}
+    tensor_reps = [reps[s] for s in range(S) if not flagged[s] and s in reps]
+    for s in sig_local:
+        pod = reps.get(s)
+        aff = pod.spec.affinity if pod is not None else None
+        if aff is None:
+            continue
+        for term in list(aff.pod_affinity_required) + list(aff.pod_anti_affinity_required):
+            if not term.namespaces and term.namespace_selector is None:
+                continue
+            if getattr(snap, "store", None) is None:
+                return None  # cannot resolve the term's namespace span
+            nss = _term_namespaces(snap.store, pod, term)
+            for q in tensor_reps:
+                if (
+                    q.metadata.namespace in nss
+                    and term.label_selector is not None
+                    and match_label_selector(term.label_selector, q.metadata.labels)
+                ):
+                    return None
+    pod_flagged = flagged[enc.sig_of_pod]
+    tensor_pods = [p for i, p in enumerate(enc.pods) if not pod_flagged[i]]
+    residual_pods = [p for i, p in enumerate(enc.pods) if pod_flagged[i]]
+    return tensor_pods, residual_pods
+
+
+def mask_encode(enc: EncodedSnapshot, keep_sig_ids) -> EncodedSnapshot:
+    """Derive the encode of a pod-subset snapshot by SLICING the full
+    encode's per-signature arrays instead of re-encoding from scratch — the
+    hybrid solver's sub-encode, at a fraction of the host cost.
+
+    `keep_sig_ids` selects signatures of `enc`; the result holds exactly the
+    pods of those signatures (same FFD order — sorting a subsequence by the
+    same keys preserves relative order), with signature ids renumbered
+    densely in ascending original order. The row/offering side, vocabulary,
+    domain axis, port vocabularies, and the cross-solve decode cache are
+    shared BY REFERENCE; only the host-side structures that genuinely depend
+    on the pod subset are rebuilt: the topology-group axis (groups survive
+    iff a kept signature DECLARES them — exactly the groups a from-scratch
+    sub-encode would discover), the requirement-class table, and the
+    relaxation flag. Axes may keep entries only dropped signatures
+    referenced (label values, domains, ports); kept signatures never match
+    them, so placement decisions are identical to
+    ``encode(snap.with_pods(kept_pods))``.
+
+    The kept signatures must be free of fallback attribution: masking a
+    snapshot-global encode, or keeping a flagged signature, would silently
+    drop constraints the host path was meant to handle."""
+    import dataclasses as _dc
+
+    S = enc.n_sigs
+    ids = np.asarray(sorted({int(s) for s in keep_sig_ids}), dtype=np.int64)
+    if ids.size and (ids[0] < 0 or ids[-1] >= S):
+        raise ValueError(f"keep_sig_ids out of range for {S} signatures")
+    if enc.fallback_has_global:
+        raise ValueError("cannot mask a snapshot-global encode")
+    flagged = enc.fallback_sig_local
+    if flagged and any(int(s) in flagged for s in ids):
+        raise ValueError("cannot keep a fallback-flagged signature")
+    keep = np.zeros(max(S, 1), dtype=bool)
+    keep[ids] = True
+    remap = np.full(max(S, 1), -1, dtype=np.int32)
+    remap[ids] = np.arange(ids.size, dtype=np.int32)
+
+    sig_of_pod = np.asarray(enc.sig_of_pod)
+    pod_keep = keep[sig_of_pod] if sig_of_pod.size else np.zeros(0, bool)
+    pods = [p for p, k in zip(enc.pods, pod_keep) if k]
+    new_sig_of_pod = remap[sig_of_pod[pod_keep]].astype(np.int32)
+
+    # groups survive iff a kept signature DECLARES them (the from-scratch
+    # sub-encode builds groups from declarations only; selector-matched
+    # non-declaring pods never create one)
+    G = enc.n_groups
+    if G and ids.size:
+        gidx = np.nonzero(enc.sig_owner[ids].any(axis=0))[0]
+    else:
+        gidx = np.zeros(0, np.int64)
+
+    # requirement classes renumber by first appearance over kept signatures;
+    # the CONTENT keys (req_class_keys) ride along so decode's cross-solve
+    # cache keys stay stable across the renumbering
+    new_rc = np.zeros(ids.size, dtype=np.int32)
+    cls_map: dict[int, int] = {}
+    new_keys: list = []
+    for i, s in enumerate(ids):
+        cid = int(enc.req_class_of_sig[int(s)])
+        nc = cls_map.get(cid)
+        if nc is None:
+            nc = len(new_keys)
+            cls_map[cid] = nc
+            new_keys.append(enc.req_class_keys[cid])
+        new_rc[i] = nc
+
+    sr = enc.sig_relaxable
+    masked = _dc.replace(
+        enc,
+        pods=pods,
+        sig_of_pod=new_sig_of_pod,
+        sig_req=enc.sig_req[ids],
+        sig_mask=enc.sig_mask[ids],
+        sig_taint_ok=enc.sig_taint_ok[ids],
+        sig_dom_allowed=enc.sig_dom_allowed[ids],
+        sig_member=enc.sig_member[np.ix_(ids, gidx)],
+        sig_owner=enc.sig_owner[np.ix_(ids, gidx)],
+        sig_requirements=[enc.sig_requirements[int(s)] for s in ids],
+        sig_requests=[enc.sig_requests[int(s)] for s in ids],
+        req_class_of_sig=new_rc,
+        req_class_keys=new_keys,
+        sig_host_blocked=enc.sig_host_blocked[ids],
+        sig_port_any=enc.sig_port_any[ids],
+        sig_port_wild=enc.sig_port_wild[ids],
+        sig_port_spec=enc.sig_port_spec[ids],
+        group_kind=enc.group_kind[gidx],
+        group_skew=enc.group_skew[gidx],
+        group_dom_key=enc.group_dom_key[gidx],
+        group_min_domains=enc.group_min_domains[gidx],
+        group_registered=enc.group_registered[gidx],
+        counts_dom_init=enc.counts_dom_init[gidx],
+        counts_host_existing=enc.counts_host_existing[gidx],
+        group_meta=[enc.group_meta[int(g)] for g in gidx] if enc.group_meta is not None else None,
+        fallback_reasons=[],
+        fallback_sig_local=frozenset(),
+        fallback_has_global=False,
+        has_relaxable=bool(
+            enc.pools_prefer
+            or (sr[ids].any() if sr is not None and ids.size else False)
+            or (sr is None and enc.has_relaxable)
+        ),
+        sig_relaxable=sr[ids] if sr is not None else None,
+    )
+    # the [S, Kd] restriction cache slices exactly (it is a pure row-wise
+    # function of sig_dom_allowed)
+    cached = getattr(enc, "_sig_restrict", None)
+    if cached is not None:
+        masked._sig_restrict = cached[ids]
+    _freeze_shared(masked, enc)
+    maybe_check_encoded(masked, where="mask_encode")
+    return masked
+
+
 def _freeze_shared(derived: EncodedSnapshot, base: EncodedSnapshot) -> None:
     """Runtime arm of the SHARED_ENCODE_FIELDS contract: mark every numpy
     array the derived encode shares BY REFERENCE with its base read-only, so

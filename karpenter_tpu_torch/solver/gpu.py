@@ -2,17 +2,21 @@
 the scheduler's `Results` (new NodeClaims, pods on existing nodes, pod
 errors), full or as a delta of the previous solve.
 
-`solve(snap)` is the counterpart of the reference's `TPUSolver.solve`
-(solver/tpu.py:427, :636-686) without the hybrid path, the flight recorder
+`solve(snap)` is the counterpart of the reference's default
+`TPUSolver.solve` (solver/tpu.py:427, :636-686) without the flight recorder
 and the recovery ladder: encode the snapshot with the solver's own
-`EncodeCache`; send a snapshot with fallback reasons, or an empty one, to
-the host FFD (`_fall_back`); otherwise pack it on the device, as a delta of
-the resident carry where the encoder linked it to the resident encoding,
-else in full; then `_finish`: the relaxation check, `fast_validate`, the
-decode into node claims (`_decode`, with the slot-reuse memo of the
-previous decode and the minValues repair through `ffd.solve_residual`) and,
-only after a successful decode, the resident carry for the next delta
-(dropped again after a repair).
+`EncodeCache`; a snapshot with fallback reasons takes the hybrid
+partitioned solve where its reasons are pod-local (`_try_hybrid`: the
+in-window majority, masked out of the encoding, packs on the device and the
+flagged residual runs the host FFD against its result; a pod delta of the
+previous hybrid snapshot packs only the delta, `_solve_masked_delta`), else
+the host FFD (`_fall_back`), as does an empty snapshot; otherwise pack it on
+the device, as a delta of the resident carry where the encoder linked it to
+the resident encoding, else in full; then `_finish`: the relaxation check,
+`fast_validate`, the decode into node claims (`_decode`, with the slot-reuse
+memo of the previous decode and the minValues repair through
+`ffd.solve_residual`) and, only after a successful decode, the resident
+carry for the next delta (dropped again after a repair).
 
 The pack is the counterpart of `_solve_full` / `_solve_delta_inner`
 (:688-718, :994-1196): build the work items and the device tensors, pack
@@ -64,7 +68,7 @@ from ..utils.quantity import Quantity
 from .carry import apply_row_diff, rebuild_port_planes, recount_anti_groups
 from .check import fast_validate
 from .contracts import maybe_check_encoded
-from .encode import EncodeCache, encode
+from .encode import EncodeCache, encode, hybrid_partition, mask_encode
 from .encoded import (
     KIND_DOM_AFF,
     KIND_DOM_ANTI,
@@ -77,7 +81,7 @@ from .encoded import (
     from_reference,
 )
 from .fallback import reason_family as _reason_family
-from .ffd import FFDSolver
+from .ffd import FFDSolver, solve_residual
 from .snapshot import SolverSnapshot
 
 SLOT_CAP = 4096  # slot axis = n_existing + min(n_pods, SLOT_CAP) before the retry
@@ -193,8 +197,9 @@ class GPUSolver:
     kernel wrapper takes its plain PyTorch version). `force=True` raises
     where the solve would otherwise fall back to the host FFD.
 
-    After a solve: `last_solve_mode` is "full", "delta" or "fallback";
-    `last_backend` is "gpu" (the reference's "tpu") or "ffd-fallback";
+    After a solve: `last_solve_mode` is "full", "delta", "hybrid",
+    "hybrid-delta" or "fallback"; `last_backend` is "gpu" (the reference's
+    "tpu"), "hybrid" or "ffd-fallback";
     `last_fallback_reasons` lists why the tensor path could not take the
     snapshot and `last_fallback_family` their bounded family (the
     reference's fallback metric label); `last_delta_reject` names why the last solve did not take the
@@ -220,6 +225,11 @@ class GPUSolver:
         # assignment, keyed by its problem (and, on the `solve` path, by its
         # encoding): a later delta packs only what changed from it
         self._resident: dict | None = None
+        # the hybrid-delta carry: the previous hybrid solve's full encoding,
+        # its masked (tensor-side) encoding and the signature partition; a
+        # small pod delta of the same hybrid snapshot then packs only the
+        # delta against the masked carry
+        self._hybrid_state: dict | None = None
         # the previous successful decode's per-slot materializations, keyed
         # to the encoding they were decoded from: a delta whose base is that
         # encoding reuses every slot whose assignment row did not change.
@@ -277,6 +287,9 @@ class GPUSolver:
         if enc.fallback_reasons:
             if self.force:
                 raise RuntimeError(f"tensor path unsupported: {enc.fallback_reasons}")
+            hybrid = self._try_hybrid(snap, enc, delta_base)
+            if hybrid is not None:
+                return hybrid
             return self._fall_back(snap, enc.fallback_reasons)
         if enc.n_pods == 0 or enc.n_rows == 0:
             return self._fall_back(snap, ["empty snapshot"])
@@ -287,11 +300,14 @@ class GPUSolver:
             delta = self._solve_delta(snap, enc, delta_base if delta_base is not None else enc)
             if delta is not None:
                 return delta
-            return self._solve_full_snapshot(snap, enc)
+            results = self._solve_full_snapshot(snap, enc)
+            self._hybrid_state = None  # a full pack supersedes any hybrid carry
+            return results
         except _TensorFallback as e:
             return self._fall_back(snap, e.reasons, family=e.family)
 
     def _fall_back(self, snap: SolverSnapshot, reasons: list[str], family: str | None = None) -> Results:
+        self._hybrid_state = None  # the host result supersedes any hybrid carry
         self.last_backend = "ffd-fallback"
         self.last_solve_mode = "fallback"
         self.last_fallback_reasons = reasons
@@ -313,12 +329,16 @@ class GPUSolver:
         delta link, or the encoding itself on an identical resubmit) is the
         resident encoding; None when the full pack must run."""
         resident = self._resident
-        if resident is None or resident.get("enc") is not base:
-            # no carry, or a carry of another encoding (the reference would
-            # try its masked delta here, which without a hybrid carry also
-            # ends on the full pack)
+        if resident is None:
+            # the delta encode succeeded but the carry is gone (dropped after
+            # a decode repair, or never kept): the full pack runs
             self._reject("no-carry")
             return None
+        if resident.get("enc") is not base:
+            # the carry may be the masked pack of a previous hybrid solve
+            # whose full encoding is `base`: continue there in masked
+            # coordinates
+            return self._solve_masked_delta(snap, enc, base)
         maybe_check_encoded(enc, where="pack-delta")
         base_problem = resident["problem"]
         with self._stage("copy"):
@@ -615,31 +635,177 @@ class GPUSolver:
             targets=resident["targets"],
         )
 
-    # -- the repair's topology export ------------------------------------------
+    # -- the hybrid partitioned solve -------------------------------------------
+
+    def _try_hybrid(self, snap: SolverSnapshot, enc, delta_base=None) -> Results | None:
+        """Hybrid partitioned solve: when every fallback reason is pod-local
+        and the flagged residual is constraint-independent of the rest
+        (`encode.hybrid_partition`), pack the in-window majority on the
+        device and run the exact host FFD on the residual only, against the
+        tensor result's node state, so residual pods schedule into the
+        freshly proposed claims instead of double-provisioning.
+
+        The sub-encoding masks the full one (`encode.mask_encode`): no second
+        encode, and the EncodeCache keeps the full encoding. When the
+        snapshot is a small pod delta of the previous hybrid solve, the warm
+        path packs only the delta against the kept masked carry
+        (`_solve_masked_delta`, mode "hybrid-delta"). Returns the merged
+        Results, or None when the whole snapshot must fall back."""
+        # warm path: a pod delta of the previous hybrid snapshot (an
+        # identical resubmit carries no link but is its own base)
+        hs = self._hybrid_state
+        base = delta_base if delta_base is not None else (enc if hs is not None and hs["full_enc"] is enc else None)
+        if base is not None:
+            warm = self._solve_masked_delta(snap, enc, base)
+            if warm is not None:
+                return warm
+
+        part = hybrid_partition(snap, enc)
+        if part is None:
+            self._hybrid_state = None
+            return None
+        _tensor_pods, residual_pods = part
+        keep = np.ones(enc.n_sigs, dtype=bool)
+        keep[[int(s) for s in enc.fallback_sig_local]] = False
+        with self._stage("mask_encode"):
+            masked = mask_encode(enc, np.nonzero(keep)[0])
+        if masked.n_pods == 0 or masked.n_rows == 0:
+            self._hybrid_state = None
+            return None
+        sub_snap = snap.with_pods(masked.pods)
+        try:
+            tensor_results = self._solve_full_snapshot(sub_snap, masked)
+        except _TensorFallback:
+            self._hybrid_state = None
+            return None  # the tensor majority could not stand: the whole snapshot takes the host FFD
+        remap = np.full(enc.n_sigs, -1, dtype=np.int32)
+        remap[keep] = np.arange(int(keep.sum()), dtype=np.int32)
+        # one full and one masked encoding, never their predecessors
+        self._hybrid_state = dict(full_enc=enc, masked_enc=masked, keep=keep, remap=remap)
+        return self._hybrid_residual(snap, enc, keep, residual_pods, tensor_results, "hybrid")
+
+    def _hybrid_residual(self, snap: SolverSnapshot, enc, keep: np.ndarray, residual_pods: list,
+                         tensor_results: Results, mode: str) -> Results:
+        """The exact host FFD on the flagged residual against the tensor
+        result's node state, with the spread counts across the seam."""
+        with self._stage("residual"):
+            results = solve_residual(
+                snap, residual_pods, tensor_results, seam_records=self._seam_records(enc, keep, tensor_results)
+            )
+        self.last_backend = "hybrid"
+        self.last_solve_mode = mode
+        self.last_fallback_reasons = enc.fallback_reasons
+        return results
+
+    def _solve_masked_delta(self, snap: SolverSnapshot, enc, base) -> Results | None:
+        """Hybrid-delta: `enc` is a pod delta of `base`, the previous hybrid
+        solve's full encoding, and the resident carry is that solve's masked
+        (tensor-side) pack. The delta is translated into masked coordinates:
+        tensor-side removals re-credit and tensor-side additions pack from
+        the kept carry, while the small residual re-solves on the exact host
+        path against the fresh tensor results. Returns the merged Results
+        (mode "hybrid-delta"), the pure tensor Results when no flagged pod is
+        left ("delta"), or None when the cold path must run."""
+        hs = self._hybrid_state
+        resident = self._resident
+        if base is None:
+            return None
+        if hs is None or resident is None:
+            self._reject("no-carry")
+            return None
+        if hs["full_enc"] is not base or resident["enc"] is not hs["masked_enc"]:
+            self._reject("no-carry")
+            return None
+        if getattr(enc, "delta_row_diff", None) is not None:
+            # a row-refresh diff cannot be applied to the masked carry
+            # untranslated (the encoder routes a hybrid base full on one;
+            # this guards any other arrival path)
+            self._reject("no-carry")
+            return None
+        keep = hs["keep"]  # bool [S] over the full encoding's signature axis
+        if enc.n_sigs != keep.shape[0] or enc.fallback_has_global:
+            # a grown signature axis or a snapshot-global reason: the kept
+            # partition no longer describes this snapshot
+            self._reject("no-carry")
+            return None
+        # the delta's attribution must stay inside the kept partition: a
+        # newly flagged tensor-side signature would invalidate the split
+        if any(keep[int(s)] for s in enc.fallback_sig_local):
+            self._reject("fallback-global")
+            return None
+        masked_base = hs["masked_enc"]
+        remap = hs["remap"]
+
+        removed = getattr(enc, "delta_removed_enc", None)
+        if removed is not None and removed.size:
+            base_keep_pod = keep[np.asarray(base.sig_of_pod)]
+            masked_pos = np.cumsum(base_keep_pod) - 1
+            tensor_removed = removed[base_keep_pod[removed]]
+            masked_removed = masked_pos[tensor_removed].astype(np.int64)
+        else:
+            masked_removed = np.zeros(0, np.int64)
+        added_sigs = getattr(enc, "delta_added_sigs", None)
+        if added_sigs is None or not added_sigs.size:
+            masked_added = np.zeros(0, np.int32)
+        else:
+            masked_added = remap[added_sigs[keep[added_sigs]]].astype(np.int32)
+
+        with self._stage("mask_encode"):
+            masked_new = mask_encode(enc, np.nonzero(keep)[0])
+        if masked_new.n_pods == 0:
+            return None
+        masked_new.delta_removed_enc = masked_removed
+        masked_new.delta_added_sigs = masked_added
+        sub_snap = snap.with_pods(masked_new.pods)
+        try:
+            tensor_results = self._solve_delta(sub_snap, masked_new, masked_base)
+        except _TensorFallback:
+            return None  # the cold hybrid (or the whole-snapshot fallback) takes over
+        if tensor_results is None:
+            return None
+        pod_flagged = ~keep[np.asarray(enc.sig_of_pod)]
+        residual_pods = [p for p, f in zip(enc.pods, pod_flagged) if f]
+        self._hybrid_state = dict(full_enc=enc, masked_enc=masked_new, keep=keep, remap=remap)
+        if not residual_pods:
+            # the out-of-window pods left the snapshot: a pure tensor delta
+            self.last_solve_mode = "delta"
+            return tensor_results
+        return self._hybrid_residual(snap, enc, keep, residual_pods, tensor_results, "hybrid-delta")
+
+    # -- the topology export across the seam -----------------------------------
 
     @staticmethod
-    def _seam_records(enc, keep: np.ndarray, tensor_results: Results) -> list:
-        """Exported topology group counts for the minValues repair:
-        (pod, taints, requirements) per tensor-placed pod that a group
-        touching the repaired signatures (`~keep`) counts, for
-        `ffd.solve_residual` to record into the residual Topology.
+    def _seam_records(enc, keep: np.ndarray, tensor_results: Results, require_cross: bool = True,
+                      all_kinds: bool = False) -> list:
+        """Exported topology group counts: (pod, taints, requirements) per
+        tensor-placed pod that a group spanning the residual seam counts,
+        for `ffd.solve_residual` to record into the residual Topology.
 
-        Each record carries the placement's CONCRETE requirements — the
-        claim's (with its committed domain pin and adopted hostname) or the
-        existing node's label view — so the host's own counting rule
-        (selector + node filter + single-value domain) applies unchanged.
+        `hybrid_partition` lets spread groups span the partition because of
+        this export: the residual scheduler's per-placement skew rule must
+        run against the true combined per-domain occupancy, and tensor-placed
+        pods are pending (invisible to store-side counting). Each record
+        carries the placement's CONCRETE requirements — the claim's (with its
+        committed domain pin and adopted hostname) or the existing node's
+        label view — so the host's own counting rule (selector + node filter
+        + single-value domain) applies unchanged. Empty whenever no group
+        touches both sides, which keeps the common case free.
 
-        Every group kind counts, and a group need not touch a kept
-        signature: a repair splits CLAIMS (not whole signatures), so a group
-        touching only the repaired signatures still has surviving placements
-        the repair must see, and repaired pods can belong to any group kind —
-        `Topology.record` applies the host counting semantics per kind. (The
-        reference's hybrid path, not ported yet, also asks for the
-        spread-only, cross-seam subset.)"""
+        The minValues repair passes `require_cross=False, all_kinds=True`: a
+        repair splits CLAIMS (not whole signatures), so a group touching
+        only the repaired signatures still has surviving placements the
+        repair must see, and repaired pods can belong to any group kind —
+        `Topology.record` applies the host counting semantics per kind."""
         if not enc.n_groups:
             return []
+        kinds = np.asarray(enc.group_kind)
+        sel = np.ones(kinds.shape[0], dtype=bool) if all_kinds else ((kinds == KIND_DOM_SPREAD) | (kinds == KIND_HOST_SPREAD))
+        if not sel.any():
+            return []
         touches = enc.sig_member | enc.sig_owner
-        cross = touches[~keep].any(axis=0)
+        cross = sel & touches[~keep].any(axis=0)
+        if require_cross:
+            cross &= touches[keep].any(axis=0)
         if not cross.any():
             return []
         # record EVERY placed pod the seam groups count (not just kept-sig
@@ -1057,15 +1223,13 @@ class GPUSolver:
             # so the repair cannot violate a group the repaired pods share
             # with them (repairs split CLAIMS, so one signature can sit on
             # both sides: every group kind, no cross-seam requirement).
-            from .ffd import solve_residual
-
             self._decode_repaired = True
             self.last_decode.update(repair_pods=len(repair_pods), repair_sigs=len(repair_sigs))
             keep = np.ones(enc.n_sigs, dtype=bool)
             keep[sorted(repair_sigs)] = False
             results = solve_residual(
                 snap, repair_pods, results,
-                seam_records=self._seam_records(enc, keep, results),
+                seam_records=self._seam_records(enc, keep, results, require_cross=False, all_kinds=True),
             )
         return results
 

@@ -6,8 +6,9 @@ its nodepool, its sorted pod keys, its sorted instance-type names and its
 requirements as (key, operator, sorted values, minValues, gte, lte), the
 hostname requirement left out (its value is a placeholder drawn from a
 process-global counter); per existing node: its name and its sorted pod
-keys; every pod error, key and message. Only tests and `chip_smoke.py`
-call this.
+keys; every pod error, key and message. `canonical_node_claims` gives the
+NodeClaims a provisioning pass created in a store the same way. Only tests
+and `chip_smoke.py` call this.
 """
 
 from __future__ import annotations
@@ -30,6 +31,20 @@ def canonical_results(results) -> tuple:
     )
     existing = sorted((en.name(), tuple(sorted(p.key() for p in en.pods))) for en in results.existing_nodes)
     return tuple(claims), tuple(existing), tuple(sorted(results.pod_errors.items()))
+
+
+def canonical_node_claims(store) -> tuple:
+    """Every NodeClaim a store holds: its nodepool, its requirements as
+    (key, operator, sorted values, minValues) without the hostname, and its
+    resource requests in milli-units; sorted. Claim names are left out
+    (their suffix is random)."""
+    out = []
+    for nc in store.list("NodeClaim"):
+        reqs = tuple(sorted((d["key"], d["operator"], tuple(sorted(d.get("values") or ())), d.get("minValues"))
+                            for d in nc.spec.requirements if d["key"] != wk.HOSTNAME_LABEL_KEY))
+        resources = tuple(sorted((k, q.milli) for k, q in nc.spec.resources.items()))
+        out.append((nc.metadata.labels.get(wk.NODEPOOL_LABEL_KEY, ""), reqs, resources))
+    return tuple(sorted(out))
 
 
 def json_form(x):

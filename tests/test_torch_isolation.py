@@ -3,7 +3,8 @@ relative import of its modules names a module of the port, and its default
 device is CUDA (no silent CPU fallback). With both blocked it builds a
 snapshot with its own builder, encodes it and solves it on the CPU, from the
 encoding (`solve_encoded`) and from the snapshot into node claims
-(`solve`)."""
+(`solve`), solves an out-of-window snapshot on the hybrid path and runs one
+provisioning pass over a store (`Provisioner.reconcile`)."""
 
 from __future__ import annotations
 
@@ -50,6 +51,19 @@ _CHILD = textwrap.dedent(
     results = solver.solve(snap)
     assert solver.last_backend == "gpu" and not results.pod_errors, results.pod_errors
     assert sum(len(c.pods) for c in results.new_node_claims) == 120
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types_assorted
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import Provisioner
+    snap = build_snapshot(120, 40, fallback_frac=0.1)
+    solver = GPUSolver(device="cpu")
+    results = solver.solve(snap)
+    assert (solver.last_solve_mode, solver.last_backend) == ("hybrid", "hybrid") and not results.pod_errors
+    for p in snap.pods:
+        snap.store.create(p)
+    solver = GPUSolver(device="cpu")
+    prov = Provisioner(snap.store, snap.cluster, FakeCloudProvider(instance_types_assorted(40)), snap.clock, solver=solver)
+    results = prov.reconcile(force=True)
+    assert solver.last_solve_mode == "hybrid" and not results.pod_errors, results.pod_errors
+    assert len(snap.store.list("NodeClaim")) == len(results.new_node_claims) > 0
     import torch
     torch.cuda.is_available = lambda: False
     try:

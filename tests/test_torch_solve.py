@@ -4,12 +4,12 @@ the CPU.
 Each scenario builds a reference `SolverSnapshot` with the reference's own
 builders, carries it over into the port's classes
 (`testing.carry_over.snapshot_from_reference`, every name, uid and
-timestamp kept) and solves it with the JAX `TPUSolver(force=False,
-hybrid=False, recover=False)` and with `GPUSolver(device="cpu")`, twice: a
+timestamp kept) and solves it with the reference's default JAX
+`TPUSolver(recover=False)` and with `GPUSolver(device="cpu")`, twice: a
 cold solve, then the same snapshot again (an identical resubmit, served from
-the resident carry and the decode memo). The port has no hybrid path yet, so
-a snapshot with fallback reasons is solved whole by the host FFD on both
-sides.
+the resident carry and the decode memo). A snapshot with pod-local fallback
+reasons takes the hybrid partitioned solve on both sides (the hybrid cases
+themselves are in `tests/test_torch_hybrid_solve.py`).
 
 What must be equal, exactly: the canonical `Results`
 (`testing.canonical.canonical_results`: per new claim its nodepool, sorted
@@ -68,7 +68,7 @@ from test_torch_scheduler import SCENARIOS  # noqa: E402
 torch.set_num_threads(1)
 
 # the reference's backend name for the tensor path, as the port names it
-BACKEND = {"tpu": "gpu", "ffd-fallback": "ffd-fallback"}
+BACKEND = {"tpu": "gpu", "hybrid": "hybrid", "ffd-fallback": "ffd-fallback"}
 
 
 def _bench_reserved():
@@ -140,7 +140,7 @@ def assert_same(want: dict, got: dict, what: str) -> None:
 def run_scenario(build, what: str, force: bool = False, resubmit: bool = True) -> list[dict]:
     ref_snap = build()
     port_snap = snapshot_from_reference(ref_snap)
-    ref_solver = TPUSolver(force=force, hybrid=False, recover=False)
+    ref_solver = TPUSolver(force=force, recover=False)
     gpu = GPUSolver(device="cpu", force=force)
     clear_globals()
     steps = []
@@ -186,7 +186,7 @@ def test_force_raises_where_the_reference_raises():
     ref_snap = SOLVE_SCENARIOS["bench_fallback"]()
     port_snap = snapshot_from_reference(ref_snap)
     with pytest.raises(RuntimeError, match="tensor path unsupported"):
-        TPUSolver(force=True, hybrid=False, recover=False).solve(ref_snap)
+        TPUSolver(force=True, recover=False).solve(ref_snap)
     with pytest.raises(RuntimeError, match="tensor path unsupported"):
         GPUSolver(device="cpu", force=True).solve(port_snap)
 
@@ -195,7 +195,7 @@ def test_empty_snapshot_falls_back_like_reference():
     ref_snap = bench.build_snapshot(10, 5)
     ref_snap.pods = []
     port_snap = snapshot_from_reference(ref_snap)
-    ref_solver, gpu = TPUSolver(hybrid=False, recover=False), GPUSolver(device="cpu")
+    ref_solver, gpu = TPUSolver(recover=False), GPUSolver(device="cpu")
     clear_globals()
     want, got = solve_pair(ref_solver, gpu, ref_snap, port_snap)
     assert_same(want, got, "empty")
@@ -234,14 +234,14 @@ def solve_steps(solver, snap, added, one, port: bool) -> list[dict]:
 
 
 def reference_solve_steps() -> dict:
-    """The JAX `TPUSolver(force=True, hybrid=False)` over the seeded
+    """The JAX `TPUSolver(force=True, recover=False)` over the seeded
     headline's solve steps (the fixture's content)."""
     import helpers
 
     clear_globals()
     jsm.reset_bucket_highwater()
     snap, added, one = seeded_snapshot(SNAPSHOT_SEED, bench.build_snapshot, helpers)
-    solver = TPUSolver(force=True, hybrid=False, recover=False)
+    solver = TPUSolver(force=True, recover=False)
     return dict(seed=SNAPSHOT_SEED, steps=solve_steps(solver, snap, added, one, port=False))
 
 

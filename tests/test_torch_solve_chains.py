@@ -1,6 +1,6 @@
 """The JAX-made chains (`tests/test_torch_fixtures.py`, `CHAINS`), driven from
 their snapshots through `GPUSolver.solve`, against the reference's
-`TPUSolver(force=True, hybrid=False, recover=False)`, on the CPU.
+`TPUSolver(force=True, recover=False)`, on the CPU.
 
 Each chain's generator runs twice from the same pod-name counter: once for
 the reference's solver, and once step by step carried over for the port's
@@ -59,7 +59,7 @@ def run_chain(name: str, port: bool) -> list[dict]:
     tsm.reset_bucket_highwater()
     helpers._seq = itertools.count(NAME_START)
     mirror = SnapshotMirror() if port else None
-    solver = GPUSolver(device="cpu", force=True) if port else TPUSolver(force=True, hybrid=False, recover=False)
+    solver = GPUSolver(device="cpu", force=True) if port else TPUSolver(force=True, recover=False)
     steps = CHAINS[name]()
     out: list[dict] = []
     feedback = None

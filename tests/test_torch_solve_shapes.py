@@ -1,6 +1,6 @@
 """The decode's own shapes through `GPUSolver.solve`, on the CPU.
 
-Against the reference's `TPUSolver(hybrid=False, recover=False)`, with the
+Against the reference's `TPUSolver(recover=False)`, with the
 comparison of `tests/test_torch_solve.py` (canonical `Results`, mode,
 backend, fallback reasons and delta-reject reason, exact), a cold solve and
 an identical resubmit each:
@@ -190,7 +190,7 @@ def test_repair_clears_resident_carry():
     """A solve whose decode repaired minValues on the host leaves no
     resident carry (the reference drops it too); the next clean solve packs
     in full and succeeds."""
-    ref_solver, gpu = TPUSolver(hybrid=False, recover=False), GPUSolver(device="cpu")
+    ref_solver, gpu = TPUSolver(recover=False), GPUSolver(device="cpu")
     first = _strict_unsatisfiable()
     port_first = snapshot_from_reference(first)
     clear_globals()
@@ -223,7 +223,7 @@ def test_decode_error_leaves_resident_carry(force, monkeypatch):
     error propagates, without it the host FFD answers."""
     ref_snap = make_snapshot(_pods(10, cpu="500m"))
     port_snap = snapshot_from_reference(ref_snap)
-    ref_solver = TPUSolver(force=force, hybrid=False, recover=False)
+    ref_solver = TPUSolver(force=force, recover=False)
     gpu = GPUSolver(device="cpu", force=force)
     clear_globals()
     solve_pair(ref_solver, gpu, ref_snap, port_snap)
