@@ -78,6 +78,28 @@ runs: a cold hybrid solve by stage (encode, mask_encode, the masked pack,
 decode, residual), the warm one-pod hybrid-delta and one provisioning pass
 on a fresh store and solver.
 
+Then the consolidation phase (`check_consolidation`): the port builds the
+reference benchmark's 5000-node underutilized fleet itself
+(`testing/scenarios.build_consolidation_fleet(5000)`, on a `FakeClock`) and
+wires `Store`, `Cluster`, `Provisioner(solver=GPUSolver())` and
+`DisruptionController(Options())` directly. One LP decision,
+`MultiNodeConsolidation._lp_option` over every candidate, the counts set to
+0 just before and read just after: its `Command` (candidates, replacement,
+the simulation's `Results`) and masked and scratch probe counts must equal
+the JAX reference's
+(`fixtures/consolidation/fleet_5000_lp_command.json`), with K5 and K6
+launched once and K1-K3 once per masked probe; the inputs of each are kept
+and each kernel is run again on them against its plain version. It times
+the decision, median of 5 warm rounds, by stage (candidates, the encoder,
+the tensors, K5, rounding, K6, the ladder, and the exact validation split
+into the round-base encode, `sim_mask_encode` and `solve_prepared`'s own
+stages), with the time Python's cyclic collector ran within each round.
+Then one `DisruptionController.reconcile(force=True)`, timed: the
+command it starts (after the Validator's 15 s wait on the fake clock and
+its from-scratch re-simulation), the disrupted taints and the NodeClaims in
+the store (the replacement among them) must equal the reference's, with K5
+and K6 once and K1-K3 once per probe and once for the re-simulation.
+
 Then the delta path: every chain in `fixtures/chains/` is driven through
 `GPUSolver().solve_encoded` step by step, the counts set to 0 before each
 step and read after it. Each step must give the reference's mode and
@@ -97,11 +119,12 @@ rows) and K7 anneal (on the reference's random streams; its pre-pass, the
 bit-packed compatibility rows and the undominated replacement rows, also on
 its own) against their plain versions on the card and the stored JAX
 outputs. Each proposer is then
-driven end to end on its fixture (`propose_subsets_lp` on the 5000-node
-fleet, `propose_subsets_global` on the 5000-node spot/on-demand fleet
-without and with 200 pending pods, `propose_subsets` on the 256-node anneal
-fleet; each from the JAX inits, and the global one also through
-`GPUSolver().global_repack_plan_encoded` with its own generator), the counts
+driven end to end on its fixture (`propose_problem_lp` on the 5000-node
+fleet, `propose_problem_global` on the 5000-node spot/on-demand fleet
+without and with 200 pending pods, `propose_problem_anneal` on the 256-node
+anneal fleet; each from the JAX inits, and the global one also through
+`GPUSolver().global_repack_plan_encoded`, which draws the reference's inits
+itself), the counts
 set to 0 just before each call and read just after: the LP and global
 proposers must launch K5 once and K6 once, the anneal proposer K7 and its
 pre-pass once each, and give the JAX proposals.
@@ -158,6 +181,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -1011,6 +1035,246 @@ def check_provision(dev, card: str, errs: dict, runs: int = 5) -> dict:
     return dict(path=path, ms=ms, stages=med, split=med_split)
 
 
+class GCClock:
+    """Wall ms inside the cyclic collector, and collections by generation,
+    while installed."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self.counts = [0, 0, 0]
+        self._t0 = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.counts[info["generation"]] += 1
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+
+CONS_FLEET_FIXTURE = FIXTURES / "consolidation" / "fleet_5000_lp_command.json"
+CONS_FLEET_NODES = 5000  # the reference's 5000-node target (bench_consolidation_lp)
+CONS_ROUND_SEED = 0  # `random`'s seed before the round and the pass (the fixture's)
+
+
+@contextmanager
+def kept_proposer_inputs(seen: dict):
+    """Keep the inputs and outputs of every K5 (`globalpack`) and K6
+    (`score_subsets_packed`) call the path makes, in `seen["k5"]` and
+    `seen["k6"]`."""
+    import karpenter_tpu_torch.kernels.globalpack as k5
+    import karpenter_tpu_torch.kernels.score_subsets as k6
+
+    real_k5, real_k6 = k5.globalpack, k6.score_subsets_packed
+
+    def globalpack(*args):
+        out = real_k5(*args)
+        seen["k5"].append((args, out))
+        return out
+
+    def score_subsets_packed(*args):
+        out = real_k6(*args)
+        seen["k6"].append((args, out))
+        return out
+
+    k5.globalpack, k6.score_subsets_packed = globalpack, score_subsets_packed
+    try:
+        yield
+    finally:
+        k5.globalpack, k6.score_subsets_packed = real_k5, real_k6
+
+
+def check_proposer_inputs(seen: dict, what: str, errs: dict) -> None:
+    """Each K5 and K6 call of a round, repeated on its kept inputs: K5 within
+    D_TOL of its plain version (and equal to the round's own output), K6 bit
+    for bit."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.globalpack import globalpack, globalpack_plain
+    from karpenter_tpu_torch.kernels.score_subsets import score_subsets_packed, score_subsets_plain, unpack
+
+    for args, (d_path, s_path) in seen["k5"]:
+        d, s = globalpack(*args)
+        d_p, _s_p = globalpack_plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs((d, d_p))
+        errs["globalpack"] = max(errs["globalpack"], err)
+        expect(err <= D_TOL, f"{what}: K5 d differs from plain by {err}")
+        expect(torch.equal(d, d_path) and torch.equal(s, s_path), f"{what}: K5 differs from the round's own call")
+    for args, packed_path in seen["k6"]:
+        M = int(args[-1].shape[0])
+        packed = score_subsets_packed(*args)
+        s, f = unpack(packed, M)
+        s_p, f_p = score_subsets_plain(*args)
+        torch.cuda.synchronize()
+        errs["score_subsets"] = max(errs["score_subsets"], max_abs((s, s_p), (f, f_p)))
+        expect(torch.equal(s, s_p) and torch.equal(f, f_p), f"{what}: K6 differs from plain")
+        expect(torch.equal(packed, packed_path), f"{what}: K6 differs from the round's own call")
+
+
+def consolidation_side(dev):
+    """The 5000-node fleet wired directly: (fleet, provisioner, controller)."""
+    from karpenter_tpu_torch.controllers.disruption.controller import DisruptionController
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import Provisioner
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+    from karpenter_tpu_torch.testing.scenarios import build_consolidation_fleet
+
+    fleet = build_consolidation_fleet(CONS_FLEET_NODES)
+    prov = Provisioner(fleet.store, fleet.cluster, fleet.cloud_provider, fleet.clock,
+                       solver=GPUSolver(dev, stage_times=True))
+    dc = DisruptionController(fleet.store, fleet.cluster, prov, fleet.cloud_provider, fleet.clock, Options())
+    return fleet, prov, dc
+
+
+def check_consolidation(dev, card: str, errs: dict, runs: int = 5) -> dict:
+    """The consolidation phase (module docstring): one LP decision and one
+    disruption pass over the 5000-node fleet against the JAX reference's,
+    the kernels on the path held to their plain versions, then timed."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch.controllers.disruption import validation
+    from karpenter_tpu_torch.controllers.disruption.methods import MultiNodeConsolidation
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.solver.encode import clear_encode_globals
+    from karpenter_tpu_torch.testing.canonical import canonical_command, canonical_node_claims, json_form
+
+    want = json.loads(CONS_FLEET_FIXTURE.read_text())
+    t0 = time.perf_counter()
+    fleet, prov, dc = consolidation_side(dev)
+    build_s = time.perf_counter() - t0
+    ctx = dc.ctx
+
+    def decision_round(stages: dict | None = None):
+        t1 = time.perf_counter()
+        cands = dc.get_candidates()
+        if stages is not None:
+            stages["get_candidates"] = (time.perf_counter() - t1) * 1e3
+        ctx.round_candidates = cands
+        ctx.node_pool_totals = None
+        m = MultiNodeConsolidation(ctx)
+        return m, cands, m._lp_option(cands, fleet.clock.now() + 1e9)
+
+    random.seed(CONS_ROUND_SEED)
+    clear_encode_globals()
+    reset_bucket_highwater()
+    seen: dict = {"pack": [], "rc": [], "k5": [], "k6": []}
+    with kept_snapshot_inputs(seen), kept_proposer_inputs(seen):
+        build.reset_launches()
+        m, cands, cmd = decision_round()
+        counts = dict(build.LAUNCHES)
+    what = f"consolidation decision ({CONS_FLEET_NODES} nodes)"
+    got = dict(n_candidates=len(cands), command=json_form(canonical_command(cmd)),
+               probes=[m.last_round["sim_masked"], m.last_round["sim_scratch"]])
+    expect(got["n_candidates"] == want["decision"]["n_candidates"], f"{what}: {len(cands)} candidates")
+    expect(got["probes"] == want["decision"]["probes"], f"{what}: probes {got['probes']}, the JAX reference's "
+           f"{want['decision']['probes']}")
+    expect(got["command"] == want["decision"]["command"], f"{what}: the Command differs from the JAX reference's")
+    masked = got["probes"][0]
+    need = {k: 0 for k in counts}
+    need.update(globalpack=1, score_subsets=1, feasibility=len(seen["pack"]), pack_scan=len(seen["pack"]),
+                sparsify=len(seen["pack"]))
+    expect(counts == need and len(seen["pack"]) >= masked >= 1, f"{what}: launches {counts}, not {need}")
+    check_proposer_inputs(seen, what, errs)
+    check_snapshot_kernels(seen, what, errs)
+    del seen
+    round_counts = {k: v for k, v in counts.items() if v}
+    cmd_size = len(got["command"][1])
+    print(f"{what} (fleet built in {build_s:.2f} s): {cmd_size} of {len(cands)} candidates -> "
+          f"{len(got['command'][2])} replacement, {m.last_round['proposals']} proposals, probes masked {masked} "
+          f"scratch {got['probes'][1]}; Command == JAX reference; launches {round_counts}; K5, K6 and K1-K3 on "
+          "their kept inputs == plain")
+
+    walls, stages = [], []
+    for _ in range(runs + 1):
+        st: dict = {}
+        torch.cuda.synchronize()
+        with GCClock() as gcc:
+            t1 = time.perf_counter()
+            m, _cands, cmd = decision_round(st)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        expect(json_form(canonical_command(cmd)) == got["command"], "a timed consolidation round gave another Command")
+        stages.append({**st, **m.last_round["stages"], "gc (within the round)": gcc.ms})
+    ms = statistics.median(walls[1:])
+    med = {k: statistics.median(x.get(k, 0.0) for x in stages[1:]) for k in stages[-1]}
+    print(f"time consolidation decision ({CONS_FLEET_NODES} nodes, MultiNodeConsolidation._lp_option): median of "
+          f"{runs} warm rounds {ms:.3f} ms (runs ms: {[round(x, 3) for x in walls]}); stages ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in med.items()) + f" on {card}")
+
+    split: dict = {}
+
+    def timed(obj, name: str, key: str) -> None:
+        real = getattr(obj, name)
+
+        def call(*args, **kwargs):
+            t1 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                split[key] = split.get(key, 0.0) + (time.perf_counter() - t1) * 1e3
+
+        setattr(obj, name, call)
+
+    real_sim = validation.simulate_scheduling
+    timed(validation, "simulate_scheduling", "validator re-simulation")
+    timed(dc.queue, "start_command", "start_command")
+    random.seed(CONS_ROUND_SEED)
+    clear_encode_globals()
+    reset_bucket_highwater()
+    seen = {"pack": [], "rc": [], "k5": [], "k6": []}
+    now0 = fleet.clock.now()
+    try:
+        with kept_snapshot_inputs(seen), kept_proposer_inputs(seen), GCClock() as gcc:
+            build.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dc.reconcile(force=True)
+            torch.cuda.synchronize()
+            pass_ms = (time.perf_counter() - t1) * 1e3
+            pass_counts = dict(build.LAUNCHES)
+        split["gc (within the pass)"] = gcc.ms
+    finally:
+        validation.simulate_scheduling = real_sim
+    what = f"disruption pass ({CONS_FLEET_NODES} nodes)"
+    items = dc.queue._items
+    tainted = sorted(n.metadata.name for n in fleet.store.list("Node")
+                     if any(t.key.endswith("disrupted") for t in n.spec.taints))
+    got_pass = dict(commands=[json_form(canonical_command(it.command)) for it in items], tainted=tainted,
+                    claims=json_form(canonical_node_claims(fleet.store)), waited=fleet.clock.now() - now0)
+    for key in ("commands", "tainted", "claims", "waited"):
+        expect(got_pass[key] == want["pass"][key], f"{what}: {key} differ from the JAX reference's")
+    need = {k: 0 for k in pass_counts}
+    need.update(globalpack=1, score_subsets=1, feasibility=len(seen["pack"]), pack_scan=len(seen["pack"]),
+                sparsify=len(seen["pack"]))
+    expect(pass_counts == need and len(seen["pack"]) >= 2, f"{what}: launches {pass_counts}, not {need}")
+    check_proposer_inputs(seen, what, errs)
+    check_snapshot_kernels(seen, what, errs)
+    del seen
+    lp = dc.methods[3].last_round
+    pass_path = {k: v for k, v in pass_counts.items() if v}
+    print(f"{what}: started {len(items)} command of {len(got_pass['commands'][0][1])} candidates, "
+          f"{len(tainted)} nodes tainted, {len(got_pass['claims'])} NodeClaims in the store, clock +{got_pass['waited']} s;"
+          f" == JAX reference; launches {pass_path}; K5, K6 and K1-K3 on their kept inputs == plain")
+    print(f"time disruption pass (DisruptionController.reconcile(force=True), {CONS_FLEET_NODES} nodes): {pass_ms:.3f} ms "
+          "(pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f", LP decision stages: " + ", ".join(f"{k} {v:.3f}" for k, v in lp["stages"].items())
+          + f"; probes masked {lp['sim_masked']} scratch {lp['sim_scratch']}) on {card}")
+    return dict(round_counts=round_counts, pass_counts=pass_path, ms=ms, stages=med, pass_ms=pass_ms,
+                pass_split=split, build_s=build_s, probes=got["probes"], command_size=cmd_size)
+
+
 def k1_cost(t, items, compat, key) -> tuple[int, int]:
     """(bytes K1 must move, operations it must do): inputs read once,
     outputs written once; per (item, row) three operations for each key it
@@ -1768,7 +2032,7 @@ def check_prepass(name, t, flips, errs) -> None:
     expect(all(torch.equal(a, b) for a, b in zip(got[:3], want)), f"{name}: K7 pre-pass differs from plain")
 
 
-def check_consolidation(dev, errs) -> None:
+def check_proposer_kernels(dev, errs) -> None:
     names = sorted(p.stem for p in CONS.glob("*.npz"))
     expect({CONS_LP, CONS_GLOBAL, CONS_PENDING, CONS_ANNEAL} <= set(names), "consolidation fixtures missing")
     for name in names:
@@ -1790,9 +2054,9 @@ def drive_proposers(dev) -> dict:
     before the call and read just after; returns the counts per run."""
     from karpenter_tpu_torch.kernels import build
     from karpenter_tpu_torch.solver.consolidation import (
-        propose_subsets,
-        propose_subsets_global,
-        propose_subsets_lp,
+        propose_problem_anneal,
+        propose_problem_global,
+        propose_problem_lp,
         reference_inits,
         reference_proposals,
     )
@@ -1804,9 +2068,9 @@ def drive_proposers(dev) -> dict:
         inits = reference_inits(problem, ref)
         build.reset_launches()
         if str(ref["kind"]) == "lp":
-            out = propose_subsets_lp(problem, dev, inits=inits)
+            out = propose_problem_lp(problem, dev, inits=inits)
         else:
-            out, info = propose_subsets_global(problem, dev, inits=inits)
+            out, info = propose_problem_global(problem, dev, inits=inits)
             expect(info["rounded"] == int(ref["ref_info_rounded"]), f"{name}: rounded rows differ from JAX")
             want = float(ref["ref_info_objective_improvement"])
             expect(abs(info["objective_improvement"] - want) <= 1e-5 * max(1.0, abs(want)),
@@ -1823,13 +2087,14 @@ def drive_proposers(dev) -> dict:
     out, info = GPUSolver(dev).global_repack_plan_encoded(problem, seed=0)
     counts = dict(build.LAUNCHES)
     expect(counts["globalpack"] == 1 and counts["score_subsets"] == 1, f"global_repack_plan_encoded launches {counts}")
-    expect(len(out) > 0 and info["rounded"] > 0, "global_repack_plan_encoded proposed nothing")
+    expect(out == reference_proposals(ref) and info["rounded"] == int(ref["ref_info_rounded"]),
+           "global_repack_plan_encoded (its own draws of the reference's inits) differs from the JAX proposals")
     runs["global_repack_plan_encoded"] = counts
-    print(f"main path GPUSolver.global_repack_plan_encoded {CONS_PENDING} (torch.Generator inits): "
-          f"{len(out)} proposals, info {info}, launches {counts}")
+    print(f"main path GPUSolver.global_repack_plan_encoded {CONS_PENDING} (the reference's inits drawn for seed 0): "
+          f"{len(out)} proposals == JAX, info {info}, launches {counts}")
     problem, ref = cons_load(CONS_ANNEAL)
     build.reset_launches()
-    out = propose_subsets(problem, dev, streams=(ref["ref_x0"], ref["ref_flips"], ref["ref_u"]))
+    out = propose_problem_anneal(problem, dev, streams=(ref["ref_x0"], ref["ref_flips"], ref["ref_u"]))
     counts = dict(build.LAUNCHES)
     expect(counts["anneal"] == 1 and counts["anneal_pack"] == 1 and counts["globalpack"] == 0,
            f"{CONS_ANNEAL}: proposer launches {counts}")
@@ -1931,8 +2196,7 @@ def time_consolidation(dev, launches: dict, errs: dict) -> list:
                      plain_ms=cuda_ms(lambda: anneal_plain(ta, *streams), 1, rounds=2), library_ms=None,
                      bytes=b, ops=o))
     t8, _ = tensors_from_problem(problem, dev, dense_compat=True)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    s8 = draw_anneal_streams(t8.node_price.shape[0], gen)
+    s8 = draw_anneal_streams(t8.node_price.shape[0], 0, dev)
     check_prepass(f"{CONS_LP} fleet, Np = 8192", t8, s8[1], errs)
     bx, bs = anneal(t8, *s8)
     bx_p, bs_p = anneal_plain(t8, *s8)
@@ -1966,14 +2230,14 @@ def time_proposers(dev, runs: int = 5) -> dict:
     import torch
 
     from karpenter_tpu_torch.solver.consolidation import (
-        propose_subsets_global,
-        propose_subsets_lp,
+        propose_problem_global,
+        propose_problem_lp,
         reference_inits,
     )
 
     out = {}
-    for name, fn in ((CONS_LP, propose_subsets_lp), (CONS_GLOBAL, propose_subsets_global),
-                     (CONS_PENDING, propose_subsets_global)):
+    for name, fn in ((CONS_LP, propose_problem_lp), (CONS_GLOBAL, propose_problem_global),
+                     (CONS_PENDING, propose_problem_global)):
         problem, ref = cons_load(name)
         inits = reference_inits(problem, ref)
         wall, stages = [], []
@@ -2618,7 +2882,10 @@ def run(dev, card: str) -> dict:
     hybrid = check_hybrid(dev, card, errs)
     t2 = time.perf_counter()
     provision = check_provision(dev, card, errs)
-    print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {time.perf_counter() - t2:.1f} s")
+    t3 = time.perf_counter()
+    consolidation = check_consolidation(dev, card, errs)
+    print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {t3 - t2:.1f} s, "
+          f"consolidation phase {time.perf_counter() - t3:.1f} s")
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
           f"{dense['ms']:.4f} ms (K1 + K2, CUDA events), {dense['plain_ms']:.4f} ms plain, "
@@ -2675,10 +2942,11 @@ def run(dev, card: str) -> dict:
     delta_k2["place_calls"] = delta["delta_place_calls"]
     delta_k2["us_per_place"] = delta_k2["ms"] * 1e3 / delta_k2["place_calls"]
 
-    check_consolidation(dev, errs)
+    check_proposer_kernels(dev, errs)
     cons_runs = drive_proposers(dev)
+    cons_runs["fleet_5000_round"] = consolidation["round_counts"]
     caps = check_caps(dev, errs)
-    cons_launches = {k: sum(c[k] for c in cons_runs.values()) for k in build.LAUNCHES}
+    cons_launches = {k: sum(c.get(k, 0) for c in cons_runs.values()) for k in build.LAUNCHES}
     proposers = time_proposers(dev)
 
     for name in names:
@@ -2735,12 +3003,16 @@ def run(dev, card: str) -> dict:
                                        **dict(zip(("solve", "solve_resubmit", "solve_delta", "solve_delta_1pod"), solve["paths"])),
                                        **dict(zip(("hybrid", "hybrid_resubmit", "hybrid_delta_1pod", "hybrid_delta_removal",
                                                    "hybrid_residual_gone"), hybrid["paths"])),
-                                       "provision": provision["path"]},
+                                       "provision": provision["path"],
+                                       "consolidation_reconcile": consolidation["pass_counts"]},
             "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"],
             "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")},
             "solve_ms": {**solve["ms"], "decode": solve["decode_ms"], "stages": solve["stages"]},
             "hybrid_ms": {**hybrid["ms"], "stages": hybrid["stages"], "provision": provision["ms"],
-                          "provision_split": provision["split"], "provision_stages": provision["stages"]}}
+                          "provision_split": provision["split"], "provision_stages": provision["stages"]},
+            "consolidation_ms": {"decision": consolidation["ms"], "stages": consolidation["stages"],
+                                 "reconcile": consolidation["pass_ms"], "reconcile_split": consolidation["pass_split"],
+                                 "fleet_build_s": consolidation["build_s"], "probes": consolidation["probes"]}}
 
 
 def host_cpu() -> str:

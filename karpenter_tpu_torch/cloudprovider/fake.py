@@ -3,9 +3,9 @@ generator (reference: pkg/cloudprovider/fake/cloudprovider.go:51-96 and
 instancetype.go:369 InstanceTypesAssorted).
 
 The port's `FakeCloudProvider` serves the provisioner's instance-type
-reads; the claim lifecycle calls (`create`, `delete`, `get`, `list`,
-drift, repair policies) and their scripted errors come with the
-controllers that make them.
+reads and the drift verdict (`is_drifted`, scripted through `drifted`); the
+claim lifecycle calls (`create`, `delete`, `get`, `list`, repair policies)
+and their scripted errors come with the controllers that make them.
 """
 
 from __future__ import annotations
@@ -20,9 +20,13 @@ from .types import InstanceType
 class FakeCloudProvider:
     def __init__(self, instance_types: list[InstanceType]):
         self.instance_types = instance_types
+        self.drifted: str = ""
 
     def get_instance_types(self, node_pool=None) -> list[InstanceType]:
         return self.instance_types
+
+    def is_drifted(self, node_claim) -> str:
+        return self.drifted
 
     def name(self) -> str:
         return "fake"

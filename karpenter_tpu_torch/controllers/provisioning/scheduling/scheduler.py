@@ -75,6 +75,34 @@ class Results:
 _FIT_MEMO_MAX = 100_000
 
 
+class SchedulerRoundSeed:
+    """Cross-build carry for one consolidation round's host schedulers.
+
+    A round runs many probe simulations; each builds a fresh Scheduler over
+    almost the same cluster state. Three layers are PROBE-INVARIANT and carry
+    across builds:
+
+      - pod_data_templates: signature -> shared PodData (pure function of the
+        pod content + store/policy, both fixed within a round);
+      - sig_by_uid: pod uid -> signature (recomputed per solve anyway — the
+        carry just skips re-deriving the signature string);
+      - static_rejects: (signature, node name) -> error, recorded ONLY when
+        the verdict was derived at the node's INITIAL state
+        (node._version == 0). A version-0 node is identical in every probe
+        that includes it (ExistingNode is rebuilt from the same StateNode),
+        so the rejection is sound to pre-seed — mid-probe rejects (version
+        > 0) depend on that probe's placements and are never recorded.
+
+    The 15s command Validator never receives a seed: executed commands always
+    re-validate against a fully independent from-scratch simulation."""
+
+    def __init__(self):
+        self.pod_data_templates: dict = {}
+        self.sig_by_uid: dict = {}
+        self.static_rejects: dict = {}
+        self.seeded = 0  # rejects pre-seeded into the newest build (observability)
+
+
 class Scheduler:
     def __init__(
         self,
@@ -95,6 +123,7 @@ class Scheduler:
         reserved_offering_mode: str = "fallback",
         collect_zone_metrics: bool = True,
         registry=None,
+        round_seed: "SchedulerRoundSeed | None" = None,
     ):
         self.store = store
         self.cluster = cluster
@@ -109,6 +138,9 @@ class Scheduler:
         self.registry = registry
         # signature-batched FFD: per-solve fit memo + placement cursors +
         # PodData template cache + incremental claim ordering
+        # consolidation-round carry (SchedulerRoundSeed): probe-invariant
+        # layers shared across this round's scheduler builds
+        self._round_seed = round_seed
         # fit memo: (pod signature, id(node|claim|template)) ->
         #   ("reject", err)          permanent monotone rejection
         #   ("pass", version, base)  static prefix passed at that state version
@@ -122,9 +154,9 @@ class Scheduler:
         # every node before the cursor holds a permanent rejection for the sig
         self._existing_cursor: dict = {}
         # signature -> shared PodData template (volume/port/DRA-free pods)
-        self._pod_data_templates: dict = {}
+        self._pod_data_templates: dict = {} if self._round_seed is None else self._round_seed.pod_data_templates
         # pod uid -> signature tuple (None = pod bypasses the batched path)
-        self._sig_by_uid: dict = {}
+        self._sig_by_uid: dict = {} if self._round_seed is None else self._round_seed.sig_by_uid
         # signature -> effective zone; valid ONLY during the pre-solve metric
         # loop (no placements happen there, so topology state is frozen)
         self._zone_by_sig: dict = {}
@@ -212,6 +244,19 @@ class Scheduler:
                 ExistingNode(sn, self.topology, taints, res.requests_for_pods(daemons), under_ca, allocator=self.allocator, daemon_pods=daemons)
             )
             self._update_remaining_resources(sn)
+
+        # pre-seed the fit memo from the round carry: every recorded
+        # version-0 static reject of a node this build still holds is
+        # identical here (same StateNode, same initial ExistingNode state)
+        if self._round_seed is not None and self._round_seed.static_rejects:
+            by_name = {en.state_node.name(): en for en in self.existing_nodes}
+            n_seeded = 0
+            for (sig, node_name), err in self._round_seed.static_rejects.items():
+                en = by_name.get(node_name)
+                if en is not None:
+                    self._memo_put((sig, id(en)), ("reject", err))
+                    n_seeded += 1
+            self._round_seed.seeded = n_seeded
 
         self.new_node_claims: list[SchedulingNodeClaim] = []
 
@@ -473,6 +518,10 @@ class Scheduler:
                     # every static check is monotone within the solve
                     # (existingnode.can_add_static): cache forever
                     self._memo_put(key, ("reject", err))
+                    if self._round_seed is not None and node._version == 0:
+                        # derived at the node's INITIAL state: probe-invariant
+                        # within the round — record it for the next build
+                        self._round_seed.static_rejects[(sig, node.state_node.name())] = err
                     continue
                 self._memo_put(key, ("pass", node._version, base))
             reqs, err = node.can_add_dynamic(pod, pod_data, base)

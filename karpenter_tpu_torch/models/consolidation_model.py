@@ -8,8 +8,8 @@ zero-pending delegations `lp_repack` / `score_subsets` into
 `models/globalpack.py` (kernels K5 and K6).
 
 The random streams of the search are tensors handed in (`x0`, `flips`,
-`u`); `anneal` draws them from a `torch.Generator`, which does not give
-`jax.random`'s numbers for the same seed.
+`u`); `anneal` draws the reference's own for a seed (`utils.prng`, bit
+for bit `jax.random`'s).
 
 The discrete objectives add in the reference's own order (`xla_sum`:
 XLA:CPU rewrites a sum over an axis longer than 32 into windows of 32
@@ -142,19 +142,18 @@ def anneal_chains(t: ConsolidationTensors, x0, flips, u, n_steps: int | None = N
     return k7(t, x0, flips[:, :S].contiguous(), u[:, :S].contiguous())
 
 
-def draw_anneal_streams(n: int, generator: torch.Generator, n_chains: int = 64, n_steps: int = 512):
-    """x0 = U < 0.3, flips ~ randint(0, n), u ~ U(0, 1) on the generator's
-    device (the reference draws the same distributions from `jax.random`)."""
-    dev = generator.device
-    x0 = torch.rand((n_chains, n), generator=generator, device=dev) < 0.3
-    flips = torch.randint(0, n, (n_chains, n_steps), generator=generator, device=dev, dtype=torch.int32)
-    u = torch.rand((n_chains, n_steps), generator=generator, device=dev)
-    return x0, flips, u
+def draw_anneal_streams(n: int, seed: int, device, n_chains: int = 64, n_steps: int = 512):
+    """The reference's streams for `seed` (`utils.prng.anneal_streams`, bit
+    for bit `jax.random`'s): x0 = U < 0.3 [C, n], flips ~ randint(0, n)
+    [C, S], u ~ U(0, 1) [C, S], drawn on the host and moved to `device`."""
+    from ..utils.prng import anneal_streams
+
+    return tuple(torch.from_numpy(a).to(device) for a in anneal_streams(seed, n_chains, n_steps, n))
 
 
-def anneal(t: ConsolidationTensors, generator: torch.Generator, n_chains: int = 64, n_steps: int = 512):
-    """Parallel annealing chains from the generator's draws."""
-    x0, flips, u = draw_anneal_streams(t.node_price.shape[0], generator, n_chains, n_steps)
+def anneal(t: ConsolidationTensors, seed: int, n_chains: int = 64, n_steps: int = 512):
+    """Parallel annealing chains from the reference's draws for `seed`."""
+    x0, flips, u = draw_anneal_streams(t.node_price.shape[0], seed, t.node_price.device, n_chains, n_steps)
     return anneal_chains(t, x0, flips, u)
 
 

@@ -131,13 +131,14 @@ def gp_project(y, yr, compat_qn):
     return y * scale, yr * scale
 
 
-def draw_gp_inits(n_inits: int, N: int, Q: int, generator: torch.Generator):
-    """d0 ~ U(0.05, 0.95) [C, N] and y0 ~ U(0.1, 1.0) [C, Q, N] on the
-    generator's device (the reference draws them from `jax.random`)."""
-    dev = generator.device
-    d0 = torch.rand((n_inits, N), generator=generator, device=dev) * 0.9 + 0.05
-    y0 = torch.rand((n_inits, Q, N), generator=generator, device=dev) * 0.9 + 0.1
-    return d0, y0
+def draw_gp_inits(n_inits: int, N: int, Q: int, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's random starts for `seed` (`utils.prng.lp_inits`, bit
+    for bit `jax.random`'s): d0 ~ U(0.05, 0.95) [C, N] and y0 ~ U(0.1, 1.0)
+    [C, Q, N], drawn on the host and moved to `device`."""
+    from ..utils.prng import lp_inits
+
+    d0, y0 = lp_inits(seed, n_inits, N, Q)
+    return torch.from_numpy(d0).to(device), torch.from_numpy(y0).to(device)
 
 
 def global_repack(t: ConsolidationTensors, onehot, compat_qn, pend_mass, pend_weight, d0, y0, n_iters: int = 300):

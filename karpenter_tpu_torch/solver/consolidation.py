@@ -1,24 +1,28 @@
-"""Multi-node consolidation proposers on the device: from the consolidation
-encoder's output to the ranked delete-set proposals.
+"""Multi-node consolidation on the device: the consolidation encoder and the
+proposers, from candidates to the ranked delete-set proposals.
 
-Counterpart of the reference's `solver/consolidation.py` from the output of
-`_candidate_vectors` on. `ConsolidationProblem` holds that output (per-node
-price, cost, slack, used and pod count, the (label-set, class) compatibility
-table, the replacement rows and the pending-class mass);
-`tensors_from_problem` pads it into device tensors as `encode_candidates_lp`
-does. Three proposers mirror the reference step for step:
+Counterpart of the reference's `solver/consolidation.py`.
+`_candidate_vectors` reads the candidates (per-node price, cost, slack,
+used resources and pod count, the (label-set, class) compatibility table,
+the replacement rows, the pending-class mass) into a
+`ConsolidationProblem` (`encode_problem`); `tensors_from_problem` pads it
+into device tensors as the reference's `encode_candidates_lp` does, and
+`encode_candidates_lp` / `encode_candidates` run both. Three proposers
+mirror the reference step for step on a problem:
 
-* `propose_subsets_lp`: relaxed repack (kernel K5) from C random inits,
+* `propose_problem_lp`: relaxed repack (kernel K5) from C random inits,
   host rounding of the fractional deletions into delete-sets, the discrete
   factored score of each (kernel K6), the ranked ladder.
-* `propose_subsets_global`: the same with the pending pods as extra classes,
+  `propose_subsets_lp(candidates, instance_types)` is the reference's entry:
+  the encoder, then this.
+* `propose_problem_global`: the same with the pending pods as extra classes,
   the empty-set base row, eighths prefixes, and ranking by improvement over
   the base.
-* `propose_subsets`: the annealed subset search (kernel K7) over the dense
-  compatibility matrix.
+* `propose_problem_anneal`: the annealed subset search (kernel K7) over the
+  dense compatibility matrix.
 
-Each takes either explicit inits (the reference's `jax.random` draws, for
-parity) or a `torch.Generator` that draws them. Every proposal is a
+Without explicit inits (or streams) each draws the reference's own for its
+seed (`utils.prng`, bit for bit `jax.random`'s). Every proposal is a
 candidate subset only: exact validation stays with the caller.
 """
 
@@ -40,6 +44,9 @@ from ..models.globalpack import (
     rank_ladder,
     score_subsets_global,
 )
+from ..scheduling.requirements import Requirements
+from ..utils import resources as res
+from .encode import _scale, pod_signature_cached
 
 # LP solve shape: independent random inits x projected-gradient iterations
 LP_INITS = 8
@@ -94,6 +101,165 @@ class ConsolidationProblem:
         out["n_classes"] = np.int64(self.n_classes)
         out["pend_npods"] = np.float64(self.pend_npods)
         return out
+
+
+def _candidate_vectors(candidates, instance_types, pending_pods=None) -> dict:
+    """Per-candidate resource vectors + the (label-set, requirement-class)
+    grouping that makes compatibility O(L x Q) instead of O(N^2). With
+    `pending_pods`, each unique pending-pod signature becomes an EXTRA class
+    on the same axis whose mass is unconditional (globalpack's provisioning
+    side) instead of gated by a node's fractional deletion."""
+    rnames = ["cpu", "memory", "pods", "ephemeral-storage"]
+    seen = set(rnames)
+    for c in candidates:
+        for p in c.reschedulable_pods:
+            for k in res.pod_requests(p):
+                if k not in seen:
+                    seen.add(k)
+                    rnames.append(k)  # extended resources (accelerators etc.)
+    for p in pending_pods or ():
+        for k in res.pod_requests(p):
+            if k not in seen:
+                seen.add(k)
+                rnames.append(k)
+    ridx = {k: i for i, k in enumerate(rnames)}
+    R = len(rnames)
+
+    def vec(rl):
+        v = np.zeros(R, dtype=np.float32)
+        for k, q in rl.items():
+            i = ridx.get(k)
+            if i is not None:
+                v[i] = _scale(k, q)
+        return v
+
+    N = len(candidates)
+    node_price = np.array([c.price for c in candidates], dtype=np.float32)
+    node_cost = np.array([c.disruption_cost for c in candidates], dtype=np.float32)
+    node_slack = np.zeros((N, R), dtype=np.float32)
+    node_used = np.zeros((N, R), dtype=np.float32)
+    node_npods = np.zeros(N, dtype=np.float32)
+    for i, c in enumerate(candidates):
+        sn = c.state_node
+        node_slack[i] = vec(res.subtract(sn.allocatable(), sn.total_pod_requests()))
+        node_used[i] = vec(res.requests_for_pods(c.reschedulable_pods))
+        node_npods[i] = len(c.reschedulable_pods)
+
+    # compatibility classes: a node's displaced pod mass is characterized by
+    # the MERGED strict requirements of its reschedulable pods, a pure
+    # function of the SET of per-pod requirement contents; host labels group
+    # by their item set. One `compatible()` check per unique (label-set,
+    # class) pair.
+    req_by_content: dict = {}  # per-pod requirement content -> Requirements
+    class_key_of_node: list = []
+    for c in candidates:
+        keys = []
+        for p in c.reschedulable_pods:
+            k = pod_signature_cached(p)[0]  # the signature's requirements component
+            if k not in req_by_content:
+                req_by_content[k] = Requirements.from_pod(p, strict=True)
+            keys.append(k)
+        class_key_of_node.append(frozenset(keys))
+    class_ids: dict = {}
+    class_of_node = np.zeros(N, dtype=np.int64)
+    class_reqs: list = []
+    for i, ck in enumerate(class_key_of_node):
+        q = class_ids.get(ck)
+        if q is None:
+            q = len(class_ids)
+            class_ids[ck] = q
+            merged = Requirements()
+            for k in ck:
+                merged.add(*req_by_content[k].values())
+            class_reqs.append(merged)
+        class_of_node[i] = q
+
+    # pending classes: one per unique pod-signature content (a singleton of
+    # the same frozenset key space, so a pending class COINCIDING with a
+    # single-signature node class shares its routing row)
+    pend_class_mass: dict = {}  # class id -> accumulated resource vector
+    pend_npods = 0.0
+    for p in pending_pods or ():
+        k = pod_signature_cached(p)[0]
+        if k not in req_by_content:
+            req_by_content[k] = Requirements.from_pod(p, strict=True)
+        ck = frozenset((k,))
+        q = class_ids.get(ck)
+        if q is None:
+            q = len(class_ids)
+            class_ids[ck] = q
+            merged = Requirements()
+            merged.add(*req_by_content[k].values())
+            class_reqs.append(merged)
+        acc = pend_class_mass.get(q)
+        if acc is None:
+            acc = pend_class_mass[q] = np.zeros(R, dtype=np.float32)
+        acc += vec(res.pod_requests(p))
+        pend_npods += 1.0
+    Q = len(class_reqs)
+    pend_mass = np.zeros((Q, R), dtype=np.float32)
+    pend_active = np.zeros(Q, dtype=np.float32)
+    for q, acc in pend_class_mass.items():
+        pend_mass[q] = acc
+        pend_active[q] = 1.0
+
+    label_ids: dict = {}
+    label_of_node = np.zeros(N, dtype=np.int64)
+    label_reqs: list = []
+    for j, c in enumerate(candidates):
+        lbls = c.state_node.labels()
+        lk = frozenset(lbls.items())
+        li = label_ids.get(lk)
+        if li is None:
+            li = len(label_ids)
+            label_ids[lk] = li
+            label_reqs.append(Requirements.from_labels(lbls))
+        label_of_node[j] = li
+    L = len(label_reqs)
+    compat_lq = np.zeros((L, Q), dtype=np.float32)
+    for li in range(L):
+        for q in range(Q):
+            compat_lq[li, q] = 1.0 if label_reqs[li].compatible(class_reqs[q]) is None else 0.0
+
+    rows_alloc, rows_price = [], []
+    for it in instance_types:
+        # per-offering overrides give a replacement row its own allocatable,
+        # as on the provisioning path (types.go AllocatableOfferings)
+        for galloc, goffs in it.allocatable_offerings_list():
+            alloc = vec(galloc)
+            for o in goffs:
+                rows_alloc.append(alloc)
+                rows_price.append(o.price)
+    if not rows_alloc:
+        rows_alloc = [np.zeros(R, dtype=np.float32)]
+        rows_price = [np.float32(3.4e38)]
+    rows_alloc_arr = np.stack(rows_alloc)
+    rows_price_arr = np.array(rows_price, dtype=np.float32)
+
+    return dict(
+        node_price=node_price,
+        node_cost=node_cost,
+        node_slack=node_slack,
+        node_used=node_used,
+        node_npods=node_npods,
+        class_of_node=class_of_node,
+        label_of_node=label_of_node,
+        compat_lq=compat_lq,
+        rows_alloc=rows_alloc_arr,
+        rows_price=rows_price_arr,
+        n_classes=Q,
+        pend_mass=pend_mass,
+        pend_active=pend_active,
+        pend_req=pend_mass.sum(axis=0),
+        pend_npods=pend_npods,
+    )
+
+
+def encode_problem(candidates, instance_types, pending_pods=None) -> ConsolidationProblem:
+    """The consolidation encoder: candidates (+ pending pods for the global
+    mode) and the replacement catalog as a `ConsolidationProblem`."""
+    v = _candidate_vectors(candidates, instance_types, pending_pods=pending_pods)
+    return ConsolidationProblem(**{f.name: v[f.name] for f in fields(ConsolidationProblem)})
 
 
 def save_npz(path, problem: ConsolidationProblem, **extra) -> None:
@@ -201,6 +367,18 @@ def tensors_from_problem(problem: ConsolidationProblem, device=None, dense_compa
     return t, aux
 
 
+def encode_candidates_lp(candidates, instance_types, dense_compat: bool = False, pending_pods=None, device=None):
+    """The reference's `encode_candidates_lp`: (tensors, aux) of the
+    candidates on the device (see `tensors_from_problem`)."""
+    return tensors_from_problem(encode_problem(candidates, instance_types, pending_pods), device, dense_compat)
+
+
+def encode_candidates(candidates, instance_types, device=None) -> ConsolidationTensors:
+    """The tensors with the dense [Np, Np] compatibility matrix the anneal
+    arm reads."""
+    return encode_candidates_lp(candidates, instance_types, dense_compat=True, device=device)[0]
+
+
 def deletion_orders(d: np.ndarray, n: int) -> list[np.ndarray]:
     """Each init's deletion order: `np.argsort(-dc)` of its fractional
     deletions with the pad columns zeroed (ties in argsort's own order)."""
@@ -244,11 +422,12 @@ def round_fractional(d: np.ndarray, n: int, orders: list[np.ndarray] | None = No
     return rows
 
 
-class _Stages:
-    """Host-clock ms per stage, the device synchronised around each, into
-    `into` (a dict); a no-op when `into` is None."""
+class Stages:
+    """Host-clock ms per stage, the device synchronised around each (when it
+    is a CUDA device), added into `into` (a dict); a no-op when `into` is
+    None."""
 
-    def __init__(self, into: dict | None, device: torch.device):
+    def __init__(self, into: dict | None, device: torch.device | None):
         self.into, self.device = into, device
 
     @contextmanager
@@ -263,37 +442,50 @@ class _Stages:
         self.into[name] = self.into.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
+        if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
 
-def _gp_inits(aux: dict, inits, generator, seed: int, device):
+def _gp_inits(aux: dict, inits, seed: int, device):
     """Explicit (d0 [C, Np], y0 [C, Qp, Np]) moved to the device, or the
-    generator's draws (a fresh one seeded with `seed` when none is given)."""
+    reference's draws for `seed`."""
     if inits is not None:
         d0, y0 = inits
         return (torch.as_tensor(d0, dtype=torch.float32).to(device).contiguous(),
                 torch.as_tensor(y0, dtype=torch.float32).to(device).contiguous())
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
     Np, Qp = aux["onehot"].shape
-    return draw_gp_inits(LP_INITS, Np, Qp, generator)
+    return draw_gp_inits(LP_INITS, Np, Qp, seed, device)
 
 
-def propose_subsets_lp(problem: ConsolidationProblem, device=None, *, inits=None, generator=None, seed: int = 0,
-                       max_proposals: int = 8, stages: dict | None = None):
-    """The relaxed-LP proposer: tensors, relaxed repack (K5), rounding, the
-    discrete score of each rounded row (K6), the ladder. Returns candidate
-    index subsets best-first, plus the full set when any proposal exists.
-    `stages` (a dict) receives synchronised host-clock ms per stage."""
+def propose_subsets_lp(candidates, instance_types, seed: int = 0, max_proposals: int = 8, device=None,
+                       stages: dict | None = None) -> list[list[int]]:
+    """The reference's LP proposer: encode the candidates, then
+    `propose_problem_lp`. Returns candidate index subsets best-first.
+    `stages` (a dict) receives synchronised host-clock ms per stage, the
+    encoder's as "encode_candidates"."""
+    if len(candidates) < 2:
+        return []
+    dev = resolve_device(device)
+    with Stages(stages, dev)("encode_candidates"):
+        problem = encode_problem(candidates, instance_types)
+    return propose_problem_lp(problem, dev, seed=seed, max_proposals=max_proposals, stages=stages)
+
+
+def propose_problem_lp(problem: ConsolidationProblem, device=None, *, inits=None, seed: int = 0,
+                       max_proposals: int = 8, stages: dict | None = None) -> list[list[int]]:
+    """The relaxed-LP proposer on an encoded problem: tensors, relaxed
+    repack (K5), rounding, the discrete score of each rounded row (K6), the
+    ladder. Returns candidate index subsets best-first, plus the full set
+    when any proposal exists. `stages` (a dict) receives synchronised
+    host-clock ms per stage."""
     dev = resolve_device(device)
     n = problem.n
     if n < 2:
         return []
-    stage = _Stages(stages, dev)
+    stage = Stages(stages, dev)
     with stage("tensors"):
         t, aux = tensors_from_problem(problem, dev)
-        d0, y0 = _gp_inits(aux, inits, generator, seed, dev)
+        d0, y0 = _gp_inits(aux, inits, seed, dev)
     with stage("K5 globalpack"):
         d, _scores = lp_repack(t, aux["onehot"], aux["compat_qn"], d0, y0, n_iters=LP_ITERS)
         d = d.cpu().numpy()
@@ -304,7 +496,7 @@ def lp_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, stage
     """The LP proposer from the fractional deletions d [C, Np] on: rounding,
     the discrete scores (K6), the ladder. Returns (proposals, X, scores,
     feasible); X is None when no row was rounded."""
-    stage = stage or _Stages(None, aux["onehot"].device)
+    stage = stage or Stages(None, aux["onehot"].device)
     with stage("round"):
         rows = round_fractional(d, n)
     if not rows:
@@ -320,7 +512,7 @@ def lp_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, stage
     return out, X, scores, feas
 
 
-def propose_subsets_global(problem: ConsolidationProblem, device=None, *, inits=None, generator=None, seed: int = 0,
+def propose_problem_global(problem: ConsolidationProblem, device=None, *, inits=None, seed: int = 0,
                            max_proposals: int = 8, stages: dict | None = None):
     """The global repack proposer: the pending classes' mass is in the
     problem, row 0 is the empty delete-set (the base), the prefixes are
@@ -331,10 +523,10 @@ def propose_subsets_global(problem: ConsolidationProblem, device=None, *, inits=
     n = problem.n
     if n < 2:
         return [], dict(objective_improvement=0.0, rounded=0)
-    stage = _Stages(stages, dev)
+    stage = Stages(stages, dev)
     with stage("tensors"):
         t, aux = tensors_from_problem(problem, dev)
-        d0, y0 = _gp_inits(aux, inits, generator, seed, dev)
+        d0, y0 = _gp_inits(aux, inits, seed, dev)
     with stage("K5 globalpack"):
         d, _scores = global_repack(t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0, y0,
                                    n_iters=LP_ITERS)
@@ -347,7 +539,7 @@ def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, s
     rounding densified to eighths, the discrete scores (K6), the ladder
     ranked by improvement over the base. Returns (proposals, info, X,
     scores, feasible)."""
-    stage = stage or _Stages(None, aux["onehot"].device)
+    stage = stage or Stages(None, aux["onehot"].device)
     info = dict(objective_improvement=0.0, rounded=0)
     with stage("round"):
         N = d.shape[1]
@@ -380,28 +572,26 @@ def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, s
     return out, info, X, scores, feas
 
 
-def propose_subsets(problem: ConsolidationProblem, device=None, *, streams=None, generator=None, seed: int = 0,
-                    max_proposals: int = 8, stages: dict | None = None):
+def propose_problem_anneal(problem: ConsolidationProblem, device=None, *, streams=None, seed: int = 0,
+                           max_proposals: int = 8, stages: dict | None = None):
     """The annealed subset search (K7) over the dense compatibility matrix:
     64 chains x 512 flips from `streams` = (x0 [C, Np] bool, flips [C, S]
-    int32, u [C, S] f32) or the generator's draws. Returns subsets
-    best-first, plus the full set when any proposal exists."""
+    int32, u [C, S] f32) or the reference's draws for `seed`. Returns
+    subsets best-first, plus the full set when any proposal exists."""
     dev = resolve_device(device)
     n = problem.n
     if n < 2:
         return []
-    stage = _Stages(stages, dev)
+    stage = Stages(stages, dev)
     with stage("tensors"):
         t, _aux = tensors_from_problem(problem, dev, dense_compat=True)
         if streams is not None:
             streams = [torch.as_tensor(a).to(dev).contiguous() for a in streams]
-        elif generator is None:
-            generator = torch.Generator(device=dev).manual_seed(seed)
     with stage("K7 anneal"):
         if streams is not None:
             best_x, best_s = anneal_chains(t, *streams)
         else:
-            best_x, best_s = anneal(t, generator, ANNEAL_CHAINS, ANNEAL_STEPS)
+            best_x, best_s = anneal(t, seed, ANNEAL_CHAINS, ANNEAL_STEPS)
         best_x = best_x.cpu().numpy()
         best_s = best_s.cpu().numpy()
     with stage("ladder"):

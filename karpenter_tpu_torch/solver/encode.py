@@ -1300,6 +1300,252 @@ def mask_encode(enc: EncodedSnapshot, keep_sig_ids) -> EncodedSnapshot:
     return masked
 
 
+# capacity sentinel for consolidation-masked existing rows: hugely negative
+# remaining capacity, so NOTHING fits — not even a zero-request best-effort
+# pod (a plain zero would still admit those). Must stay finite/fp32-safe.
+SIM_ROW_BLOCKED = np.float32(-(2.0**30))
+
+
+def sim_mask_encode(
+    enc: EncodedSnapshot,
+    keep_pod_idx,
+    drop_node_names,
+    group_counts=None,
+    inverse_entries=None,
+) -> EncodedSnapshot:
+    """Derive a candidate-batch CONSOLIDATION SIMULATION encode from the
+    round's base encode (state_nodes = every eligible node INCLUDING all
+    candidates; pods = pending + deleting + every candidate's reschedulable
+    pods): a pod-level mask keeps exactly the probe's pod set, and the
+    candidate rows being "deleted" are capacity-blocked (`SIM_ROW_BLOCKED`)
+    instead of dropped, so the whole row side — vocabulary, domains, ports,
+    row artifacts, decode caches — is reused by reference across every probe
+    of the round.
+
+    `group_counts`, when given, is the probe-corrected topology-group state
+    at the FULL base group axis — (counts_dom_init [G, D],
+    counts_host_existing [G, E], group_registered [G, D]) — built by the
+    simulator's per-node decomposition of bound-pod counts (a surviving
+    candidate's bound pods count, a deleted one's don't, and the registry
+    loses the deleted nodes' domains); it is sliced here by the same
+    owner-survival gidx `mask_encode` applies. `inverse_entries` are the
+    surviving candidates' reschedulable required-anti-affinity pods lowered
+    as inverse blocking entries (running blockers in THIS probe, solve pods
+    in the base): they narrow probe-private copies of `sig_dom_allowed` /
+    `sig_host_blocked` exactly like `_apply_inverse_anti_blocks` and drop
+    the sliced `_sig_restrict` cache (a pure function of what they narrow).
+
+    Placement equivalence to `encode(probe_snapshot)` (from scratch) holds
+    under the `ConsolidationSimulator` guards (clean capability report, no
+    hostname-spread groups, no candidate-only topology domains): kept pods
+    form the same multiset in the same relative FFD order (a subsequence
+    sorted by the same keys); surviving rows carry identical remaining
+    capacity, labels, taints, and ports; blocked rows admit nothing
+    (negative remaining rejects even zero-request pods), which is
+    placement-equivalent to the row's absence for a fit-driven pack; group
+    counts/registries match the probe snapshot by construction of
+    `group_counts`; and the extra vocabulary/domain entries only dropped
+    pods or blocked rows reference are never matched by kept pods (the
+    `mask_encode` argument). Claim slot indices (and thus the transient
+    `tpu-slot-N` hostnames) can differ — placements, instance-type options,
+    and pod errors cannot. The exact host path stays the authority: any
+    fallback from this encode re-solves the TRUE probe snapshot from
+    scratch."""
+    import dataclasses as _dc
+
+    keep_pod_idx = np.asarray(sorted(int(i) for i in keep_pod_idx), dtype=np.int64)
+    sig_of_pod = np.asarray(enc.sig_of_pod)
+    kept_sigs = np.unique(sig_of_pod[keep_pod_idx]) if keep_pod_idx.size else np.zeros(0, np.int64)
+    masked = mask_encode(enc, kept_sigs)
+
+    # pod-level filter inside the kept signatures: mask_encode keeps ALL
+    # pods of a kept signature; the probe keeps only the evicted + pending
+    # subset. pods/sig_of_pod are fresh (never reference-shared), so the
+    # row-wise filter is safe.
+    keep_ids = {id(enc.pods[i]) for i in keep_pod_idx.tolist()}
+    pod_keep = np.fromiter((id(p) in keep_ids for p in masked.pods), dtype=bool, count=len(masked.pods))
+    pods = [p for p, k in zip(masked.pods, pod_keep) if k]
+
+    # candidate-row capacity block: a COPY of the row side's allocatable
+    # with the dropped nodes' rows driven to SIM_ROW_BLOCKED (the shared
+    # base array is frozen; this copy is probe-private)
+    drop = set(drop_node_names)
+    blocked_rows = [
+        j
+        for j in range(enc.n_existing)
+        if enc.row_meta[j][0] == "existing" and enc.row_meta[j][1].name() in drop
+    ]
+    row_alloc = masked.row_alloc.copy()
+    row_alloc[blocked_rows, :] = SIM_ROW_BLOCKED
+
+    overrides: dict = {}
+    if group_counts is not None and enc.n_groups:
+        # the same survival rule mask_encode applied: groups a kept
+        # signature DECLARES
+        gidx = np.nonzero(enc.sig_owner[kept_sigs].any(axis=0))[0] if kept_sigs.size else np.zeros(0, np.int64)
+        cdi, che, reg = group_counts
+        overrides.update(
+            counts_dom_init=np.asarray(cdi, dtype=np.int32)[gidx],
+            counts_host_existing=np.asarray(che, dtype=np.int32)[gidx],
+            group_registered=np.asarray(reg, dtype=bool)[gidx],
+        )
+
+    narrowed = False
+    if inverse_entries:
+        sda, shb, narrowed = _sim_inverse_blocks(enc, masked, inverse_entries)
+        if narrowed:
+            overrides.update(sig_dom_allowed=sda, sig_host_blocked=shb, inverse_blocked=True)
+
+    sim = _dc.replace(
+        masked,
+        pods=pods,
+        sig_of_pod=masked.sig_of_pod[pod_keep],
+        row_alloc=row_alloc,
+        **overrides,
+    )
+    cached = getattr(masked, "_sig_restrict", None)
+    if cached is not None and not narrowed:
+        # a pure row-wise function of sig_dom_allowed — only valid while the
+        # probe didn't narrow that array
+        sim._sig_restrict = cached
+    _freeze_shared(sim, enc)
+    maybe_check_encoded(sim, where="sim-mask-encode")
+    return sim
+
+
+def _sim_inverse_blocks(enc: EncodedSnapshot, masked: EncodedSnapshot, entries):
+    """Lower per-probe inverse anti-affinity entries (surviving candidates'
+    reschedulable running-anti pods) onto probe-private COPIES of the masked
+    encode's `sig_dom_allowed` / `sig_host_blocked` — the same host
+    semantics as `_apply_inverse_anti_blocks`, driven off the base encode's
+    shared domain axis (`universe_dom`, per-key sentinel k = domain id k)
+    instead of the row artifacts. Returns (sig_dom_allowed,
+    sig_host_blocked, narrowed)."""
+    S = masked.n_sigs
+    reps: list = [None] * S
+    for p, s in zip(masked.pods, masked.sig_of_pod):  # solverlint: ok(python-loop-over-pod-axis): candidate-batch scoped — one representative probe per pod of the masked batch (early-exit per sig), not the fleet pod axis
+        if reps[int(s)] is None:
+            reps[int(s)] = p
+    key_idx = {k: i for i, k in enumerate(enc.dom_key_names)}
+    node_idx = {
+        enc.row_meta[j][1].name(): j for j in range(enc.n_existing) if enc.row_meta[j][0] == "existing"
+    }
+    dko = np.asarray(enc.dom_key_of)
+    sda = np.array(masked.sig_dom_allowed)
+    shb = np.array(masked.sig_host_blocked)
+    matched_keys: set[tuple[int, int]] = set()
+    narrowed = False
+    for e in entries:
+        sel = e["selector"]
+        matched = [
+            s
+            for s in range(S)
+            if reps[s] is not None
+            and reps[s].metadata.namespace in e["namespaces"]
+            and sel is not None
+            and match_label_selector(sel, reps[s].metadata.labels)
+        ]
+        if not matched:
+            continue
+        if e["key"] == wk.HOSTNAME_LABEL_KEY:
+            j = node_idx.get(e["node_name"] or "")
+            if j is not None:
+                for s in matched:
+                    shb[s, j] = True
+                narrowed = True
+            continue
+        k = key_idx.get(e["key"])
+        if k is None:
+            # the entry's pod was a base solve pod, so its keys are base dom
+            # keys by _dom_keys_for — anything else is a caller bug
+            raise ValueError(f"inverse entry key not in base dom keys: {e['key']!r}")
+        keydoms = dko == k
+        keydoms[k] = False  # per-key sentinel (id k) is not a real domain
+        allowed = enc.universe_dom & keydoms
+        rec = e["recorded"]
+        if rec is not None:
+            for di in np.nonzero(keydoms)[0]:
+                if enc.dom_values[di] == rec:
+                    allowed = allowed.copy()
+                    allowed[di] = False
+                    break
+        blocked = keydoms & ~allowed
+        for s in matched:
+            sda[s, blocked] = False
+            matched_keys.add((s, k))
+        narrowed = True
+    # per-key sentinel: viable only while some registered real domain of the
+    # key survives the pod's own requirements and every entry's blocking
+    for s, k in sorted(matched_keys):
+        keydoms = dko == k
+        keydoms[k] = False
+        if not (sda[s] & keydoms).any():
+            sda[s, k] = False
+    return sda, shb, narrowed
+
+
+def sim_group_count_contrib(enc: EncodedSnapshot, pods, row_j: int):
+    """Per-node decomposition of one candidate's bound-pod group counts: the
+    contributions `pods` (bound to existing row `row_j`) would make to each
+    base topology group if they were SCHEDULED cluster pods — exactly
+    `_group_scheduled_counts`'s per-pod arithmetic, restricted to one node.
+    Returns (dom list[(g, dom_id, n)], host list[(g, n)]) sparse entries at
+    the full base group axis. The simulator adds/subtracts these per probe:
+    a candidate's reschedulable pods are solve pods in the round base (never
+    counted) but BOUND pods in every probe the candidate survives."""
+    meta = enc.group_meta or []
+    Kd = len(enc.dom_key_names)
+    dom_counts: dict[tuple[int, int], int] = {}
+    host_counts: dict[int, int] = {}
+    memo: dict[tuple, list[int]] = {}
+    for p in pods:  # solverlint: ok(python-loop-over-pod-axis): candidate-node scoped — counts ONE node's bound pods for the probe-count decomposition, memoized per label set; never the fleet pod axis
+        mkey = (p.metadata.namespace, tuple(sorted(p.metadata.labels.items())))
+        gs = memo.get(mkey)
+        if gs is None:
+            gs = []
+            for g, d in enumerate(meta):
+                if p.metadata.namespace != d["ns"] or d["selector"] is None:
+                    continue
+                if match_label_selector(d["selector"], p.metadata.labels):
+                    gs.append(g)
+            memo[mkey] = gs
+        for g in gs:
+            dk = int(enc.group_dom_key[g])
+            if dk >= 0:
+                did = int(enc.row_dom[row_j, dk])
+                if did >= Kd:  # ids < Kd are the per-key absent sentinels
+                    dom_counts[(g, did)] = dom_counts.get((g, did), 0) + 1
+            else:
+                host_counts[g] = host_counts.get(g, 0) + 1
+    return (
+        [(g, did, n) for (g, did), n in dom_counts.items()],
+        [(g, n) for g, n in host_counts.items()],
+    )
+
+
+def sim_inverse_entries_for(store, pods, node_labels, node_name: str) -> list[dict]:
+    """Inverse blocking entries one candidate's reschedulable required-anti
+    pods would generate as RUNNING pods (`_inverse_anti_entries` semantics,
+    restricted to one node's pod set): solve pods in the round base, bound
+    blockers in every probe the candidate survives."""
+    entries: list[dict] = []
+    for pod in pods:  # solverlint: ok(python-loop-over-pod-axis): candidate-node scoped — inverse-anti entries for ONE node's reschedulable pods, gated on required anti-affinity presence
+        aff = pod.spec.affinity
+        if aff is None:
+            continue
+        for term in aff.pod_anti_affinity_required:
+            entries.append(
+                dict(
+                    key=term.topology_key,
+                    selector=term.label_selector,
+                    namespaces=_term_namespaces(store, pod, term),
+                    recorded=node_labels.get(term.topology_key),
+                    node_name=node_name,
+                )
+            )
+    return entries
+
+
 def _freeze_shared(derived: EncodedSnapshot, base: EncodedSnapshot) -> None:
     """Runtime arm of the SHARED_ENCODE_FIELDS contract: mark every numpy
     array the derived encode shares BY REFERENCE with its base read-only, so

@@ -52,6 +52,10 @@ def build_scheduler(snap: SolverSnapshot, collect_zone_metrics: bool | None = No
         reserved_offering_mode=snap.reserved_offering_mode,
         collect_zone_metrics=snap.collect_zone_metrics if collect_zone_metrics is None else collect_zone_metrics,
         registry=getattr(snap, "registry", None),
+        # consolidation rounds stamp a SchedulerRoundSeed on their probe
+        # snapshots (helpers.simulate_scheduling): probe-invariant fit-memo/
+        # PodData layers carry across the round's scheduler builds
+        round_seed=getattr(snap, "sched_seed", None),
     )
 
 

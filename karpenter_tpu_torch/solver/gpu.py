@@ -28,6 +28,10 @@ removal needs it, packs only the added pods from the carry, merges the
 assignment and validates the whole placement. Where the reference gives up
 on the delta it records why (`last_delta_reject`) and the full pack runs.
 
+`solve_prepared(snap, enc)` packs an encoding derived outside the solver
+(a consolidation probe's masked sub-encode) in full and leaves the warm
+state of the provisioning solves as it found it.
+
 `solve_encoded(problem)` runs the same pack on an `EncodedProblem` and
 returns the validated placement (`PackResult`) without decoding; it keeps
 its carry as soon as the placement validates.
@@ -198,7 +202,7 @@ class GPUSolver:
     where the solve would otherwise fall back to the host FFD.
 
     After a solve: `last_solve_mode` is "full", "delta", "hybrid",
-    "hybrid-delta" or "fallback"; `last_backend` is "gpu" (the reference's
+    "hybrid-delta", "sim" (`solve_prepared`) or "fallback"; `last_backend` is "gpu" (the reference's
     "tpu"), "hybrid" or "ffd-fallback";
     `last_fallback_reasons` lists why the tensor path could not take the
     snapshot and `last_fallback_family` their bounded family (the
@@ -305,6 +309,35 @@ class GPUSolver:
             return results
         except _TensorFallback as e:
             return self._fall_back(snap, e.reasons, family=e.family)
+
+    def solve_prepared(self, snap: SolverSnapshot, enc) -> Results:
+        """One full pack of an externally derived encoding (the consolidation
+        simulator's masked sub-encodes, `encode.sim_mask_encode`), mode
+        "sim". `snap` must be the true probe snapshot: a fallback re-solves
+        it on the host FFD, so a masked solve never stands behind a
+        placement the real snapshot would not give. The encode cache is not
+        touched, and the provisioning warm state (the resident carry that the
+        next `solve` or `solve_encoded` packs a delta from, the hybrid carry
+        and the decode memo) is restored afterwards."""
+        self.last_stages = {}
+        self.last_backend = ""
+        self.last_fallback_reasons = []
+        self.last_fallback_family = None
+        self.last_delta_reject = None
+        self.last_decode = {}
+        resident, hybrid_state, decode_memo = self._resident, self._hybrid_state, self._decode_memo
+        try:
+            self.last_solve_mode = "sim"
+            try:
+                return self._solve_full_snapshot(snap, enc)
+            except _TensorFallback as e:
+                return self._fall_back(snap, e.reasons, family=e.family)
+        finally:
+            # the sim pack's carry describes the simulation, not the live
+            # snapshot
+            self._resident = resident
+            self._hybrid_state = hybrid_state
+            self._decode_memo = decode_memo
 
     def _fall_back(self, snap: SolverSnapshot, reasons: list[str], family: str | None = None) -> Results:
         self._hybrid_state = None  # the host result supersedes any hybrid carry
@@ -435,9 +468,9 @@ class GPUSolver:
         `TPUSolver.global_repack_plan`, without its flight record. Returns
         (subsets best-first, info); proposals only, exact validation is the
         caller's."""
-        from .consolidation import propose_subsets_global
+        from .consolidation import propose_problem_global
 
-        return propose_subsets_global(problem, self.device, seed=seed)
+        return propose_problem_global(problem, self.device, seed=seed)
 
     def _reject(self, reason: str) -> None:
         self.last_delta_reject = reason

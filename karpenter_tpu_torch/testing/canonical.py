@@ -7,8 +7,9 @@ requirements as (key, operator, sorted values, minValues, gte, lte), the
 hostname requirement left out (its value is a placeholder drawn from a
 process-global counter); per existing node: its name and its sorted pod
 keys; every pod error, key and message. `canonical_node_claims` gives the
-NodeClaims a provisioning pass created in a store the same way. Only tests
-and `chip_smoke.py` call this.
+NodeClaims a provisioning pass created in a store the same way,
+`canonical_command` a disruption `Command` and `canonical_store` every
+object of a store. Only tests and `chip_smoke.py` call this.
 """
 
 from __future__ import annotations
@@ -45,6 +46,50 @@ def canonical_node_claims(store) -> tuple:
         resources = tuple(sorted((k, q.milli) for k, q in nc.spec.resources.items()))
         out.append((nc.metadata.labels.get(wk.NODEPOOL_LABEL_KEY, ""), reqs, resources))
     return tuple(sorted(out))
+
+
+def canonical_command(cmd) -> tuple:
+    """A disruption `Command`: its reason, its candidates' node names in
+    order, per replacement its nodepool, its instance-type names in the
+    command's (price) order and its requirements without the hostname, and
+    its simulation's canonical `Results` (None without one)."""
+    replacements = tuple(
+        (nc.nodepool_name, tuple(it.name for it in nc.instance_type_options),
+         tuple(sorted(_requirement(r) for r in nc.requirements.values() if r.key != wk.HOSTNAME_LABEL_KEY)))
+        for nc in cmd.replacements
+    )
+    results = canonical_results(cmd.results) if cmd.results is not None else None
+    return cmd.reason, tuple(cmd.candidate_names()), replacements, results
+
+
+def _conditions(cs) -> tuple:
+    items = cs.conditions if hasattr(cs, "conditions") else cs
+    return tuple((c.type, c.status, c.reason, c.message, c.last_transition_time) for c in items)
+
+
+def canonical_store(store) -> tuple:
+    """Every NodePool, NodeClaim, Node and Pod of a store, by kind and key:
+    name, labels, annotations, finalizers, owners (kind and name), creation
+    and deletion times, the spec as text and the status conditions (for a
+    NodeClaim also its provider id and node name; for a Pod its phase).
+    Uids and resource versions are left out."""
+    out = []
+    for kind in ("NodePool", "NodeClaim", "Node", "Pod"):
+        rows = []
+        for o in store.list(kind):
+            m = o.metadata
+            row = (m.namespace, m.name, tuple(sorted(m.labels.items())), tuple(sorted(m.annotations.items())),
+                   tuple(m.finalizers), tuple((r.kind, r.name) for r in m.owner_references), m.creation_timestamp,
+                   m.deletion_timestamp, repr(o.spec))
+            if kind == "Pod":
+                row += (o.status.phase, o.status.nominated_node_name)
+            else:
+                row += (_conditions(o.status.conditions),)
+            if kind == "NodeClaim":
+                row += (o.status.provider_id, o.status.node_name)
+            rows.append(row)
+        out.append((kind, tuple(sorted(rows))))
+    return tuple(out)
 
 
 def json_form(x):

@@ -293,7 +293,7 @@ def test_globalpack_plain_d_within_tolerance_of_reference():
 @functools.lru_cache(maxsize=1)
 def _port_lp_proposals():
     problem, ref, _t, _aux = _lp_case()
-    return tcons.propose_subsets_lp(problem, "cpu", inits=tcons.reference_inits(problem, ref))
+    return tcons.propose_problem_lp(problem, "cpu", inits=tcons.reference_inits(problem, ref))
 
 
 def test_lp_proposals_equal_reference():

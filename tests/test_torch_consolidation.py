@@ -28,9 +28,9 @@ from karpenter_tpu_torch.solver.consolidation import (
     global_ladder,
     load_npz,
     lp_ladder,
-    propose_subsets,
-    propose_subsets_global,
-    propose_subsets_lp,
+    propose_problem_anneal,
+    propose_problem_global,
+    propose_problem_lp,
     reference_inits,
     reference_proposals,
     save_npz,
@@ -125,9 +125,9 @@ def test_proposer_end_to_end_from_jax_inits(name):
     problem, ref = load(name)
     inits = reference_inits(problem, ref)
     if str(ref["kind"]) == "lp":
-        out = propose_subsets_lp(problem, "cpu", inits=inits)
+        out = propose_problem_lp(problem, "cpu", inits=inits)
     else:
-        out, info = propose_subsets_global(problem, "cpu", inits=inits)
+        out, info = propose_problem_global(problem, "cpu", inits=inits)
         assert info["rounded"] == int(ref["ref_info_rounded"])
     assert out == reference_proposals(ref), f"{name}: close cuts {_close_cuts(ref['ref_d'], problem.n, D_TOL)}"
 
@@ -142,27 +142,34 @@ def test_near_tie_fixture_proposals_from_jax_inits():
     assert (6, "prefix", 2) in _close_cuts(d_ref, problem.n, 1e-6)
     order = np.argsort(-d_ref[6, :problem.n])
     assert set(order[:2].tolist()) & {39, 239} and 0 < abs(float(d_ref[6, 39]) - float(d_ref[6, 239])) < 1e-6
-    out = propose_subsets_lp(problem, "cpu", inits=reference_inits(problem, ref))
+    out = propose_problem_lp(problem, "cpu", inits=reference_inits(problem, ref))
     assert out == reference_proposals(ref)
 
 
 @pytest.mark.parametrize("name", ANNEAL_NAMES)
 def test_anneal_proposer_from_jax_streams(name):
     problem, ref = load(name)
-    out = propose_subsets(problem, "cpu", streams=(ref["ref_x0"], ref["ref_flips"], ref["ref_u"]))
+    out = propose_problem_anneal(problem, "cpu", streams=(ref["ref_x0"], ref["ref_flips"], ref["ref_u"]))
     assert out == reference_proposals(ref)
 
 
 def test_proposers_draw_their_own_inits_from_a_generator():
-    """Without explicit inits each proposer draws from a torch.Generator
-    (not jax.random's numbers): the same seed gives the same proposals."""
-    problem, _ref = load("small_global_6_pending")
-    a = propose_subsets_global(problem, "cpu", seed=3)
-    b = propose_subsets_global(problem, "cpu", generator=torch.Generator().manual_seed(3))
-    assert a == b and a[1]["rounded"] > 0
-    assert propose_subsets_lp(problem, "cpu", seed=1) == propose_subsets_lp(problem, "cpu", seed=1)
-    assert propose_subsets(problem, "cpu", seed=2) == propose_subsets(problem, "cpu",
-                                                                      generator=torch.Generator().manual_seed(2))
+    """Without explicit inits each proposer draws from the reference's own
+    generator (`utils.prng`: jax.random's Threefry streams for the seed), so
+    with the fixture's seed it gives the JAX proposals, and the same seed
+    gives the same proposals again."""
+    for name in ("small_global_6_pending", "small_lp_6"):
+        problem, ref = load(name)
+        seed = int(ref["seed"])
+        if str(ref["kind"]) == "lp":
+            out = propose_problem_lp(problem, "cpu", seed=seed)
+        else:
+            out, info = propose_problem_global(problem, "cpu", seed=seed)
+            assert info["rounded"] == int(ref["ref_info_rounded"]) > 0
+        assert out == reference_proposals(ref), name
+    problem, ref = load("small_anneal_6")
+    assert propose_problem_anneal(problem, "cpu", seed=int(ref["seed"])) == reference_proposals(ref)
+    assert propose_problem_lp(problem, "cpu", seed=1) == propose_problem_lp(problem, "cpu", seed=1)
 
 
 def test_one_candidate_proposes_nothing():
@@ -170,15 +177,15 @@ def test_one_candidate_proposes_nothing():
     one = ConsolidationProblem(**{k: (v[:1] if k in ("node_price", "node_cost", "node_slack", "node_used",
                                                      "node_npods", "class_of_node", "label_of_node") else v)
                                   for k, v in vars(problem).items()})
-    assert propose_subsets_lp(one, "cpu") == []
-    assert propose_subsets_global(one, "cpu") == ([], dict(objective_improvement=0.0, rounded=0))
-    assert propose_subsets(one, "cpu") == []
+    assert propose_problem_lp(one, "cpu") == []
+    assert propose_problem_global(one, "cpu") == ([], dict(objective_improvement=0.0, rounded=0))
+    assert propose_problem_anneal(one, "cpu") == []
 
 
 def test_stage_times_name_every_stage():
     problem, ref = load("small_lp_6")
     stages: dict = {}
-    propose_subsets_lp(problem, "cpu", inits=reference_inits(problem, ref), stages=stages)
+    propose_problem_lp(problem, "cpu", inits=reference_inits(problem, ref), stages=stages)
     assert list(stages) == ["tensors", "K5 globalpack", "round", "K6 upload", "K6 kernel", "K6 download", "ladder"]
 
 
@@ -188,7 +195,7 @@ def test_global_repack_plan_encoded():
 
     problem, _ref = load("small_global_6_pending")
     out, info = GPUSolver("cpu").global_repack_plan_encoded(problem, seed=0)
-    assert (out, info) == propose_subsets_global(problem, "cpu", seed=0)
+    assert (out, info) == propose_problem_global(problem, "cpu", seed=0)
 
 
 def test_default_device_needs_cuda():
@@ -196,4 +203,4 @@ def test_default_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
-        propose_subsets_lp(problem)
+        propose_problem_lp(problem)

@@ -252,12 +252,12 @@ def test_consolidation_kernels_equal_plain_on_card(cuda_device, name):
 @pytest.mark.gpu
 def test_lp_proposer_launches_k5_and_k6_once(cuda_device):
     from karpenter_tpu_torch.kernels import build
-    from karpenter_tpu_torch.solver.consolidation import propose_subsets_lp, reference_inits, reference_proposals
+    from karpenter_tpu_torch.solver.consolidation import propose_problem_lp, reference_inits, reference_proposals
     from test_torch_consolidation import load
 
     problem, ref = load("lp_5000")
     build.reset_launches()
-    out = propose_subsets_lp(problem, inits=reference_inits(problem, ref))
+    out = propose_problem_lp(problem, inits=reference_inits(problem, ref))
     assert build.LAUNCHES["globalpack"] == 1 and build.LAUNCHES["score_subsets"] == 1
     assert out == reference_proposals(ref)
 

@@ -3,8 +3,10 @@ relative import of its modules names a module of the port, and its default
 device is CUDA (no silent CPU fallback). With both blocked it builds a
 snapshot with its own builder, encodes it and solves it on the CPU, from the
 encoding (`solve_encoded`) and from the snapshot into node claims
-(`solve`), solves an out-of-window snapshot on the hybrid path and runs one
-provisioning pass over a store (`Provisioner.reconcile`)."""
+(`solve`), solves an out-of-window snapshot on the hybrid path, runs one
+provisioning pass over a store (`Provisioner.reconcile`) and one disruption
+pass over its own consolidation fleet (`DisruptionController.reconcile`:
+the LP proposer, a masked probe, the Validator, a replacement created)."""
 
 from __future__ import annotations
 
@@ -64,6 +66,16 @@ _CHILD = textwrap.dedent(
     results = prov.reconcile(force=True)
     assert solver.last_solve_mode == "hybrid" and not results.pod_errors, results.pod_errors
     assert len(snap.store.list("NodeClaim")) == len(results.new_node_claims) > 0
+    from karpenter_tpu_torch.controllers.disruption.controller import DisruptionController
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.testing.scenarios import build_consolidation_fleet
+    fleet = build_consolidation_fleet(6)
+    prov = Provisioner(fleet.store, fleet.cluster, fleet.cloud_provider, fleet.clock, solver=GPUSolver(device="cpu"))
+    dc = DisruptionController(fleet.store, fleet.cluster, prov, fleet.cloud_provider, fleet.clock, Options())
+    dc.reconcile(force=True)
+    assert len(dc.queue._items) == 1 and len(dc.queue._items[0].command.candidates) >= 2
+    assert dc.methods[3].last_round["sim_masked"] >= 1
+    assert len(fleet.store.list("NodeClaim")) == 6 + len(dc.queue._items[0].command.replacements)
     import torch
     torch.cuda.is_available = lambda: False
     try:

@@ -11,7 +11,7 @@ windows and the accept test; every warp its own windows), each with nvcc
 into its own library under `build/stamps/`, and runs both through the
 `anneal` wrapper: on the `anneal_256` consolidation fixture with the
 reference's streams (Np = 256) and on the 5000-node fleet of `lp_5000` with
-the dense compatibility matrix and streams from `torch.Generator` seed 0
+the dense compatibility matrix and streams the reference draws for seed 0 (`utils.prng`)
 (Np = 8192), each against `anneal_plain`. Each stamp adds the cycles since
 the previous stamp to the region it closes; thread 0's wall time splits
 into: `setup` (x0's bits, the rows, the counts and x0's sums), `tot1`
@@ -149,7 +149,7 @@ def main() -> int:
     sa = [torch.as_tensor(a_ref[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
     problem, _ref = chip_smoke.cons_load(chip_smoke.CONS_LP)
     t8, _ = tensors_from_problem(problem, dev, dense_compat=True)
-    s8 = list(draw_anneal_streams(t8.node_price.shape[0], torch.Generator(device=dev).manual_seed(0)))
+    s8 = list(draw_anneal_streams(t8.node_price.shape[0], 0, dev))
     try:
         for name, t, streams in ((chip_smoke.CONS_ANNEAL, ta, sa), (f"{chip_smoke.CONS_LP} fleet", t8, s8)):
             t0 = time.perf_counter()

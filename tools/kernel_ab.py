@@ -202,7 +202,7 @@ def one(tree: str, only: str = "") -> dict:
     streams = [torch.as_tensor(a_ref[k], device=dev) for k in ("ref_x0", "ref_flips", "ref_u")]
     out["anneal anneal_256"] = cs.cuda_ms(lambda: anneal(ta, *streams), 5)
     t8, _ = tensors_from_problem(problem, dev, dense_compat=True)
-    s8 = draw_anneal_streams(t8.node_price.shape[0], torch.Generator(device=dev).manual_seed(0))
+    s8 = draw_anneal_streams(t8.node_price.shape[0], 0, dev)
     out["anneal Np=8192"] = cs.cuda_ms(lambda: anneal(t8, *s8), 2, rounds=3)
     return out
 
