@@ -56,6 +56,33 @@ It times, median of 5 warm runs (host clock, device synchronised after
 each stage), a cold solve on a fresh solver, the resubmit, the delta and
 the warm one-pod delta, decode split out.
 
+Then the flight-record phase (`check_observability`) over the same
+snapshot and steps: the chain again through
+`GPUSolver(registry=make_registry(), recorder=TraceRecorder())`, each
+step's Results equal to the reference's, its launches as before, its trace
+with the step's mode, backend "gpu", the spans `encode` and `pack` (with
+`validate` on a full pack and `decode` inside), no kernel-library load
+after the first solve, and the solve counters and rolling quantile gauges
+in the exposition text; the same chain with `TraceRecorder(enabled=False)`
+gives the same Results. It prints the tracing overhead (median of 5 warm
+solves, traced against untraced, alternated: a fresh solver's full solve
+and a warm resubmit) beside the card's name and power limit. Then the
+recovery ladder: a fault at "solve" on a warm delta (the resubmit) is
+served through the quarantined full re-encode (noted on the trace, K1-K3
+launched again, the reference's Results), the next solve is a delta again,
+and after `quarantine_caches()` a full one; `kernels.build.check` failing
+once, and `kernels.build.require` refusing a tensor once, each raise
+`KernelError` out of the solve, never a host answer. Then the
+determinism check: the chain recorded with `KARPENTER_SOLVER_DETCHECK=1`
+and replayed by `check_determinism()` in a child process on the card,
+with its digests, modes and wall time printed. The hybrid phase prints the
+cold hybrid solve's `explain()`, and the consolidation phase runs the LP
+decision once more with a registry and an enabled recorder: the round's
+trace (spans `encode_candidates`, `lp_repack`, `round`, `validate`), its
+counters equal to the reference's (stored beside the decision in
+`fixtures/consolidation/fleet_5000_lp_command.json`) and its breakdown
+read from the spans.
+
 Then the hybrid phase (`check_hybrid`): the same recipe with 5% of the
 pods carrying a preferred pod affinity (`bench.py`'s `bench_hybrid_path`
 shape; pod-local fallback reasons), solved by `GPUSolver().solve` over
@@ -799,7 +826,214 @@ def check_solve(dev, card: str, errs: dict, runs: int = 5) -> dict:
               + ", ".join(f"{k} {x:.3f}" for k, x in v["stages"].items()) + f") on {card}")
     return dict(paths=paths, ms={name: v["ms"] for name, v in out.items()},
                 decode_ms={name: v["stages"].get("decode", 0.0) for name, v in out.items()},
-                stages={name: v["stages"] for name, v in out.items()})
+                stages={name: v["stages"] for name, v in out.items()}, inputs=(snap, pods_of, stored))
+
+
+# -- the flight-record phase: metrics, traces, the recovery ladder, detcheck --------
+
+def check_observability(dev, card: str, inputs, runs: int = 5) -> dict:
+    """The flight-record phase (module docstring) over the solve phase's
+    seeded headline snapshot and its `SOLVE_STEPS`."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch import metrics as pm
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.obs import detcheck
+    from karpenter_tpu_torch.obs.trace import TraceRecorder
+    from karpenter_tpu_torch.solver.gpu import PORT_SPANS, GPUSolver
+    from karpenter_tpu_torch.testing.canonical import canonical_results, json_form
+
+    snap, pods_of, stored = inputs
+
+    def solve(solver, pods, what: str, launched=None, want=None):
+        snap.pods = pods
+        random.seed(0)
+        build.reset_launches()
+        results = solver.solve(snap)
+        counts = dict(build.LAUNCHES)
+        form = json_form(canonical_results(results))
+        if want is not None:
+            expect(form == want["results"], f"{what}: Results differ from the JAX reference's")
+        if launched is not None:
+            need = {k: int(k in launched) for k in counts}
+            expect(counts == need, f"{what}: launches {counts}, not {need}")
+        return form
+
+    def chain(solver, traced: bool) -> list:
+        forms = []
+        for i, (step, pods, want, launched) in enumerate(zip(SOLVE_STEPS, pods_of, stored["steps"], SOLVE_LAUNCHES)):
+            what = f"{'traced' if traced else 'untraced'} {step}"
+            forms.append(solve(solver, pods, what, launched, want))
+            expect(solver.last_solve_mode == want["mode"], f"{what}: mode {solver.last_solve_mode}")
+            tr = solver._trace
+            if not traced:
+                expect(not tr.enabled and solver.recorder.traces() == [], f"{what}: an untraced solve was kept")
+                continue
+            expect(solver.recorder.last() is tr and tr.mode == want["mode"] and tr.backend == "gpu",
+                   f"{what}: trace mode {tr.mode!r} backend {tr.backend!r}")
+            top = [s.name for s in tr.spans]
+            inner = [c.name for c in tr.spans[-1].children if c.name not in PORT_SPANS]
+            want_inner = ["validate", "decode"] if want["mode"] == "full" else ["decode"]
+            expect(top == ["encode", "pack"] and inner == want_inner, f"{what}: spans {top}, pack {inner}")
+            expect("encode_mode" in tr.attribution and "decode_mode" in tr.attribution, f"{what}: notes {tr.attribution}")
+            if i:
+                expect(tr.recompiles == {}, f"{what}: recompiles {tr.recompiles} after the first solve")
+            print(f"recorded {step}: mode {tr.mode}, backend {tr.backend}, spans {top} (pack: "
+                  f"{[c.name for c in tr.spans[-1].children]}), recompiles {tr.recompiles}, notes "
+                  f"{ {k: v for k, v in tr.attribution.items() if k not in ('ffd_memo',)} }")
+        return forms
+
+    # the headline chain, recorded and counted, then the same with tracing off
+    reg_on, reg_off = pm.make_registry(), pm.make_registry()
+    reset_bucket_highwater()
+    on = GPUSolver(dev, registry=reg_on, recorder=TraceRecorder(enabled=True))
+    forms_on = chain(on, True)
+    reset_bucket_highwater()
+    off = GPUSolver(dev, registry=reg_off, recorder=TraceRecorder(enabled=False))
+    forms_off = chain(off, False)
+    expect(forms_on == forms_off, "tracing changed the Results")
+    text = reg_on.expose()
+    for line in ('karpenter_solver_solve_total{backend="gpu",tenant=""} 4',
+                 'karpenter_solver_decode_total{mode="full"}',
+                 'karpenter_solver_solve_quantile_seconds{mode="full",phase="total",quantile="p50"}',
+                 'karpenter_solver_solve_quantile_seconds{mode="delta",phase="decode",quantile="p99"}'):
+        expect(line in text, f"the exposition text lacks {line}")
+    for name in (pm.SOLVER_SOLVE_TOTAL, pm.SOLVER_DECODE_TOTAL, pm.SOLVER_DELTA_REJECT_TOTAL):
+        expect(sorted(map(str, reg_on.counter(name).collect())) == sorted(map(str, reg_off.counter(name).collect())),
+               f"{name} differs between the traced and untraced chains")
+    stats = on.recorder.stats()
+    print("traced chain == untraced chain == JAX reference; rolling quantiles (s): "
+          + ", ".join(f"{k} p50 {v['p50']:.6f} p99 {v['p99']:.6f}" for k, v in stats.items() if k.endswith("/total")))
+
+    # tracing overhead: fresh solvers' full solves and warm resubmits, traced
+    # against untraced, alternated
+    def full_ms(rec):
+        reset_bucket_highwater()
+        s = GPUSolver(dev, recorder=rec)
+        snap.pods = pods_of[0]
+        random.seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.solve(snap)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, s
+
+    full = {True: [], False: []}
+    warm = {}
+    for _ in range(runs + 1):
+        for traced in (True, False):
+            ms, warm[traced] = full_ms(TraceRecorder(enabled=traced))
+            full[traced].append(ms)
+    resub = {True: [], False: []}
+    for _ in range(runs + 1):
+        for traced in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            warm[traced].solve(snap)
+            torch.cuda.synchronize()
+            resub[traced].append((time.perf_counter() - t0) * 1e3)
+            expect(warm[traced].last_solve_mode == "delta", "a timed resubmit left the delta path")
+    overhead = {}
+    for name, rows in (("full", full), ("resubmit", resub)):
+        t_on, t_off = statistics.median(rows[True][1:]), statistics.median(rows[False][1:])
+        overhead[name] = dict(traced_ms=t_on, untraced_ms=t_off, pct=(t_on / t_off - 1.0) * 100.0,
+                              traced_runs=rows[True], untraced_runs=rows[False])
+        print(f"tracing overhead, {name} solve of {SNAPSHOT_SHAPE[0]}x{SNAPSHOT_SHAPE[1]} (median of {runs} warm "
+              f"solves): traced {t_on:.3f} ms, untraced {t_off:.3f} ms, {overhead[name]['pct']:+.2f}% (runs ms traced "
+              f"{[round(x, 3) for x in rows[True]]}, untraced {[round(x, 3) for x in rows[False]]}) on {card}")
+
+    # the ladder: one fault at "solve" on a warm delta (the resubmit of step 0)
+    reg = pm.make_registry()
+    reset_bucket_highwater()
+    s = GPUSolver(dev, registry=reg, recorder=TraceRecorder(enabled=True))
+    solve(s, pods_of[0], "ladder warm-up", SOLVE_LAUNCHES[0], stored["steps"][0])
+    calls = []
+
+    def hook(stage):
+        calls.append(stage)
+        if len(calls) == 1:
+            raise RuntimeError("injected solve fault")
+
+    s.fault_hook = hook
+    solve(s, pods_of[0], "ladder", SOLVE_LAUNCHES[0], stored["steps"][0])
+    s.fault_hook = None
+    tr = s._trace
+    expect(calls == ["solve", "reencode"] and tr.attribution.get("recovery") == "full-reencode"
+           and tr.backend == "gpu" and tr.mode == "full", f"ladder: {calls}, trace {tr.mode} {tr.attribution}")
+    expect(reg.counter(pm.SOLVER_RECOVERY_TOTAL).value(stage="full-reencode") == 1
+           and reg.counter(pm.SOLVER_RECOVERY_TOTAL).value(stage="host-ffd") == 0, "ladder: recovery counters")
+    solve(s, pods_of[1], "after the ladder", SOLVE_LAUNCHES[1], stored["steps"][1])
+    expect(s.last_solve_mode == "delta", f"after the ladder: mode {s.last_solve_mode}, not the re-warmed delta")
+    s.quarantine_caches()
+    solve(s, pods_of[1], "after quarantine", SOLVE_LAUNCHES[0], stored["steps"][1])
+    expect(s.last_solve_mode == "full" and s.last_delta_reject == "no-carry",
+           f"after quarantine: mode {s.last_solve_mode}, reject {s.last_delta_reject}")
+    print("ladder: a fault at 'solve' on a warm delta served through full-reencode (K1-K3 once, Results == JAX "
+          "reference), the next solve a delta again, and after quarantine_caches() a full solve (no-carry)")
+
+    # a kernel fault is never absorbed: build.check fails once (a launch's
+    # error code), then build.require refuses once (an argument refusal)
+    real = {"check": build.check, "require": build.require}
+    failed: list = []
+
+    def failing_check(rc: int, what: str) -> None:
+        if not failed:
+            failed.append(what)
+            raise build.KernelError(f"{what}: CUDA error 700 (injected)")
+        real["check"](rc, what)
+
+    def failing_require(t, device, dtype, name: str):
+        if not failed:
+            failed.append(name)
+            return real["require"](t, torch.device("cpu"), dtype, name)  # refused: the tensor is on the card
+        return real["require"](t, device, dtype, name)
+
+    for attr, fake in (("check", failing_check), ("require", failing_require)):
+        failed.clear()
+        reg = pm.make_registry()
+        s = GPUSolver(dev, registry=reg, recorder=TraceRecorder(enabled=True))
+        setattr(build, attr, fake)
+        try:
+            snap.pods = pods_of[0]
+            raised = None
+            try:
+                s.solve(snap)
+            except build.KernelError as e:
+                raised = e
+        finally:
+            setattr(build, attr, real[attr])
+        expect(raised is not None and s.last_backend != "ffd-fallback",
+               f"a kernel fault at build.{attr} was absorbed by the ladder")
+        expect(reg.counter(pm.SOLVER_RECOVERY_TOTAL).total() == 0 and reg.counter(pm.SOLVER_FALLBACK_TOTAL).total() == 0,
+               f"a kernel fault at build.{attr} reached the ladder")
+        print(f"kernel fault at {failed[0]} (build.{attr}): {type(raised).__name__} propagated, no recovery, "
+              "no host answer")
+
+    # determinism: the recorded chain replayed in a child process on this card
+    os.environ["KARPENTER_SOLVER_DETCHECK"] = "1"
+    detcheck._refresh()
+    try:
+        reset_bucket_highwater()
+        s = GPUSolver(dev)
+        for step, pods in zip(SOLVE_STEPS, pods_of):
+            solve(s, pods, f"detcheck {step}")
+        t0 = time.perf_counter()
+        det = s.check_determinism(timeout=600.0)
+        det_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("KARPENTER_SOLVER_DETCHECK", None)
+        detcheck._refresh()
+    want_modes = [w["mode"] for w in stored["steps"]]
+    expect(det["parent_modes"] == det["child_modes"] == want_modes and det["device"].startswith("cuda"),
+           f"detcheck: modes {det['parent_modes']} / {det['child_modes']} on {det['device']}")
+    print(f"detcheck: {det['solves']} solves replayed in a child process on {det['device']} under PYTHONHASHSEED="
+          f"{det['hash_seed']}, digests {[d[:12] for d in det['digests']]}, modes {det['child_modes']}, child wall "
+          f"{det['child_seconds']:.2f} s (check {det_s:.2f} s) on {card}")
+    return dict(overhead={k: {x: v[x] for x in ("traced_ms", "untraced_ms", "pct")} for k, v in overhead.items()},
+                detcheck_child_s=det["child_seconds"], detcheck_s=det_s)
 
 
 # -- the hybrid phase: out-of-window snapshots through the default solver ----------
@@ -867,6 +1101,7 @@ def check_hybrid(dev, card: str, errs: dict, runs: int = 5) -> dict:
 
     from karpenter_tpu_torch.kernels import build
     from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.obs.trace import TraceRecorder
     from karpenter_tpu_torch.solver.gpu import GPUSolver
     from karpenter_tpu_torch.testing import scenarios
     from karpenter_tpu_torch.testing.canonical import canonical_results, json_form
@@ -876,7 +1111,7 @@ def check_hybrid(dev, card: str, errs: dict, runs: int = 5) -> dict:
     snap, _added, one = seeded_snapshot(fallback_frac=HYBRID_FALLBACK_FRAC)
     base = list(snap.pods)
     reset_bucket_highwater()
-    solver = GPUSolver(dev)
+    solver = GPUSolver(dev, recorder=TraceRecorder(enabled=True))
     pods = base
     paths = []
     for i, (step, want, launched) in enumerate(zip(HYBRID_STEPS, stored["steps"], HYBRID_LAUNCHES)):
@@ -907,6 +1142,11 @@ def check_hybrid(dev, card: str, errs: dict, runs: int = 5) -> dict:
         print(f"{what} ({len(pods)} pods): mode {solver.last_solve_mode}, backend {solver.last_backend}, reject "
               f"{solver.last_delta_reject}, {len(results.new_node_claims)} claims, {len(results.pod_errors)} pod errors, "
               f"Results == JAX reference; launches {paths[-1]}")
+        tr = solver.recorder.last()
+        expect(tr.mode == solver.last_solve_mode and tr.backend == solver.last_backend, f"{what}: trace {tr.mode}")
+        if i == 0:
+            expect(tr.attribution.get("residual_pods", 0) > 0, f"{what}: no residual noted")
+            print(f"{what} flight record:\n{tr.explain()}")
 
     def timed(gpu, what: str, mode: str):
         torch.cuda.synchronize()
@@ -1158,9 +1398,11 @@ def check_consolidation(dev, card: str, errs: dict, runs: int = 5) -> dict:
 
     def decision_round(stages: dict | None = None):
         t1 = time.perf_counter()
-        cands = dc.get_candidates()
+        with GCClock() as gcc:
+            cands = dc.get_candidates()
         if stages is not None:
             stages["get_candidates"] = (time.perf_counter() - t1) * 1e3
+            stages["gc (within get_candidates)"] = gcc.ms
         ctx.round_candidates = cands
         ctx.node_pool_totals = None
         m = MultiNodeConsolidation(ctx)
@@ -1195,6 +1437,7 @@ def check_consolidation(dev, card: str, errs: dict, runs: int = 5) -> dict:
           f"{len(got['command'][2])} replacement, {m.last_round['proposals']} proposals, probes masked {masked} "
           f"scratch {got['probes'][1]}; Command == JAX reference; launches {round_counts}; K5, K6 and K1-K3 on "
           "their kept inputs == plain")
+    check_round_trace(dev, card, prov, ctx, decision_round, want["decision"], got["command"])
 
     walls, stages = [], []
     for _ in range(runs + 1):
@@ -1273,6 +1516,57 @@ def check_consolidation(dev, card: str, errs: dict, runs: int = 5) -> dict:
           + f"; probes masked {lp['sim_masked']} scratch {lp['sim_scratch']}) on {card}")
     return dict(round_counts=round_counts, pass_counts=pass_path, ms=ms, stages=med, pass_ms=pass_ms,
                 pass_split=split, build_s=build_s, probes=got["probes"], command_size=cmd_size)
+
+
+def check_round_trace(dev, card: str, prov, ctx, decision_round, want: dict, command) -> None:
+    """The LP decision again with a metrics registry and an enabled trace
+    recorder: the round's trace (mode "consolidate", backend "lp", the
+    reference's spans `encode_candidates`, `lp_repack`, `round` and one
+    `validate` per probe) and its counters equal to the reference's
+    (`want["counters"]`: the proposal batch, the LP iterations, the
+    validations, the savings gauge), K5 and K6 launched once under it."""
+    import random
+
+    from karpenter_tpu_torch import metrics as pm
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.obs.trace import TraceRecorder
+    from karpenter_tpu_torch.solver.encode import clear_encode_globals
+    from karpenter_tpu_torch.testing.canonical import canonical_command, json_form
+
+    reg, rec = pm.make_registry(), TraceRecorder(enabled=True)
+    solver = prov.solver
+    old = solver.recorder
+    ctx.metrics, solver.recorder = reg, rec
+    random.seed(CONS_ROUND_SEED)
+    clear_encode_globals()
+    reset_bucket_highwater()
+    try:
+        build.reset_launches()
+        m, _cands, cmd = decision_round()
+        counts = dict(build.LAUNCHES)
+    finally:
+        ctx.metrics, solver.recorder = None, old
+    what = f"traced consolidation decision ({CONS_FLEET_NODES} nodes)"
+    expect(json_form(canonical_command(cmd)) == command, f"{what}: another Command")
+    tr = m.round_trace
+    expect(tr is not None and tr.mode == "consolidate" and tr.backend == "lp", f"{what}: no round trace")
+    top = [sp.name for sp in tr.spans]
+    expect(top[:3] == ["encode_candidates", "lp_repack", "round"] and set(top[3:]) == {"validate"},
+           f"{what}: spans {top}")
+    got = dict(proposals=reg.counter(pm.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).value(proposer="lp"),
+               lp_iterations=reg.counter(pm.SOLVER_CONSOLIDATION_LP_ITERATIONS_TOTAL).total(),
+               accepted=reg.counter(pm.SOLVER_CONSOLIDATION_VALIDATION_TOTAL).value(decision="accept"),
+               rejected=reg.counter(pm.SOLVER_CONSOLIDATION_VALIDATION_TOTAL).value(decision="reject"),
+               savings_per_hour=reg.gauge(pm.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).value(proposer="lp"))
+    expect(got == want["counters"], f"{what}: counters {got}, the JAX reference's {want['counters']}")
+    expect(counts["globalpack"] == 1 and counts["score_subsets"] == 1, f"{what}: launches {counts}")
+    sims = [t for t in rec.traces() if t.mode == "sim"]
+    expect(len(sims) == tr.attribution["sim_masked"] and all(t.backend == "gpu" for t in sims),
+           f"{what}: {len(sims)} probe traces")
+    breakdown = {k: v * 1e3 for k, v in tr.phase_totals.items()}
+    print(f"{what}: trace spans {top}, counters {got} == JAX reference; {len(sims)} probe traces (mode sim); "
+          "breakdown from the spans, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()) + f" on {card}")
 
 
 def k1_cost(t, items, compat, key) -> tuple[int, int]:
@@ -2229,6 +2523,7 @@ def time_proposers(dev, runs: int = 5) -> dict:
     each stage over `runs` staged calls."""
     import torch
 
+    from karpenter_tpu_torch.obs.trace import SolveTrace
     from karpenter_tpu_torch.solver.consolidation import (
         propose_problem_global,
         propose_problem_lp,
@@ -2247,9 +2542,9 @@ def time_proposers(dev, runs: int = 5) -> dict:
             fn(problem, dev, inits=inits)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
-            st: dict = {}
-            fn(problem, dev, inits=inits, stages=st)
-            stages.append(st)
+            trace = SolveTrace(enabled=True)
+            fn(problem, dev, inits=inits, trace=trace, sync=True)
+            stages.append({k: v * 1e3 for k, v in trace.phase_totals.items()})
         med = {k: statistics.median(s[k] for s in stages[1:]) for k in stages[-1]}
         out[name] = dict(ms=statistics.median(wall[1:]), runs=wall, stages=med)
         print(f"{fn.__name__} {name}: median of {runs} warm calls {out[name]['ms']:.3f} ms "
@@ -2879,6 +3174,9 @@ def run(dev, card: str) -> dict:
     snapshot = check_snapshot(dev, card, errs)
     solve = check_solve(dev, card, errs)
     t1 = time.perf_counter()
+    observability = check_observability(dev, card, solve.pop("inputs"))
+    print(f"flight-record phase {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     hybrid = check_hybrid(dev, card, errs)
     t2 = time.perf_counter()
     provision = check_provision(dev, card, errs)
@@ -3010,6 +3308,7 @@ def run(dev, card: str) -> dict:
             "solve_ms": {**solve["ms"], "decode": solve["decode_ms"], "stages": solve["stages"]},
             "hybrid_ms": {**hybrid["ms"], "stages": hybrid["stages"], "provision": provision["ms"],
                           "provision_split": provision["split"], "provision_stages": provision["stages"]},
+            "observability": observability,
             "consolidation_ms": {"decision": consolidation["ms"], "stages": consolidation["stages"],
                                  "reconcile": consolidation["pass_ms"], "reconcile_split": consolidation["pass_split"],
                                  "fleet_build_s": consolidation["build_s"], "probes": consolidation["probes"]}}

@@ -1,9 +1,10 @@
 """Disruption controller: the 10s-poll loop running methods in priority order
 (reference: disruption/controller.go:101-183).
 
-The port has no metrics registry (passing one raises `NotImplementedError`)
-and no ClusterCost: balanced scoring totals fall back to candidate prices,
-as the reference's do when `cluster_cost` is None.
+`metrics` (a `metrics.Registry`) receives the reference's disruption
+gauges, counters and decision histogram. The port has no ClusterCost yet:
+balanced scoring totals fall back to candidate prices, as the reference's
+do when `cluster_cost` is None.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ class _Ctx:
     node_pool_totals: dict | None = None
     # live candidate rebuild for the 15s command validator (validation.go)
     get_candidates: object = None
+    metrics: object = None
 
     def balanced_totals(self) -> dict:
         if self.node_pool_totals is None:
@@ -48,8 +50,6 @@ class _Ctx:
 
 class DisruptionController:
     def __init__(self, store, cluster, provisioner, cloud_provider, clock, options, recorder=None, metrics=None, cluster_cost=None):
-        if metrics is not None:
-            raise NotImplementedError("disruption metrics need the metrics registry, which is not ported")
         if cluster_cost is not None:
             raise NotImplementedError("cluster cost needs state/cost, which is not ported")
         self.store = store
@@ -59,7 +59,7 @@ class DisruptionController:
         self.clock = clock
         self.options = options
         self.cluster_cost = cluster_cost
-        ctx = _Ctx(store, cluster, provisioner, clock, options, cluster_cost=cluster_cost)
+        ctx = _Ctx(store, cluster, provisioner, clock, options, cluster_cost=cluster_cost, metrics=metrics)
         ctx.get_candidates = self.get_candidates
         self.ctx = ctx
         self.methods = [
@@ -70,6 +70,7 @@ class DisruptionController:
             SingleNodeConsolidation(ctx),
         ]
         self.queue = OrchestrationQueue(store, cluster, provisioner, clock, recorder)
+        self.metrics = metrics
         self._last_run = -1e18
 
     def reconcile(self, force: bool = False) -> None:
@@ -97,9 +98,17 @@ class DisruptionController:
         (controller.go:166-179). Returns (executed, budget_blocked) where
         budget_blocked means a pool with candidates a method would disrupt
         had its budget exhausted this round."""
+        import time as _time
+
         budget_blocked = False
         for method in self.methods:
+            ctype = getattr(method, "consolidation_type", "")
+            mname = type(method).__name__
             candidates = self.get_candidates()
+            if self.metrics is not None:
+                from ... import metrics as m
+
+                self.metrics.gauge(m.DISRUPTION_ELIGIBLE_NODES).set(len(candidates), method=mname, consolidation_type=ctype)
             if not candidates:
                 return False, budget_blocked
             self.ctx.round_candidates = candidates
@@ -120,11 +129,22 @@ class DisruptionController:
                     for c in candidates
                 ):
                     budget_blocked = True
+            t0 = _time.perf_counter()
             commands = method.compute_commands(candidates, budgets)
             started = False
             for cmd in commands:
                 if cmd.candidates and self.queue.start_command(cmd):
                     started = True
+            if self.metrics is not None:
+                from ... import metrics as m
+
+                self.metrics.histogram(m.DISRUPTION_DECISION_EVAL_DURATION).observe(_time.perf_counter() - t0, method=mname)
+                for cmd in commands:
+                    if cmd.candidates:
+                        decision = "replace" if cmd.replacements else "delete"
+                        self.metrics.counter(m.DISRUPTION_DECISIONS_TOTAL).inc(
+                            decision=decision, method=mname, consolidation_type=ctype
+                        )
             if started:
                 return True, budget_blocked
         return False, budget_blocked

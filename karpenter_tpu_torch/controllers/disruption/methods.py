@@ -10,9 +10,9 @@ proposes with the relaxed LP on the device when the options' solver backend
 is "gpu" (kernels K5 and K6; the masked probes pack with K1-K3), and falls
 back in band to the binary search over the cost-sorted prefix when the LP
 yields no valid command. The annealed and global-repack proposer arms and
-their switches are not ported. There is no metrics registry and no flight
-recorder: a round's stage times and probe counts land in
-`MultiNodeConsolidation.last_round`.
+their switches are not ported. Each LP round is flight-recorded on the
+provisioner solver's trace recorder (mode "consolidate", backend "lp") and
+counted into the controller's metrics registry as the reference's is.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ class Emptiness:
         from .validation import ValidationError, Validator
 
         try:
-            cmd = Validator(self.ctx, self, mode="subset").validate(cmd)
+            cmd = Validator(self.ctx, self, mode="subset", metrics=self.ctx.metrics).validate(cmd)
         except ValidationError:
             return []
         return [cmd]
@@ -288,6 +288,14 @@ class _ConsolidationBase:
             return True
         return score_move(candidate.price, candidate.reschedule_disruption_cost, totals).approved()
 
+    def _count_timeout(self) -> None:
+        if self.ctx.metrics is not None:
+            from ... import metrics as m
+
+            self.ctx.metrics.counter(m.DISRUPTION_CONSOLIDATION_TIMEOUTS_TOTAL).inc(
+                consolidation_type=self.consolidation_type
+            )
+
 
 class SingleNodeConsolidation(_ConsolidationBase):
     """Try candidates one at a time under a 3-minute budget, interweaving
@@ -339,6 +347,7 @@ class SingleNodeConsolidation(_ConsolidationBase):
             if self.ctx.clock.now() > deadline or _time.monotonic() > wall_deadline:
                 # abandon the round; pools not yet reached get priority next
                 # time (singlenodeconsolidation.go:61-74)
+                self._count_timeout()
                 self.previously_unseen_node_pools = unseen
                 return []
             pool = c.node_pool.metadata.name
@@ -357,7 +366,7 @@ class SingleNodeConsolidation(_ConsolidationBase):
                 # full pass; a command or validation failure leaves the prior
                 # set untouched (singlenodeconsolidation.go:61-74,105-115)
                 try:
-                    Validator(self.ctx, self, mode="strict").validate(cmd)
+                    Validator(self.ctx, self, mode="strict", metrics=self.ctx.metrics).validate(cmd)
                 except ValidationError:
                     return []
                 return [cmd]
@@ -376,18 +385,32 @@ class MultiNodeConsolidation(_ConsolidationBase):
     device proposer produces no valid command, and the only path with the
     "ffd" backend.
 
-    After a round through the LP, `last_round` holds its stage times (host
-    ms, the device synchronised around each: the proposer's stages from
-    "encode_candidates" to "ladder", "validate" around every exact probe,
-    and inside it the simulator's "sim base", "sim_mask_encode" and
-    "solve_prepared"), the number of proposals, the accepted subset's size
-    and the masked and scratch probe counts."""
+    Each LP round is one `SolveTrace` (mode "consolidate", backend "lp") on
+    the provisioner solver's recorder: the reference's spans
+    `encode_candidates`, `lp_repack` and `round` from the proposer (the
+    port's stages inside them) and one `validate` per exact probe, with the
+    simulator's "sim base", "sim_mask_encode", "solve_prepared" and "sim
+    scratch" inside. `last_round` is a view of the newest round's trace."""
 
     consolidation_type = "multi"
 
     def __init__(self, ctx):
         super().__init__(ctx)
-        self.last_round: dict = {}
+        self.round_trace = None
+
+    @property
+    def last_round(self) -> dict:
+        """The newest LP round: its spans' ms by name ("stages"), the number
+        of proposals, the accepted subset's size and the probe counts (the
+        trace's notes)."""
+        tr = self.round_trace
+        if tr is None:
+            return {}
+        a = tr.attribution
+        return dict(stages={k: v * 1e3 for k, v in tr.phase_totals.items()}, proposals=a.get("proposals", 0),
+                    accepted_subset=a.get("accepted_subset"), sim_masked=a.get("sim_masked", 0),
+                    sim_scratch=a.get("sim_scratch", 0), sim_why_scratch=a.get("sim_why_scratch", ""),
+                    sched_seed_rejects=a.get("sched_seed_rejects", 0))
 
     def compute_commands(self, candidates, budgets) -> list[Command]:
         eligible = self.sort_candidates([c for c in candidates if self.should_disrupt(c)])
@@ -439,7 +462,7 @@ class MultiNodeConsolidation(_ConsolidationBase):
             # rather than ending the round empty-handed.
             from .validation import ValidationError, Validator
 
-            validator = Validator(self.ctx, self, mode="strict")
+            validator = Validator(self.ctx, self, mode="strict", metrics=self.ctx.metrics)
             for _attempt in range(MULTI_NODE_VALIDATION_ATTEMPTS):
                 try:
                     validator.validate(cmd)
@@ -479,43 +502,75 @@ class MultiNodeConsolidation(_ConsolidationBase):
         (best-first) order. The happy path pulls ONE command, hands it to
         the 15s exact Validator, and never simulates the rest; a validation
         failure resumes the generator to pull the next accepted proposal.
-        The proposer runs on the provisioner solver's device. Every
+        The proposer runs on the provisioner solver's device. The whole
+        round is flight-recorded as one mode="consolidate" SolveTrace
+        (`encode_candidates` / `lp_repack` / `round` inside
+        `propose_subsets_lp`, one "validate" span per exact probe — NOT
+        around the yields, so the Validator's 15s wait while the generator
+        is suspended never accrues into the phase split), and every
         proposal's simulation runs through the round's
         ConsolidationSimulator (masked sub-encodes where its envelope
-        allows, from scratch otherwise) and its shared SchedulerRoundSeed.
-        The round's record is `last_round` (the class docstring); "validate"
-        is timed around each exact probe only, never around the yields, so
-        the Validator's wait while the generator is suspended stays out."""
-        from ...solver.consolidation import Stages, propose_subsets_lp
+        allows, from scratch otherwise) and its shared SchedulerRoundSeed."""
+        import logging
+
+        from ... import metrics as m
+        from ...kernels.build import device_fault
+        from ...obs.trace import default_recorder
+        from ...solver.consolidation import LP_SOLVE_ITERATIONS, propose_subsets_lp
         from ...solver.simulate import ConsolidationSimulator
 
         ctx = self.ctx
-        device = getattr(ctx.provisioner.solver, "device", None)  # None: the CUDA device
-        stages: dict = {}
-        rnd = self.last_round = dict(stages=stages, proposals=0, accepted_subset=None)
-        reuse = ConsolidationSimulator(ctx.provisioner, ctx.cluster, ctx.clock, candidates, stages=stages)
-        try:
-            its = self._candidate_instance_types(candidates)
-            proposals = propose_subsets_lp(candidates, its, device=device, stages=stages)
-            rnd["proposals"] = len(proposals)
-            timer = Stages(stages, device)
-            for subset in proposals:
-                if ctx.clock.now() > deadline:
+        solver = ctx.provisioner.solver
+        device = getattr(solver, "device", None)  # None: the CUDA device
+        sync = bool(getattr(solver, "stage_times", False))
+        recorder = getattr(solver, "recorder", None) or default_recorder()
+        n_pods = sum(len(c.reschedulable_pods) for c in candidates)
+        with recorder.flight(n_pods=n_pods, mode="consolidate", backend="lp", registry=ctx.metrics) as trace:
+            self.round_trace = trace
+            reuse = ConsolidationSimulator(ctx.provisioner, ctx.cluster, ctx.clock, candidates, trace=trace)
+            try:
+                its = self._candidate_instance_types(candidates)
+                try:
+                    proposals = propose_subsets_lp(candidates, its, device=device, trace=trace, sync=sync)
+                except (ValueError, TypeError, RuntimeError) as e:
+                    # a kernel's or the device's failure fails the round: the
+                    # binary search never answers for a broken K5 or K6
+                    if device_fault(e, device or "cuda"):
+                        raise
+                    logging.getLogger("karpenter.disruption").warning(
+                        "LP consolidation repack failed, falling back: %s", e
+                    )
                     return
-                chosen = [candidates[i] for i in subset]
-                with timer("validate"):
-                    cmd = self.compute_consolidation(chosen, reuse=reuse)
-                    accepted = bool(cmd.candidates) and not self._is_pointless_churn(cmd)
-                if accepted:
-                    rnd["accepted_subset"] = len(subset)
-                    yield cmd
-        finally:
-            rnd.update(
-                sim_masked=reuse.masked_probes,
-                sim_scratch=reuse.scratch_probes,
-                sim_why_scratch=reuse.why_scratch,
-                sched_seed_rejects=len(reuse.sched_seed.static_rejects),
-            )
+                if ctx.metrics is not None and proposals:
+                    ctx.metrics.counter(m.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).inc(len(proposals), proposer="lp")
+                    ctx.metrics.counter(m.SOLVER_CONSOLIDATION_LP_ITERATIONS_TOTAL).inc(LP_SOLVE_ITERATIONS)
+                trace.note(proposals=len(proposals))
+                for subset in proposals:
+                    if ctx.clock.now() > deadline:
+                        self._count_timeout()
+                        return
+                    chosen = [candidates[i] for i in subset]
+                    with trace.span("validate"):
+                        cmd = self.compute_consolidation(chosen, reuse=reuse)
+                        accepted = bool(cmd.candidates) and not self._is_pointless_churn(cmd)
+                    if ctx.metrics is not None:
+                        ctx.metrics.counter(m.SOLVER_CONSOLIDATION_VALIDATION_TOTAL).inc(
+                            decision="accept" if accepted else "reject"
+                        )
+                    if accepted:
+                        if ctx.metrics is not None:
+                            ctx.metrics.gauge(m.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).set(
+                                _command_savings_per_hour(cmd), proposer="lp"
+                            )
+                        trace.note(accepted_subset=len(subset))
+                        yield cmd
+            finally:
+                trace.note(
+                    sim_masked=reuse.masked_probes,
+                    sim_scratch=reuse.scratch_probes,
+                    sim_why_scratch=reuse.why_scratch,
+                    sched_seed_rejects=len(reuse.sched_seed.static_rejects) if reuse.sched_seed is not None else 0,
+                )
 
     @staticmethod
     def _is_pointless_churn(cmd: Command) -> bool:
@@ -530,14 +585,19 @@ class MultiNodeConsolidation(_ConsolidationBase):
         """firstNConsolidationOption (multinodeconsolidation.go:117-191): binary
         search on batch size under a 1-minute budget — on timeout return the
         last valid command found (or nothing)."""
+        from ... import metrics as m
+
         min_n, max_n = 1, len(candidates)
         last_valid = Command()
         if deadline is None:
             deadline = self.ctx.clock.now() + MULTI_NODE_CONSOLIDATION_TIMEOUT_SECONDS
         while min_n <= max_n:
             if self.ctx.clock.now() > deadline:
+                self._count_timeout()
                 return last_valid
             mid = (min_n + max_n) // 2
+            if self.ctx.metrics is not None:
+                self.ctx.metrics.counter(m.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).inc(proposer="binary-search")
             cmd = self.compute_consolidation(candidates[: mid + 1])
             if not cmd.candidates:
                 max_n = mid - 1
@@ -547,6 +607,10 @@ class MultiNodeConsolidation(_ConsolidationBase):
                 continue
             last_valid = cmd
             min_n = mid + 1
+        if last_valid.candidates and self.ctx.metrics is not None:
+            self.ctx.metrics.gauge(m.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).set(
+                _command_savings_per_hour(last_valid), proposer="binary-search"
+            )
         return last_valid
 
 

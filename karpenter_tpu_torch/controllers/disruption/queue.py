@@ -63,9 +63,7 @@ class OrchestrationQueue:
 
         item = _Item(command=command)
         for replacement in command.replacements:
-            # the reference passes reason= for its NodeClaims-created metric,
-            # which the port's provisioner does not record
-            name = self.provisioner.create_node_claim(replacement)
+            name = self.provisioner.create_node_claim(replacement, reason=command.reason or "provisioning")
             if name is None:
                 self._rollback(command, created=item.replacement_names)
                 return False

@@ -44,18 +44,26 @@ class Validator:
     validation.go:134-148,223-252)."""
 
     def __init__(self, ctx, method, mode: str, metrics=None):
-        if metrics is not None:
-            raise NotImplementedError("validation metrics need the metrics registry, which is not ported")
         self.ctx = ctx
         self.method = method
         self.mode = mode
+        self.metrics = metrics
+
+    def _count_failure(self, n: int = 1) -> None:
+        if self.metrics is not None:
+            from ... import metrics as m
+
+            self.metrics.counter(m.DISRUPTION_FAILED_VALIDATIONS_TOTAL).inc(
+                n, method=getattr(self.method, "consolidation_type", "") or type(self.method).__name__
+            )
 
     def validate(self, cmd: Command, delay_seconds: float = VALIDATION_DELAY_SECONDS) -> Command:
         """Returns the validated command or raises ValidationError."""
         if not cmd.candidates:
             # a commandless validate can only ever raise — don't pay the 15s
-            # wait to learn it (the churn raise _validate_candidates([])
-            # produces after the sleep)
+            # wait to learn it. Same outcome (_count_failure bump + churn
+            # raise) that _validate_candidates([]) produces after the sleep.
+            self._count_failure(0)
             raise ValidationError("churn", "0 candidates are no longer valid")
         if delay_seconds > 0:
             self.ctx.clock.sleep(delay_seconds)
@@ -71,8 +79,10 @@ class Validator:
         fresh = {c.name(): c for c in self.ctx.get_candidates() if self.method.should_disrupt(c)}
         mapped = [fresh[c.name()] for c in candidates if c.name() in fresh]
         if self.mode == "strict" and len(mapped) != len(candidates):
+            self._count_failure(len(candidates))
             raise ValidationError("churn", f"{len(candidates) - len(mapped)} candidates are no longer valid")
         if not mapped:
+            self._count_failure(len(candidates))
             raise ValidationError("churn", f"{len(candidates)} candidates are no longer valid")
         budgets = build_disruption_budget_mapping(self.ctx.store, self.ctx.cluster, self.ctx.clock, self.method.reason)
         now = self.ctx.clock.now()
@@ -81,16 +91,21 @@ class Validator:
             sn = c.state_node
             if sn.nominated(now):
                 if self.mode == "strict":
+                    self._count_failure(len(candidates))
                     raise ValidationError("nominated", f"candidate {c.name()} was nominated during validation")
+                self._count_failure()
                 continue
             pool = c.node_pool.metadata.name
             if budgets.get(pool, 0) <= 0:
                 if self.mode == "strict":
+                    self._count_failure(len(candidates))
                     raise ValidationError("budget", f"disrupting {c.name()} would violate {pool}'s budget")
+                self._count_failure()
                 continue
             budgets[pool] -= 1
             valid.append(c)
         if not valid:
+            self._count_failure(len(candidates))
             raise ValidationError("budget", "no candidate can be disrupted within budgets")
         return valid
 
@@ -101,16 +116,20 @@ class Validator:
             raise ValidationError("churn", "no candidates")
         results = simulate_scheduling(self.ctx.provisioner, self.ctx.cluster, candidates, self.ctx.clock)
         if not all_non_pending_scheduled(results, candidates):
+            self._count_failure(len(cmd.candidates))
             raise ValidationError("scheduling", results.non_pending_pod_scheduling_errors())
         n_new = len(results.new_node_claims)
         if n_new == 0:
             if not cmd.replacements:
                 return  # delete-only command still needs no replacement: valid
+            self._count_failure(len(cmd.candidates))
             raise ValidationError("scheduling", "simulation no longer needs a replacement node")
         if n_new > 1 or not cmd.replacements:
+            self._count_failure(len(cmd.candidates))
             raise ValidationError("scheduling", "scheduling simulation produced new results")
         # the command's launchable types must be a subset of what the fresh
         # simulation allows — subset == no pricier than planned
         sim_names = {it.name for it in results.new_node_claims[0].instance_type_options}
         if not all(it.name in sim_names for it in cmd.replacements[0].instance_type_options):
+            self._count_failure(len(cmd.candidates))
             raise ValidationError("scheduling", "scheduling simulation produced new results")

@@ -6,15 +6,17 @@ point. The port's default is `solver.gpu.GPUSolver()`, on the CUDA device,
 where the reference defaults to its host FFD; pass `solver=FFDSolver()` for
 the host scheduler or `GPUSolver(device="cpu")` for the plain versions.
 
-The port leaves out the metrics registry (passing one raises
-`NotImplementedError`), the pod-event tracer and the serving loop's
-pre-stager; `recorder` is None until events are ported.
+`metrics` (a `metrics.Registry`) receives the reference's provisioning
+counters, gauges and histograms; `podtracer` (an `obs.podtrace.PodTracer`)
+stamps dispatch and solve on every traced pod of a batch. The serving
+loop's pre-stager is not part of the port.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ...apis import labels as wk
 from ...apis.nodepool import COND_NODEPOOL_READY
 from ...solver.gpu import GPUSolver
 from ...solver.snapshot import SolverSnapshot
@@ -36,8 +38,6 @@ class ProvisionerOptions:
 
 class Provisioner:
     def __init__(self, store, cluster, cloud_provider, clock, solver=None, recorder=None, options: ProvisionerOptions | None = None, metrics=None):
-        if metrics is not None:
-            raise NotImplementedError("provisioner metrics need the metrics registry, which is not ported")
         self.store = store
         self.cluster = cluster
         self.cloud_provider = cloud_provider
@@ -45,11 +45,22 @@ class Provisioner:
         self.solver = solver or GPUSolver()
         self.recorder = recorder
         self.options = options or ProvisionerOptions()
+        self.metrics = metrics
         self.batcher = Batcher(clock, self.options.batch_idle_seconds, self.options.batch_max_seconds)
-        # watch-loss convergence: the store's Pod loss epoch seen at the last
-        # reconcile. A bump means the delivered stream lost events the
-        # Cluster mirror never saw — re-converge it from store content
-        # before the next solve reads cluster state.
+        # bounded fleet tenant label (serving.fleet.tenant_label output, set
+        # by FleetFrontend at session registration): rides the churn metric
+        # families so one shared fleet registry attributes them per tenant.
+        # "" outside a fleet — the registry renders that as the empty label.
+        self.tenant = ""
+        # podtrace (obs/podtrace.py): the event-lifecycle tracer, installed
+        # by the Environment — provision() stamps dispatch/solved on every
+        # traced pod in the batch and links the batch summary into the
+        # SolveTrace. None = untraced provisioner (direct-wired tests).
+        self.podtracer = None
+        # watch-loss convergence (faultline): the store's Pod loss epoch
+        # seen at the last reconcile. A bump means the delivered stream
+        # lost events the Cluster mirror never saw — re-converge it from
+        # store content before the next solve reads cluster state.
         self._watch_loss_seen = store.watch_loss_epoch("Pod") if hasattr(store, "watch_loss_epoch") else 0
 
     # -- triggering (provisioning/controller.go) -------------------------------
@@ -61,32 +72,61 @@ class Provisioner:
 
         The solve is bracketed with the batcher's in-flight window so trigger
         bursts landing DURING it coalesce into exactly one batched follow-up
-        solve (see Batcher)."""
+        solve (see Batcher); the karpenter_solver_churn_* families record the
+        coalescing behavior per solve."""
         if not force and not self.batcher.ready():
             return None
         if not self.cluster.synced():
             return None
         # store content is authoritative: if the watch stream lost Pod
-        # events since the last pass (any lossy transport), the event-fed
-        # Cluster mirror is stale — re-converge it BEFORE the solve reads
-        # node usage/bindings
+        # events since the last pass (faultline watch-drop, or any real
+        # lossy transport), the event-fed Cluster mirror is stale —
+        # re-converge it BEFORE the solve reads node usage/bindings
         loss = self.store.watch_loss_epoch("Pod") if hasattr(self.store, "watch_loss_epoch") else 0
         if loss != self._watch_loss_seen:
             self._watch_loss_seen = loss
             self.cluster.resync_pods()
+            if self.metrics is not None:
+                from ... import metrics as m
+
+                self.metrics.counter(m.SOLVER_WATCH_RESYNC_TOTAL).inc()
         # one atomic handoff: close the generation and open the in-flight
         # window together, so a concurrent trigger can never fall between
-        self.batcher.take_generation()
+        events = self.batcher.take_generation()
         try:
             results = self.provision()
         finally:
-            self.batcher.end_solve()
+            coalesced = self.batcher.end_solve()
+            if self.metrics is not None:
+                from ... import metrics as m
+
+                if coalesced:
+                    self.metrics.counter(m.SOLVER_CHURN_COALESCED_TOTAL).inc(coalesced, tenant=self.tenant)  # solverlint: ok(metric-label-cardinality): tenant is a serving.fleet.tenant_label() output stored at fleet registration — the bounded fleet enum ("" outside a fleet)
+                self.metrics.histogram(m.SOLVER_CHURN_EVENTS_PER_SOLVE).observe(float(events), tenant=self.tenant)  # solverlint: ok(metric-label-cardinality): tenant is a serving.fleet.tenant_label() output stored at fleet registration — the bounded fleet enum ("" outside a fleet)
+                # depth AFTER the solve: the coalesced generation still queued
+                self.metrics.gauge(m.SOLVER_CHURN_QUEUE_DEPTH).set(self.batcher.pending(), tenant=self.tenant)  # solverlint: ok(metric-label-cardinality): tenant is a serving.fleet.tenant_label() output stored at fleet registration — the bounded fleet enum ("" outside a fleet)
         return results
 
     # -- the provisioning pass (provisioner.go:350-458) ------------------------
     def provision(self) -> Results:
         pods = self.get_pending_pods()
+        # podtrace dispatch stamp: the generation was just taken and its
+        # batch assembled — every traced event's coalescing-window residency
+        # ends HERE, and the batch summary rides the SolveTrace (explain()
+        # joins the two views through the solve seq)
+        tracer = self.podtracer
+        if tracer is not None and tracer.enabled:
+            batch = tracer.on_dispatch(pods, window=self.batcher.last_generation())
+            if batch is not None and hasattr(self.solver, "stage_event_batch"):
+                self.solver.stage_event_batch(batch)
         results = self.schedule(pods)
+        if tracer is not None and tracer.enabled:
+            tracer.on_solved(results, solve_seq=getattr(getattr(self.solver, "_trace", None), "seq", 0))
+            if hasattr(self.solver, "discard_event_batch"):
+                # schedule() may have declined to solve (no pods / no ready
+                # nodepools): a staged batch the solve never consumed must
+                # not attach to a later, unrelated solve's trace
+                self.solver.discard_event_batch()
         for claim in results.new_node_claims:
             if claim.pods:
                 self.create_node_claim(claim)
@@ -155,13 +195,52 @@ class Provisioner:
 
     def schedule(self, pods: list) -> Results:
         if not pods:
+            if self.metrics is not None:
+                from ... import metrics as m
+
+                self.metrics.gauge(m.SCHEDULER_QUEUE_DEPTH).set(0)
+                self.metrics.gauge(m.SCHEDULER_UNSCHEDULABLE_PODS).set(0)
+                self.metrics.gauge(m.SCHEDULER_PENDING_PODS_BY_EFFECTIVE_ZONE).reset()
             return Results()
         snapshot = self.make_snapshot(pods)
         # computing effective zones is pointless when nobody publishes them
-        snapshot.collect_zone_metrics = False
+        snapshot.collect_zone_metrics = self.metrics is not None
         if not snapshot.node_pools:
+            if self.metrics is not None:
+                from ... import metrics as m
+
+                # no solve runs, so every solve-scoped gauge would otherwise
+                # keep reporting the previous batch forever
+                self.metrics.gauge(m.SCHEDULER_QUEUE_DEPTH).set(len(pods))
+                self.metrics.gauge(m.SCHEDULER_UNSCHEDULABLE_PODS).set(len(pods))
+                self.metrics.gauge(m.SCHEDULER_PENDING_PODS_BY_EFFECTIVE_ZONE).reset()
             return Results(pod_errors={p.key(): "no ready nodepools" for p in pods})
-        return self.solver.solve(snapshot)
+        if self.metrics is None:
+            return self.solver.solve(snapshot)
+        import time as _time
+
+        from ... import metrics as m
+
+        self.metrics.gauge(m.SCHEDULER_QUEUE_DEPTH).set(len(pods))
+        t0 = _time.perf_counter()
+        results = self.solver.solve(snapshot)
+        self.metrics.histogram(m.SCHEDULER_SCHEDULING_DURATION).observe(_time.perf_counter() - t0)
+        # unschedulable virtual buffer pods are headroom shortfall, not real
+        # demand failures (buffers.go filterVirtualPodErrors)
+        from ...apis.capacitybuffer import is_virtual_pod
+
+        virtual_keys = {p.key() for p in pods if is_virtual_pod(p)}
+        real_errors = {k: v for k, v in results.pod_errors.items() if k not in virtual_keys}
+        self.metrics.gauge(m.SCHEDULER_UNSCHEDULABLE_PODS).set(len(real_errors))
+        # effective-zone demand gauge (scheduler.go:450,495-501): stale zone
+        # labels are dropped each solve, then the batch's counts published; a
+        # backend that does not compute the counts (TPU decode) clears the
+        # gauge too, so it never reports a previous batch
+        g = self.metrics.gauge(m.SCHEDULER_PENDING_PODS_BY_EFFECTIVE_ZONE)
+        g.reset()
+        for zone, count in (results.pending_pods_by_effective_zone or {}).items():
+            g.set(count, zone=zone)
+        return results
 
     def make_snapshot(self, pods: list, state_nodes=None, exclude_deleting: bool = True) -> SolverSnapshot:
         """Snapshot assembly (provisioner.go:261-348 NewScheduler)."""
@@ -201,9 +280,10 @@ class Provisioner:
             min_values_policy=self.options.min_values_policy,
             dra_enabled=self.options.dynamic_resources_enabled,
             reserved_capacity_enabled=self.options.reserved_capacity_enabled,
+            registry=self.metrics,
         )
 
-    def create_node_claim(self, scheduling_claim) -> str | None:
+    def create_node_claim(self, scheduling_claim, reason: str = "provisioning") -> str | None:
         """Limits check + API create (provisioner.go:460-513). Returns the
         created claim name or None when limits forbid it."""
         nc = scheduling_claim.to_api_node_claim(self.clock)
@@ -225,4 +305,11 @@ class Provisioner:
         # purely for buffer headroom) before the next pass records its pods
         self.cluster.update_node_claim(created)
         self.cluster.nominate_claim(created.metadata.name)
+        if self.metrics is not None:
+            from ... import metrics as m
+
+            relaxed = wk.NODECLAIM_MIN_VALUES_RELAXED_ANNOTATION_KEY in nc.metadata.annotations
+            self.metrics.counter(m.NODECLAIMS_CREATED_TOTAL).inc(
+                reason=reason, nodepool=pool_name, min_values_relaxed=str(relaxed).lower()  # solverlint: ok(metric-label-cardinality): reason is a parameter whose call sites pass fixed literals ("provisioning", "static_provisioned") or a disruption command reason — all enum-bounded
+            )
         return created.metadata.name

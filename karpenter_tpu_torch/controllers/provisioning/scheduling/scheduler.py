@@ -133,8 +133,6 @@ class Scheduler:
         self.min_values_policy = min_values_policy
         self.deleting_node_names = deleting_node_names or set()
         self.timeout_seconds = timeout_seconds
-        if registry is not None:
-            raise NotImplementedError("scheduler metrics need the metrics registry, which is not ported")
         self.registry = registry
         # signature-batched FFD: per-solve fit memo + placement cursors +
         # PodData template cache + incremental claim ordering
@@ -370,6 +368,10 @@ class Scheduler:
         for nc in self.new_node_claims:
             nc.finalize()
 
+        if self.registry is not None:
+            self._flush_solve_metrics()
+        self._flush_trace()
+
         return Results(
             new_node_claims=list(self.new_node_claims),
             existing_nodes=list(self.existing_nodes),
@@ -377,6 +379,33 @@ class Scheduler:
             timed_out=timed_out,
             pending_pods_by_effective_zone=pods_by_zone,
         )
+
+    def _flush_solve_metrics(self) -> None:
+        from .... import metrics as m
+
+        memo = self.registry.counter(m.SOLVER_FFD_MEMO_TOTAL)
+        memo.inc(self.memo_stats["hit"], kind="hit")
+        memo.inc(self.memo_stats["miss"], kind="miss")
+        memo.inc(self.memo_stats["invalidate"], kind="invalidate")
+        phases = self.registry.histogram(m.SOLVER_FFD_PHASE_SECONDS)
+        phases.observe(self.phase_seconds["existing"], phase="existing")
+        phases.observe(self.phase_seconds["inflight"], phase="inflight")
+        phases.observe(self.phase_seconds["new_claim"], phase="new_claim")
+
+    def _flush_trace(self) -> None:
+        """Attach this solve's per-phase split and fit-memo attribution to
+        the ambient SolveTrace, if one is active (a GPU fallback/residual or
+        a flight-recorded FFD solve). The per-pod phase accumulation itself
+        stays counter-based — a span per pod would be the overhead the trace
+        layer promises not to add — so the totals land as back-dated spans."""
+        from ....obs.trace import current_trace
+
+        tr = current_trace()
+        if tr is None or not tr.enabled:
+            return
+        for phase in ("existing", "inflight", "new_claim"):
+            tr.add_phase(f"ffd.{phase}", self.phase_seconds[phase])
+        tr.note(ffd_memo=dict(self.memo_stats))
 
     def _memo_put(self, key, entry) -> None:
         memo = self._fit_memo

@@ -120,11 +120,11 @@ def anneal_prepass(t, flips):
     if dev.type == "cpu":
         return (*anneal_prepass_plain(t, flips), torch.zeros(1, dtype=torch.int32))
     if dev.type != "cuda":
-        raise ValueError(f"anneal: unsupported device {dev}")
+        raise build.KernelArgError(f"anneal: unsupported device {dev}")
     N = t.pod_compat.shape[0]
     T, R = t.row_alloc.shape
     if t.pod_compat.shape != (N, N):
-        raise ValueError("anneal: pod_compat must be the dense [Np, Np] form")
+        raise build.KernelArgError("anneal: pod_compat must be the dense [Np, Np] form")
     f = torch.float32
     pc = build.require(t.pod_compat, dev, f, "pod_compat")
     row_alloc = build.require(t.row_alloc, dev, f, "row_alloc")
@@ -149,13 +149,13 @@ def anneal(t, x0, flips, u):
     if dev.type == "cpu":
         return anneal_plain(t, x0, flips, u)
     if dev.type != "cuda":
-        raise ValueError(f"anneal: unsupported device {dev}")
+        raise build.KernelArgError(f"anneal: unsupported device {dev}")
     C, N = x0.shape
     S = flips.shape[1]
     R = t.node_used.shape[1]
     T = t.row_price.shape[0]
     if t.pod_compat.shape != (N, N) or flips.shape != (C, S) or u.shape != (C, S):
-        raise ValueError("anneal: pod_compat must be the dense [Np, Np] form, streams [C, S]")
+        raise build.KernelArgError("anneal: pod_compat must be the dense [Np, Np] form, streams [C, S]")
     f = torch.float32
     hostbits, delbits, row_keep, flag = anneal_prepass(t, flips)
     args = [
@@ -187,7 +187,7 @@ def anneal(t, x0, flips, u):
     build.LAUNCHES["anneal"] += 1
     bad = int(flag.item())  # what the pre-pass flagged (waits for the card; the chains exit at once on it)
     if bad & 1:
-        raise ValueError("anneal: pod_compat must hold only 0 and 1")
+        raise build.KernelArgError("anneal: pod_compat must hold only 0 and 1")
     if bad & 2:
-        raise ValueError(f"anneal: flips outside [0, {N})")
+        raise build.KernelArgError(f"anneal: flips outside [0, {N})")
     return best_x, best_s

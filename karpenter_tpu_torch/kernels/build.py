@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -31,9 +32,76 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 LAUNCHES = {"feasibility": 0, "pack_scan": 0, "sparsify": 0, "recredit": 0, "globalpack": 0, "score_subsets": 0,
             "anneal_pack": 0, "anneal": 0, "perpod_pack": 0}
 
+# builds and loads of the kernel library in this process (nvcc run or the
+# cached library loaded from disk), each counted once under the label of the
+# kernel entry point whose call made it (`obs/trace.JIT_WATCHLIST`; "" when
+# none was on the stack): what the solve trace's recompile sentinel diffs
+# around each solve (`obs/trace.RecompileSentinel`)
+LOADS: dict[str, int] = {}
+
 _lock = threading.Lock()
 _lib = None
 BUILD_INFO: dict = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch. `unrecoverable`: the
+    solver's recovery ladder lets it propagate, so the host FFD never
+    answers for a broken kernel."""
+
+    unrecoverable = True
+
+
+class KernelArgError(KernelError, ValueError):
+    """A kernel wrapper refused its arguments (device, layout, axes) before
+    the launch: a `KernelError` that is also the `ValueError` it replaces."""
+
+
+class KernelTypeError(KernelError, TypeError):
+    """A kernel wrapper refused an argument's type or dtype before the
+    launch: a `KernelError` that is also the `TypeError` it replaces."""
+
+
+def device_fault(err: BaseException, device) -> bool:
+    """Is `err` a failure of the kernels or of the device, which no host
+    answer may hide? Every `KernelError` (a build, load, launch or argument
+    refusal), and on a CUDA device torch's own CUDA errors: out of memory,
+    `AcceleratorError`, and a RuntimeError that names CUDA or a CUDA device
+    (torch before 2.8 raises "CUDA error: ..." so; a device mismatch names
+    "cuda:0")."""
+    if getattr(err, "unrecoverable", False):
+        return True
+    kind = device.type if hasattr(device, "type") else str(device).split(":")[0]
+    if kind != "cuda":
+        return False
+    import torch
+
+    accel = getattr(torch, "AcceleratorError", None)
+    if isinstance(err, torch.cuda.OutOfMemoryError) or (accel is not None and isinstance(err, accel)):
+        return True
+    return isinstance(err, RuntimeError) and "cuda" in str(err).lower()
+
+
+def _entry_label() -> str:
+    """The `JIT_WATCHLIST` label of the innermost watched kernel entry point
+    on the calling stack, "" when there is none (a direct wrapper call)."""
+    from ..obs.trace import JIT_WATCHLIST
+
+    watched = {(mod, attr): label for label, mod, attr in JIT_WATCHLIST}
+    frame = sys._getframe(1)
+    while frame is not None:
+        label = watched.get((frame.f_globals.get("__name__"), frame.f_code.co_name))
+        if label is not None:
+            return label
+        frame = frame.f_back
+    return ""
+
+
+def count_load() -> None:
+    """Count one build or load of the library against the entry point that
+    made it."""
+    label = _entry_label()
+    LOADS[label] = LOADS.get(label, 0) + 1
 
 
 def reset_launches() -> None:
@@ -48,7 +116,7 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from source on first use")
+    raise KernelError("nvcc not found: the CUDA kernels are built from source on first use")
 
 
 def _digest() -> str:
@@ -85,13 +153,13 @@ def build() -> Path:
     log = "\n".join(logs)
     (out_dir / "build.log").write_text(log)
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+        raise KernelError(f"nvcc failed for {failed}:\n{log}")
     tmp = out_dir / f"libkarpenter_kernels.{os.getpid()}.so"
     link = subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
                            *[str(o) for _n, o, _p in procs], "-o", str(tmp)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        raise KernelError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, lib_path)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=str(lib_path))
     return lib_path
@@ -102,7 +170,12 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+            path = build()
+            try:
+                handle = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"loading {path} failed: {e}") from e
+            count_load()
             vp, ci = ctypes.c_void_p, ctypes.c_int
             handle.kt_feasibility.argtypes = [vp] * 8 + [ci] * 6 + [vp] * 4
             handle.kt_feasibility.restype = ci
@@ -144,7 +217,7 @@ def lib() -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
+        raise KernelError(f"{what}: CUDA error {rc}")
 
 
 def stream_ptr(device) -> int:
@@ -154,17 +227,18 @@ def stream_ptr(device) -> int:
 
 
 def require(t, device, dtype, name: str):
-    """Check a tensor handed to a kernel: device, dtype, contiguity."""
+    """Check a tensor handed to a kernel: device, dtype, contiguity. A
+    refusal is a `KernelError`, so it propagates out of a solve."""
     import torch
 
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor")
+        raise KernelTypeError(f"{name}: expected a tensor")
     if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
+        raise KernelArgError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        raise KernelTypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+        raise KernelArgError(f"{name}: not contiguous")
     return t
 
 

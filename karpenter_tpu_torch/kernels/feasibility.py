@@ -32,13 +32,13 @@ def compat_and_key(t: SchedulerTensors, masks, taints_ok, req):
     if dev.type == "cpu":
         return compat_and_key_plain(t, masks, taints_ok, req)
     if dev.type != "cuda":
-        raise ValueError(f"feasibility: unsupported device {dev}")
+        raise build.KernelArgError(f"feasibility: unsupported device {dev}")
     B, K, Words = masks.shape
     Nrows, R = t.row_alloc.shape
     C = taints_ok.shape[1]
     if (t.row_labels.shape != (Nrows, K) or req.shape != (B, R) or taints_ok.shape[0] != B
             or t.forced_keys.shape != (K,)):
-        raise ValueError("feasibility: batch and row axes disagree")
+        raise build.KernelArgError("feasibility: batch and row axes disagree")
     compat = torch.empty((B, Nrows), dtype=torch.bool, device=dev)
     key = torch.empty((B, Nrows), dtype=torch.float32, device=dev)
     if B == 0 or Nrows == 0:
@@ -56,7 +56,7 @@ def compat_and_key(t: SchedulerTensors, masks, taints_ok, req):
     lib = build.lib()
     words = lib.kt_feasibility_scratch(B, Nrows, K, Words, C, R)
     if words < 0:
-        raise RuntimeError("feasibility: no CUDA device to plan the launch on")
+        raise build.KernelError("feasibility: no CUDA device to plan the launch on")
     scratch = torch.empty(words, dtype=torch.int32, device=dev) if words else None
     rc = lib.kt_feasibility(*[a.data_ptr() for a in args], B, Nrows, K, Words, C, R, compat.data_ptr(),
                             key.data_ptr(), None if scratch is None else scratch.data_ptr(), build.stream_ptr(dev))

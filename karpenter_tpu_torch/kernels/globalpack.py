@@ -56,13 +56,13 @@ def globalpack(t, onehot, compat_qn, pend_mass, pend_weight, d0, y0, n_iters: in
     if dev.type == "cpu":
         return globalpack_plain(t, onehot, compat_qn, pend_mass, pend_weight, d0, y0, n_iters)
     if dev.type != "cuda":
-        raise ValueError(f"globalpack: unsupported device {dev}")
+        raise build.KernelArgError(f"globalpack: unsupported device {dev}")
     C, N = d0.shape
     R = t.node_used.shape[1]
     Q = onehot.shape[1]
     T = t.row_price.shape[0]
     if y0.shape != (C, Q, N) or onehot.shape != (N, Q) or compat_qn.shape != (Q, N) or pend_mass.shape != (Q, R):
-        raise ValueError("globalpack: init or class axes disagree")
+        raise build.KernelArgError("globalpack: init or class axes disagree")
     f = torch.float32
     corr = torch.from_numpy(adam_corrections(max(n_iters, 1))).to(dev)
     args = [

@@ -27,7 +27,7 @@ def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
     if dev.type == "cpu":
         return _pack_body(t, items, n_slots=n_slots, init_state=init_state, precomputed=(compat, key))
     if dev.type != "cuda":
-        raise ValueError(f"pack_scan: unsupported device {dev}")
+        raise build.KernelArgError(f"pack_scan: unsupported device {dev}")
     W, R = items.item_req.shape
     N = int(n_slots)
     Nrows = t.row_alloc.shape[0]
@@ -38,14 +38,14 @@ def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
     P2 = items.item_port_spec.shape[1]
     HB = items.item_host_blocked.shape[1]
     if compat.shape != (W, Nrows) or key.shape != (W, Nrows):
-        raise ValueError("pack_scan: feasibility outputs do not match the items")
+        raise build.KernelArgError("pack_scan: feasibility outputs do not match the items")
 
     st = init_state if init_state is not None else initial_state(t, N)
     slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone, counts_host, open_count, ports = st
     carry = [x.clone().contiguous() for x in (slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone,
                                               counts_host, open_count.reshape(1), *ports)]
     if carry[0].shape != (N,) or carry[1].shape != (N, R) or carry[5].shape != (G, N):
-        raise ValueError("pack_scan: carry does not match n_slots")
+        raise build.KernelArgError("pack_scan: carry does not match n_slots")
     d_arr = (ctypes.c_int * 13)(W, N, Nrows, R, D, G, Q, Kd, P1, P2, HB, int(t.n_existing), int(t.n_rows_real))
     takes = torch.zeros((W, N), dtype=torch.int32, device=dev)
     leftovers = torch.zeros(W, dtype=torch.int32, device=dev)

@@ -31,7 +31,7 @@ def perpod_pack(t, pods, compat, key):
     if dev.type == "cpu":
         return greedy_pack_plain(t, pods, compat, key)
     if dev.type != "cuda":
-        raise ValueError(f"perpod_pack: unsupported device {dev}")
+        raise build.KernelArgError(f"perpod_pack: unsupported device {dev}")
     P, R = pods.pod_req.shape
     N = t.n_slots
     Nrows = t.row_alloc.shape[0]
@@ -39,9 +39,9 @@ def perpod_pack(t, pods, compat, key):
     Q = t.rank_domset.shape[0]
     Kd = pods.pod_restrict.shape[1]
     if compat.shape != (P, Nrows) or key.shape != (P, Nrows):
-        raise ValueError("perpod_pack: feasibility outputs do not match the pods")
+        raise build.KernelArgError("perpod_pack: feasibility outputs do not match the pods")
     if pods.member.shape != (P, G) or pods.owner.shape != (P, G) or pods.pod_dom_allowed.shape != (P, D):
-        raise ValueError("perpod_pack: pod and group axes disagree")
+        raise build.KernelArgError("perpod_pack: pod and group axes disagree")
 
     st = initial_state(t, N)
     carry = [x.clone().contiguous() for x in (st[0], st[1], st[2], st[3], st[4], st[5], st[6].reshape(1))]

@@ -43,16 +43,16 @@ def recredit(state, t, slot_idx, req, zmem, hmem):
     if dev.type == "cpu":
         return recredit_plain(state, t, slot_idx, req, zmem, hmem)
     if dev.type != "cuda":
-        raise ValueError(f"recredit: unsupported device {dev}")
+        raise build.KernelArgError(f"recredit: unsupported device {dev}")
     slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone, counts_host, open_count, ports = state
     K = int(slot_idx.shape[0])
     N, R = slot_rem.shape
     G, D = counts_zone.shape
     if req.shape != (K, R) or zmem.shape != (K, G) or hmem.shape != (K, G):
-        raise ValueError(f"recredit: removal arrays {tuple(req.shape)}, {tuple(zmem.shape)}, {tuple(hmem.shape)} "
-                         f"do not match K={K}, R={R}, G={G}")
+        raise build.KernelArgError(f"recredit: removal arrays {tuple(req.shape)}, {tuple(zmem.shape)}, "
+                                   f"{tuple(hmem.shape)} do not match K={K}, R={R}, G={G}")
     if counts_host.shape != (G, N) or slot_zoneset.shape != (N, D) or t.group_dom_key.shape != (G,):
-        raise ValueError("recredit: carry axes disagree")
+        raise build.KernelArgError("recredit: carry axes disagree")
     b, f, i = torch.bool, torch.float32, torch.int32
     args = [
         build.require(slot_idx, dev, i, "slot_idx"),

@@ -26,13 +26,13 @@ def score_subsets_packed(t, onehot, compat_nq, pend_req, pend_npods: float, pend
         s, f = objective_factored_plain(t, onehot, compat_nq, pend_req, pend_npods, pend_active, X)
         return torch.cat([s.contiguous().view(torch.uint8), f.contiguous().view(torch.uint8)])
     if dev.type != "cuda":
-        raise ValueError(f"score_subsets: unsupported device {dev}")
+        raise build.KernelArgError(f"score_subsets: unsupported device {dev}")
     M, N = X.shape
     R = t.node_used.shape[1]
     Q = onehot.shape[1]
     T = t.row_price.shape[0]
     if onehot.shape != (N, Q) or compat_nq.shape != (N, Q) or pend_req.shape != (R,) or pend_active.shape != (Q,):
-        raise ValueError("score_subsets: node or class axes disagree")
+        raise build.KernelArgError("score_subsets: node or class axes disagree")
     f = torch.float32
     args = (t.node_price, t.node_cost, t.node_slack, t.node_used, t.node_npods, onehot, compat_nq, t.row_alloc,
             t.row_price, pend_req, pend_active)

@@ -33,11 +33,11 @@ def flat_outputs(takes, leftovers, slot_basis, slot_zoneset, open_count, nnz_cap
     if dev.type == "cpu":
         return _flat_outputs(takes, leftovers, slot_basis, slot_zoneset, open_count, nnz_cap)
     if dev.type != "cuda":
-        raise ValueError(f"flat_outputs: unsupported device {dev}")
+        raise build.KernelArgError(f"flat_outputs: unsupported device {dev}")
     W, N = takes.shape
     D = slot_zoneset.shape[1]
     if slot_basis.shape != (N,) or slot_zoneset.shape[0] != N or leftovers.shape != (W,):
-        raise ValueError("flat_outputs: take matrix and carry axes disagree")
+        raise build.KernelArgError("flat_outputs: take matrix and carry axes disagree")
     args = [
         build.require(takes, dev, torch.int32, "takes"),
         build.require(leftovers, dev, torch.int32, "leftovers"),

@@ -90,6 +90,12 @@ DEMOTION_REASONS = (
 )
 
 
+def demotion_label(reason) -> str:
+    """A demotion reason in the bounded DEMOTION_REASONS vocabulary ("other"
+    for anything else): the metric label."""
+    return reason if reason in DEMOTION_REASONS else "other"
+
+
 def multigroup_enabled() -> bool:
     """The `KARPENTER_SOLVER_MULTIGROUP` switch (default on)."""
     return os.environ.get("KARPENTER_SOLVER_MULTIGROUP", "1") not in ("0", "false", "no")

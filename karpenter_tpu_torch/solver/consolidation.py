@@ -28,7 +28,6 @@ candidate subset only: exact validation stays with the caller.
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 from dataclasses import dataclass, fields
 
@@ -51,6 +50,8 @@ from .encode import _scale, pod_signature_cached
 # LP solve shape: independent random inits x projected-gradient iterations
 LP_INITS = 8
 LP_ITERS = 300
+# Adam steps per LP round, counted by karpenter_solver_consolidation_lp_iterations_total
+LP_SOLVE_ITERATIONS = LP_INITS * LP_ITERS
 # fractional-deletion cutoffs the host rounds at, per init
 ROUND_THRESHOLDS = (0.9, 0.7, 0.5, 0.3)
 ANNEAL_CHAINS = 64
@@ -423,23 +424,29 @@ def round_fractional(d: np.ndarray, n: int, orders: list[np.ndarray] | None = No
 
 
 class Stages:
-    """Host-clock ms per stage, the device synchronised around each (when it
-    is a CUDA device), added into `into` (a dict); a no-op when `into` is
+    """Spans on a solve trace (`obs.trace.SolveTrace`); with `sync` the
+    device (when it is a CUDA device) is synchronised at both edges of each,
+    so a span times the device work it launched. A no-op when `trace` is
     None."""
 
-    def __init__(self, into: dict | None, device: torch.device | None):
-        self.into, self.device = into, device
+    def __init__(self, trace, device: torch.device | None, sync: bool = False):
+        self.trace, self.device, self.sync = trace, device, sync
 
     @contextmanager
-    def __call__(self, name: str):
-        if self.into is None:
-            yield
+    def __call__(self, name: str, **attrs):
+        if self.trace is None:
+            yield None
             return
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.into[name] = self.into.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        if self.sync:
+            self._sync()
+        with self.trace.span(name, **attrs) as sp:
+            yield sp
+            if self.sync:
+                self._sync()
+
+    def note(self, **kv) -> None:
+        if self.trace is not None:
+            self.trace.note(**kv)
 
     def _sync(self) -> None:
         if self.device is not None and self.device.type == "cuda":
@@ -458,80 +465,88 @@ def _gp_inits(aux: dict, inits, seed: int, device):
 
 
 def propose_subsets_lp(candidates, instance_types, seed: int = 0, max_proposals: int = 8, device=None,
-                       stages: dict | None = None) -> list[list[int]]:
+                       trace=None, sync: bool = False) -> list[list[int]]:
     """The reference's LP proposer: encode the candidates, then
-    `propose_problem_lp`. Returns candidate index subsets best-first.
-    `stages` (a dict) receives synchronised host-clock ms per stage, the
-    encoder's as "encode_candidates"."""
+    `propose_problem_lp`. Returns candidate index subsets best-first. The
+    reference's spans (`encode_candidates`, `lp_repack`, `round`) land on
+    `trace` when one is passed, each with the port's finer stages inside;
+    `sync` synchronises the device at every span edge."""
     if len(candidates) < 2:
         return []
     dev = resolve_device(device)
-    with Stages(stages, dev)("encode_candidates"):
+    with Stages(trace, dev, sync)("encode_candidates", n_candidates=len(candidates)):
         problem = encode_problem(candidates, instance_types)
-    return propose_problem_lp(problem, dev, seed=seed, max_proposals=max_proposals, stages=stages)
+    return propose_problem_lp(problem, dev, seed=seed, max_proposals=max_proposals, trace=trace, sync=sync)
 
 
 def propose_problem_lp(problem: ConsolidationProblem, device=None, *, inits=None, seed: int = 0,
-                       max_proposals: int = 8, stages: dict | None = None) -> list[list[int]]:
+                       max_proposals: int = 8, trace=None, sync: bool = False) -> list[list[int]]:
     """The relaxed-LP proposer on an encoded problem: tensors, relaxed
     repack (K5), rounding, the discrete score of each rounded row (K6), the
     ladder. Returns candidate index subsets best-first, plus the full set
-    when any proposal exists. `stages` (a dict) receives synchronised
-    host-clock ms per stage."""
+    when any proposal exists. Spans `lp_repack` (stages "tensors" and "K5
+    globalpack") and `round` (`lp_ladder`'s) land on `trace`."""
     dev = resolve_device(device)
     n = problem.n
     if n < 2:
         return []
-    stage = Stages(stages, dev)
-    with stage("tensors"):
-        t, aux = tensors_from_problem(problem, dev)
-        d0, y0 = _gp_inits(aux, inits, seed, dev)
-    with stage("K5 globalpack"):
-        d, _scores = lp_repack(t, aux["onehot"], aux["compat_qn"], d0, y0, n_iters=LP_ITERS)
-        d = d.cpu().numpy()
+    stage = Stages(trace, dev, sync)
+    with stage("lp_repack"):
+        with stage("tensors"):
+            t, aux = tensors_from_problem(problem, dev)
+            d0, y0 = _gp_inits(aux, inits, seed, dev)
+        with stage("K5 globalpack"):
+            d, _scores = lp_repack(t, aux["onehot"], aux["compat_qn"], d0, y0, n_iters=LP_ITERS)
+            d = d.cpu().numpy()
     return lp_ladder(t, aux, d, n, max_proposals, stage)[0]
 
 
 def lp_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, stage=None):
-    """The LP proposer from the fractional deletions d [C, Np] on: rounding,
-    the discrete scores (K6), the ladder. Returns (proposals, X, scores,
-    feasible); X is None when no row was rounded."""
+    """The LP proposer from the fractional deletions d [C, Np] on, inside
+    the `round` span: rounding, the discrete scores (K6), the ladder.
+    Returns (proposals, X, scores, feasible); X is None when no row was
+    rounded."""
     stage = stage or Stages(None, aux["onehot"].device)
     with stage("round"):
-        rows = round_fractional(d, n)
-    if not rows:
-        return [], None, None, None
-    X = np.stack(rows)
-    scores, feas = score_subsets(t, aux["onehot"], aux["compat_nq"], X, stage)
-    with stage("ladder"):
-        ladder, _ = rank_ladder(scores, feas, X, n, max_proposals)
-        out = [s for s, _sc in ladder]
-        full = list(range(n))
-        if out and full not in out:
-            out.append(full)
+        with stage("rounding"):
+            rows = round_fractional(d, n)
+        if not rows:
+            return [], None, None, None
+        X = np.stack(rows)
+        scores, feas = score_subsets(t, aux["onehot"], aux["compat_nq"], X, stage)
+        with stage("ladder"):
+            ladder, _ = rank_ladder(scores, feas, X, n, max_proposals)
+            out = [s for s, _sc in ladder]
+            full = list(range(n))
+            if out and full not in out:
+                out.append(full)
+        stage.note(lp_proposals=len(out), lp_rounded=len(rows), ladder_scores=[round(sc, 3) for _s, sc in ladder])
     return out, X, scores, feas
 
 
 def propose_problem_global(problem: ConsolidationProblem, device=None, *, inits=None, seed: int = 0,
-                           max_proposals: int = 8, stages: dict | None = None):
+                           max_proposals: int = 8, trace=None, sync: bool = False):
     """The global repack proposer: the pending classes' mass is in the
     problem, row 0 is the empty delete-set (the base), the prefixes are
     densified to eighths, and rows rank by improvement over the base.
     Returns (subsets best-first, info) with info = {objective_improvement,
-    rounded}."""
+    rounded}. The reference's spans (`globalpack`, `round`) land on
+    `trace`."""
     dev = resolve_device(device)
     n = problem.n
     if n < 2:
         return [], dict(objective_improvement=0.0, rounded=0)
-    stage = Stages(stages, dev)
-    with stage("tensors"):
-        t, aux = tensors_from_problem(problem, dev)
-        d0, y0 = _gp_inits(aux, inits, seed, dev)
-    with stage("K5 globalpack"):
-        d, _scores = global_repack(t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0, y0,
-                                   n_iters=LP_ITERS)
-        d = d.cpu().numpy()
-    return global_ladder(t, aux, d, n, max_proposals, stage)[:2]
+    stage = Stages(trace, dev, sync)
+    with stage("globalpack"):
+        with stage("tensors"):
+            t, aux = tensors_from_problem(problem, dev)
+            d0, y0 = _gp_inits(aux, inits, seed, dev)
+        with stage("K5 globalpack"):
+            d, _scores = global_repack(t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0,
+                                       y0, n_iters=LP_ITERS)
+            d = d.cpu().numpy()
+    with stage("round"):
+        return global_ladder(t, aux, d, n, max_proposals, stage)[:2]
 
 
 def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, stage=None):
@@ -541,7 +556,7 @@ def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, s
     scores, feasible)."""
     stage = stage or Stages(None, aux["onehot"].device)
     info = dict(objective_improvement=0.0, rounded=0)
-    with stage("round"):
+    with stage("rounding"):
         N = d.shape[1]
         orders = deletion_orders(d, n)
         rows = [np.zeros(N, dtype=bool)] + round_fractional(d, n, orders)  # row 0: the empty-set base
@@ -573,7 +588,7 @@ def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, s
 
 
 def propose_problem_anneal(problem: ConsolidationProblem, device=None, *, streams=None, seed: int = 0,
-                           max_proposals: int = 8, stages: dict | None = None):
+                           max_proposals: int = 8, trace=None, sync: bool = False):
     """The annealed subset search (K7) over the dense compatibility matrix:
     64 chains x 512 flips from `streams` = (x0 [C, Np] bool, flips [C, S]
     int32, u [C, S] f32) or the reference's draws for `seed`. Returns
@@ -582,7 +597,7 @@ def propose_problem_anneal(problem: ConsolidationProblem, device=None, *, stream
     n = problem.n
     if n < 2:
         return []
-    stage = Stages(stages, dev)
+    stage = Stages(trace, dev, sync)
     with stage("tensors"):
         t, _aux = tensors_from_problem(problem, dev, dense_compat=True)
         if streams is not None:

@@ -70,14 +70,25 @@ class FFDSolver:
         self.last_phase_seconds: dict | None = None
 
     def solve(self, snap: SolverSnapshot) -> Results:
-        # the reference also flight-records a standalone solve into its
-        # SolveTrace ring; the port has no trace recorder yet
+        from ..obs.trace import current_trace, default_recorder
+
+        # flight-record standalone FFD solves. Inside a GPUSolver solve
+        # (fallback/residual) a trace is already ambient and the Scheduler
+        # attaches its phase split to it — don't nest.
+        rec = trace = None
+        if current_trace() is None:
+            rec = default_recorder()
+            trace = rec.begin(n_pods=len(snap.pods))
+            trace.mode = "ffd"
+            trace.backend = self.name
         scheduler = build_scheduler(snap)
         try:
             return scheduler.solve(snap.pods)
         finally:
             self.last_memo_stats = dict(scheduler.memo_stats)
             self.last_phase_seconds = dict(scheduler.phase_seconds)
+            if rec is not None:
+                rec.commit(trace, registry=getattr(snap, "registry", None))
 
 
 def solve_residual(snap: SolverSnapshot, residual_pods: list, tensor_results: Results, seam_records: list) -> Results:

@@ -3,20 +3,31 @@ the scheduler's `Results` (new NodeClaims, pods on existing nodes, pod
 errors), full or as a delta of the previous solve.
 
 `solve(snap)` is the counterpart of the reference's default
-`TPUSolver.solve` (solver/tpu.py:427, :636-686) without the flight recorder
-and the recovery ladder: encode the snapshot with the solver's own
-`EncodeCache`; a snapshot with fallback reasons takes the hybrid
-partitioned solve where its reasons are pod-local (`_try_hybrid`: the
-in-window majority, masked out of the encoding, packs on the device and the
-flagged residual runs the host FFD against its result; a pod delta of the
-previous hybrid snapshot packs only the delta, `_solve_masked_delta`), else
-the host FFD (`_fall_back`), as does an empty snapshot; otherwise pack it on
-the device, as a delta of the resident carry where the encoder linked it to
-the resident encoding, else in full; then `_finish`: the relaxation check,
-`fast_validate`, the decode into node claims (`_decode`, with the slot-reuse
-memo of the previous decode and the minValues repair through
-`ffd.solve_residual`) and, only after a successful decode, the resident
-carry for the next delta (dropped again after a repair).
+`TPUSolver.solve` (solver/tpu.py:427-560, :636-686). Each solve is
+flight-recorded: it begins a `SolveTrace` on the solver's recorder
+(`obs/trace.py`) and commits it in a `finally`, so the trace holds the mode,
+backend, span tree and attribution notes of every solve, and the commit
+feeds the registry's counters and rolling quantiles. The body: encode the
+snapshot with the solver's own `EncodeCache`; a snapshot with fallback
+reasons takes the hybrid partitioned solve where its reasons are pod-local
+(`_try_hybrid`: the in-window majority, masked out of the encoding, packs
+on the device and the flagged residual runs the host FFD against its
+result; a pod delta of the previous hybrid snapshot packs only the delta,
+`_solve_masked_delta`), else the host FFD (`_fall_back`), as does an empty
+snapshot; otherwise pack it on the device, as a delta of the resident carry
+where the encoder linked it to the resident encoding, else in full; then
+`_finish`: the relaxation check, `fast_validate`, the decode into node
+claims (`_decode`, with the slot-reuse memo of the previous decode and the
+minValues repair through `ffd.solve_residual`) and, only after a successful
+decode, the resident carry for the next delta (dropped again after a
+repair).
+
+A solve that raises takes the reference's recovery ladder (`_recover`): a
+quarantined full re-encode, then the host FFD. Unlike the reference, a
+kernel's failure is never absorbed: a failed nvcc build or library load, a
+kernel launch's error code (`kernels.build.KernelError`) and a CUDA error
+raised by torch on the solve's device propagate, so the host FFD never
+answers for a broken kernel.
 
 The pack is the counterpart of `_solve_full` / `_solve_delta_inner`
 (:688-718, :994-1196): build the work items and the device tensors, pack
@@ -28,9 +39,14 @@ removal needs it, packs only the added pods from the carry, merges the
 assignment and validates the whole placement. Where the reference gives up
 on the delta it records why (`last_delta_reject`) and the full pack runs.
 
+The trace's spans carry the reference's names (`encode`, `pack`,
+`validate`, `decode`, `residual`, `fallback`); the port's finer stages
+(`PORT_SPANS`) are child spans inside them.
+
 `solve_prepared(snap, enc)` packs an encoding derived outside the solver
-(a consolidation probe's masked sub-encode) in full and leaves the warm
-state of the provisioning solves as it found it.
+(a consolidation probe's masked sub-encode) in full, flight-recorded as
+mode "sim", and leaves the warm state of the provisioning solves as it
+found it.
 
 `solve_encoded(problem)` runs the same pack on an `EncodedProblem` and
 returns the validated placement (`PackResult`) without decoding; it keeps
@@ -39,13 +55,13 @@ its carry as soon as the placement validates.
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
+from .. import metrics as m
 from ..apis import labels as wk
 from ..controllers.provisioning.scheduling.existingnode import ExistingNode
 from ..controllers.provisioning.scheduling.nodeclaim import NodeClaimTemplate, SchedulingNodeClaim
@@ -57,6 +73,7 @@ from ..models.scheduler_model_grouped import (
     ItemTensors,
     assignment_from_triples,
     build_items,
+    demotion_label,
     greedy_pack_delta_compressed,
     greedy_pack_grouped_compressed,
     item_pad_targets,
@@ -65,6 +82,8 @@ from ..models.scheduler_model_grouped import (
     recredit_removals,
     sig_demotions,
 )
+from ..kernels.build import device_fault
+from ..obs.trace import SolveTrace, default_recorder
 from ..scheduling.hostports import pod_host_ports as _php
 from ..scheduling.requirements import Operator, Requirement, Requirements
 from ..utils import resources as res
@@ -92,6 +111,19 @@ SLOT_CAP = 4096  # slot axis = n_existing + min(n_pods, SLOT_CAP) before the ret
 
 # why a delta-capable solve took the full pack (the reference's strings)
 DELTA_REJECT_REASONS = ("no-carry", "irreversible", "slot-exhausted", "validate")
+
+# the recovery ladder's bounded `stage` enum (karpenter_solver_recovery_total):
+# a failed solve retries as a full re-encode with every cross-solve cache
+# quarantined; a failed retry degrades to the exact host FFD
+RECOVERY_STAGES = ("full-reencode", "host-ffd")
+
+# metric families that carry the fleet tenant label when one is set
+_TENANT_LABELED = frozenset({m.SOLVER_SOLVE_TOTAL})
+
+# the port's own stages, recorded as child spans inside the reference's
+# spans (a trace's tree without them is the reference's tree)
+PORT_SPANS = frozenset({"copy", "build_items", "make_tensors", "scan", "assignment", "carry_edits", "recredit",
+                        "item_build", "merge", "delta_validate", "mask_encode"})
 
 
 def _ports_fit(group_usage, pod_ports: list) -> bool:
@@ -199,27 +231,48 @@ class PackResult:
 class GPUSolver:
     """Runs on the CUDA device unless `device="cpu"` is passed (then every
     kernel wrapper takes its plain PyTorch version). `force=True` raises
-    where the solve would otherwise fall back to the host FFD.
+    where the solve would otherwise fall back to the host FFD, and disables
+    the recovery ladder, as does `recover=False`.
+
+    `registry` (a `metrics.Registry`) receives the reference's solver
+    counters with the backend label "gpu" where the reference writes "tpu";
+    `recorder` (an `obs.trace.TraceRecorder`, the process-wide default when
+    None) receives one `SolveTrace` per solve; `tenant` is the fleet tenant
+    label of the solve counter. `fault_hook`, when set, is called with
+    "solve" before each attempt and "reencode" before the ladder's retry
+    (fault injection). With `stage_times=True` the device is synchronised at
+    every span edge, so the spans time the device work they launch.
 
     After a solve: `last_solve_mode` is "full", "delta", "hybrid",
-    "hybrid-delta", "sim" (`solve_prepared`) or "fallback"; `last_backend` is "gpu" (the reference's
-    "tpu"), "hybrid" or "ffd-fallback";
-    `last_fallback_reasons` lists why the tensor path could not take the
-    snapshot and `last_fallback_family` their bounded family (the
-    reference's fallback metric label); `last_delta_reject` names why the last solve did not take the
-    delta path (None when it did); `last_decode` says how the decode went
-    (mode "full" or "delta-reuse", reused and dirty slots). With
-    `stage_times=True` each solve records its stages' wall ms, the device
-    synchronised after each, in `last_stages`."""
+    "hybrid-delta", "sim" (`solve_prepared`) or "fallback" and
+    `last_stages` its spans' ms by name, both read from the newest trace;
+    `last_backend` is "gpu" (the reference's "tpu"), "hybrid" or
+    "ffd-fallback"; `last_fallback_reasons` lists why the tensor path could
+    not take the snapshot and `last_fallback_family` their bounded family
+    (the fallback metric label); `last_delta_reject` names why the last
+    solve did not take the delta path (None when it did); `last_decode`
+    says how the decode went (mode "full" or "delta-reuse", reused and
+    dirty slots)."""
 
-    def __init__(self, device=None, force: bool = False, stage_times: bool = False):
+    name = "gpu"
+
+    def __init__(self, device=None, force: bool = False, stage_times: bool = False, registry=None, recorder=None,
+                 tenant: str = "", recover: bool = True):
         self.device = resolve_device(device)
         self.force = force
+        self.recover = recover
+        self.fault_hook = None
+        self.tenant = tenant
+        self.registry = registry
+        self.recorder = recorder if recorder is not None else default_recorder()
         self.fallback = FFDSolver()
         self.stage_times = stage_times
         self.encode_cache = EncodeCache()
-        self.last_stages: dict = {}
-        self.last_solve_mode = "full"
+        # pre-solve placeholder: the trace-derived surfaces read empty
+        self._trace = SolveTrace(enabled=False)
+        # podtrace linkage: the provisioner stages its event-batch summary
+        # here right before the solve; the next begun trace notes it
+        self._staged_event_batch: dict | None = None
         self.last_backend = ""
         self.last_fallback_reasons: list[str] = []
         self.last_fallback_family: str | None = None
@@ -249,39 +302,225 @@ class GPUSolver:
         self._decode_delta_ctx: dict | None = None
         self._decode_repaired = False
 
+    # -- the trace-derived surfaces --------------------------------------------
+
+    @property
+    def last_solve_mode(self) -> str:
+        return self._trace.mode
+
+    @last_solve_mode.setter
+    def last_solve_mode(self, value: str) -> None:
+        self._trace.mode = value
+
+    @property
+    def last_phase_seconds(self) -> dict[str, float]:
+        """Host wall-clock split of the last solve (the reference's view of
+        the trace's phase totals)."""
+        totals = self._trace.phase_totals
+        return {k: totals.get(k, 0.0) for k in ("encode", "pack", "residual")}
+
+    @property
+    def last_stages(self) -> dict[str, float]:
+        """Every span of the last solve, ms by name (summed over repeats)."""
+        return {k: v * 1e3 for k, v in self._trace.phase_totals.items()}
+
     @contextmanager
-    def _stage(self, name: str):
-        if not self.stage_times:
-            yield
-            return
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.last_stages[name] = self.last_stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+    def _span(self, name: str, **attrs):
+        """A span on the current trace; with `stage_times` the device is
+        synchronised at both edges."""
+        if self.stage_times:
+            self._sync()
+        with self._trace.span(name, **attrs) as sp:
+            yield sp
+            if self.stage_times:
+                self._sync()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- counters ----------------------------------------------------------------
+
+    def _count(self, metric: str, **labels) -> None:
+        if self.registry is not None:
+            if self.tenant and metric in _TENANT_LABELED:
+                labels.setdefault("tenant", self.tenant)
+            self.registry.counter(metric).inc(**labels)
+
+    def _observe(self, metric: str, value: float, **labels) -> None:
+        if self.registry is not None:
+            self.registry.histogram(metric, labels=tuple(sorted(labels))).observe(value, **labels)
+
+    def _note_item_info(self, info: dict) -> None:
+        """Item-compression attribution of the grouped pack: pods per item,
+        and the pods left one per item by bounded demotion reason."""
+        self._trace.note(pack_items=info["n_items"], pack_pods=info["n_pods"],
+                         item_demotions=dict(info["demotions"]))
+        if self.registry is None:
+            return
+        for reason, pods in info["demotions"].items():
+            self.registry.counter(m.SOLVER_PACK_ITEM_DEMOTIONS_TOTAL).inc(pods, reason=demotion_label(reason))
+        if info["n_items"]:
+            self.registry.gauge(m.SOLVER_PACK_ITEM_COMPRESSION).set(info["n_pods"] / max(info["n_items"], 1))
+
+    def _note_delta_reject(self, reason: str) -> None:
+        """Why a delta-capable solve took the full pack: on the solver, the
+        trace and the per-reason counter."""
+        self.last_delta_reject = reason
+        self._trace.note(delta_reject=reason)
+        self._count(m.SOLVER_DELTA_REJECT_TOTAL, reason=reason)
+
+    # -- the podtrace seam ---------------------------------------------------------
+
+    def stage_event_batch(self, info: dict) -> None:
+        """Attach the next solve's event-batch summary (the provisioner calls
+        this after stamping dispatch on its batch)."""
+        self._staged_event_batch = info
+
+    def discard_event_batch(self) -> None:
+        """Drop a staged event batch that no solve consumed."""
+        self._staged_event_batch = None
+
     # -- the snapshot solve ----------------------------------------------------
 
     def solve(self, snap: SolverSnapshot) -> Results:
-        """One provisioning solve: snapshot in, `Results` out. An exception
-        propagates (the reference with `recover=False`)."""
-        self.last_stages = {}
-        self.last_backend = ""
-        self.last_fallback_reasons = []
-        self.last_fallback_family = None
-        self.last_delta_reject = None
-        self.last_decode = {}
-        with self._stage("encode"):
+        """One provisioning solve, flight-recorded: snapshot in, `Results`
+        out. Under ``KARPENTER_SOLVER_DETCHECK=1`` every solve also records
+        a replayable dump of its inputs and its placement digest for
+        `check_determinism` (obs/detcheck.py)."""
+        from ..obs.detcheck import detcheck_enabled
+
+        if not detcheck_enabled():
+            return self._solve_flight(snap)
+        from ..obs import detcheck
+
+        blob = detcheck.dump_snapshot(snap, detcheck.solve_log(self).token_of)
+        results = self._solve_flight(snap)
+        detcheck.record_solve(self, blob, results)
+        return results
+
+    def check_determinism(self, clear: bool = True, timeout: float = 600.0) -> dict:
+        """The dual-run determinism check: replay every recorded solve in a
+        child process on this solver's device, under a perturbed
+        PYTHONHASHSEED with every dict and set of the inputs re-inserted in
+        reversed order, and compare placement digests. Raises
+        `obs.detcheck.DetCheckError` on any divergence."""
+        from ..obs import detcheck
+
+        return detcheck.run_dual(self, timeout=timeout, clear=clear)
+
+    @contextmanager
+    def _flight(self, n_pods: int):
+        """The solve's flight record (`TraceRecorder.flight`) with the
+        per-solve surfaces reset before the body runs (a solve that raises
+        past every exit path commits an empty record) and its backend and
+        fallback reasons copied onto the trace before the commit."""
+        with self.recorder.flight(n_pods=n_pods, registry=self.registry) as trace:
+            self._trace = trace
+            self.last_backend = ""
+            self.last_fallback_reasons = []
+            self.last_fallback_family = None
+            self.last_delta_reject = None
+            self.last_decode = {}
+            try:
+                yield trace
+            finally:
+                trace.backend = self.last_backend
+                trace.fallback_reasons = list(self.last_fallback_reasons)
+
+    def _device_fault(self, err: BaseException) -> bool:
+        """A failure of the kernels or of the device (`build.device_fault`):
+        a kernel's build, load, launch or argument refusal, or a CUDA error
+        raised by torch on a CUDA solve."""
+        return device_fault(err, self.device)
+
+    def _solve_flight(self, snap: SolverSnapshot) -> Results:
+        with self._flight(len(snap.pods)) as trace:
+            staged, self._staged_event_batch = self._staged_event_batch, None
+            if staged is not None:
+                trace.note(event_batch=staged)
+            try:
+                hook = self.fault_hook
+                if hook is not None:
+                    hook("solve")
+                return self._solve_inner(snap, trace)
+            except Exception as e:
+                # the degradation ladder; force-mode raise behavior, a
+                # disabled ladder, unrecoverable faults and device faults
+                # propagate
+                if self.force or not self.recover or self._device_fault(e):
+                    raise
+                return self._recover(snap, trace, e)
+
+    def quarantine_caches(self) -> None:
+        """Drop every cross-solve artifact a failed solve may have poisoned:
+        the EncodeCache (delta base and row cache), the device-resident pack
+        carry, the hybrid carry and the decode memo. The next encode rebuilds
+        everything from the live snapshot."""
+        self.encode_cache = EncodeCache()
+        self._resident = None
+        self._hybrid_state = None
+        self._decode_memo = None
+        self._decode_delta_ctx = None
+        self._resv_empty_memo = None
+
+    def _recover(self, snap: SolverSnapshot, trace: SolveTrace, err: BaseException) -> Results:
+        """The degradation ladder, entered only when a solve raised:
+
+        1. full-reencode: quarantine every cross-solve cache and retry as a
+           full encode and pack;
+        2. host-ffd: if the retry raises too, quarantine again and serve the
+           exact host FFD.
+
+        Each step is noted on the trace (`recovery`, `recovery_error`) and
+        counted in karpenter_solver_recovery_total{stage}. A device fault
+        raised by the retry propagates."""
+        self.quarantine_caches()
+        trace.note(recovery_error=f"{type(err).__name__}: {err}"[:200])
+        self._count(m.SOLVER_RECOVERY_TOTAL, stage="full-reencode")
+        try:
+            hook = self.fault_hook
+            if hook is not None:
+                hook("reencode")
+            with self._span("encode", mode="full"):
+                enc = encode(snap, cache=self.encode_cache)
+            trace.n_sigs = int(getattr(enc, "n_sigs", 0) or 0)
+            trace.note(recovery="full-reencode", encode_mode="full", row_cache=False)
+            self.last_fallback_reasons = enc.fallback_reasons
+            if enc.fallback_reasons or enc.n_pods == 0 or enc.n_rows == 0:
+                route = (enc.fallback_reasons or ["empty snapshot"], None)
+            else:
+                self.last_solve_mode = "full"
+                try:
+                    results = self._solve_full_snapshot(snap, enc)
+                    self._hybrid_state = None
+                    return results
+                except _TensorFallback as tf:
+                    route = (tf.reasons, tf.family)
+        except Exception as e2:
+            if self._device_fault(e2):
+                raise
+            self.quarantine_caches()
+            trace.note(recovery="host-ffd", recovery_error2=f"{type(e2).__name__}: {e2}"[:200])
+            self._count(m.SOLVER_RECOVERY_TOTAL, stage="host-ffd")
+            return self._fall_back(
+                snap, [f"recovery: {type(err).__name__}", f"recovery-retry: {type(e2).__name__}"], family="recovery"
+            )
+        return self._fall_back(snap, route[0], family=route[1])
+
+    def _solve_inner(self, snap: SolverSnapshot, trace: SolveTrace) -> Results:
+        with self._span("encode") as sp:
             enc = encode(snap, cache=self.encode_cache)
-        if getattr(enc, "encode_mode", "full") != "delta":
+        enc_mode = "delta" if getattr(enc, "encode_mode", "full") == "delta" else "full"
+        sp.attrs["mode"] = enc_mode
+        self._observe(m.SOLVER_ENCODE_SECONDS, sp.dur, mode=enc_mode)
+        trace.n_sigs = int(getattr(enc, "n_sigs", 0) or 0)
+        trace.note(encode_mode=enc_mode, row_cache=bool(getattr(enc, "row_cache_hit", False)))
+        if enc_mode == "full":
             # the encoder's own reject reason (None on a cold encode)
             reject = self.encode_cache.last_delta_reject
             if reject is not None:
-                self._reject(reject)
+                self._note_delta_reject(reject)
         # consume and clear the delta link at once (even on the fallback
         # returns below): each link retains O(P) state
         delta_base = getattr(enc, "delta_base", None)
@@ -311,53 +550,60 @@ class GPUSolver:
             return self._fall_back(snap, e.reasons, family=e.family)
 
     def solve_prepared(self, snap: SolverSnapshot, enc) -> Results:
-        """One full pack of an externally derived encoding (the consolidation
-        simulator's masked sub-encodes, `encode.sim_mask_encode`), mode
-        "sim". `snap` must be the true probe snapshot: a fallback re-solves
-        it on the host FFD, so a masked solve never stands behind a
-        placement the real snapshot would not give. The encode cache is not
-        touched, and the provisioning warm state (the resident carry that the
-        next `solve` or `solve_encoded` packs a delta from, the hybrid carry
-        and the decode memo) is restored afterwards."""
-        self.last_stages = {}
-        self.last_backend = ""
-        self.last_fallback_reasons = []
-        self.last_fallback_family = None
-        self.last_delta_reject = None
-        self.last_decode = {}
+        """One flight-recorded full pack of an externally derived encoding
+        (the consolidation simulator's masked sub-encodes,
+        `encode.sim_mask_encode`), mode "sim". `snap` must be the true probe
+        snapshot: a fallback re-solves it on the host FFD, so a masked solve
+        never stands behind a placement the real snapshot would not give.
+        The encode cache is not touched, and the provisioning warm state (the
+        resident carry that the next `solve` or `solve_encoded` packs a delta
+        from, the hybrid carry and the decode memo) is restored afterwards."""
         resident, hybrid_state, decode_memo = self._resident, self._hybrid_state, self._decode_memo
-        try:
-            self.last_solve_mode = "sim"
+        with self._flight(len(enc.pods)) as trace:
             try:
-                return self._solve_full_snapshot(snap, enc)
-            except _TensorFallback as e:
-                return self._fall_back(snap, e.reasons, family=e.family)
-        finally:
-            # the sim pack's carry describes the simulation, not the live
-            # snapshot
-            self._resident = resident
-            self._hybrid_state = hybrid_state
-            self._decode_memo = decode_memo
+                trace.n_sigs = int(getattr(enc, "n_sigs", 0) or 0)
+                trace.note(encode_mode="sim-masked", row_cache=True)
+                self.last_solve_mode = "sim"
+                try:
+                    return self._solve_full_snapshot(snap, enc)
+                except _TensorFallback as e:
+                    return self._fall_back(snap, e.reasons, family=e.family)
+            finally:
+                # the sim pack's carry describes the simulation, not the live
+                # snapshot
+                self._resident = resident
+                self._hybrid_state = hybrid_state
+                self._decode_memo = decode_memo
 
     def _fall_back(self, snap: SolverSnapshot, reasons: list[str], family: str | None = None) -> Results:
         self._hybrid_state = None  # the host result supersedes any hybrid carry
         self.last_backend = "ffd-fallback"
         self.last_solve_mode = "fallback"
         self.last_fallback_reasons = reasons
-        self.last_fallback_family = family if family is not None else (_reason_family(reasons[0]) if reasons else "empty")
-        with self._stage("fallback"):
+        if family is None:
+            family = _reason_family(reasons[0]) if reasons else "empty"
+        self.last_fallback_family = family
+        self._count(m.SOLVER_FALLBACK_TOTAL, reason=family)
+        self._count(m.SOLVER_SOLVE_TOTAL, backend="ffd-fallback")
+        # the host solve records its ffd.* phase split into this span
+        # through the ambient current_trace()
+        with self._span("fallback", reason=family):
             return self.fallback.solve(snap)
 
-    def _solve_full_snapshot(self, snap: SolverSnapshot, enc) -> Results:
+    def _solve_full_snapshot(self, snap: SolverSnapshot, enc, count: bool = True) -> Results:
+        """One full pack and decode of `enc`. Raises _TensorFallback when the
+        tensor path cannot stand behind the placement. `count=False`: the
+        hybrid solve counts the merged solve itself."""
         # KARPENTER_SOLVER_TYPECHECK=1: the pack entry re-validates the
         # encoding's shape/dtype contracts
         maybe_check_encoded(enc, where="pack-full")
-        with self._stage("copy"):
-            problem = from_reference(enc)
-        pack = self._solve_full(problem)
-        return self._finish(snap, enc, problem, pack)
+        with self._span("pack", mode="full"):
+            with self._span("copy"):
+                problem = from_reference(enc)
+            pack = self._solve_full(problem)
+            return self._finish(snap, enc, problem, pack, count=count)
 
-    def _solve_delta(self, snap: SolverSnapshot, enc, base) -> Results | None:
+    def _solve_delta(self, snap: SolverSnapshot, enc, base, count: bool = True) -> Results | None:
         """The delta solve from the resident carry when `base` (the encoder's
         delta link, or the encoding itself on an identical resubmit) is the
         resident encoding; None when the full pack must run."""
@@ -365,7 +611,7 @@ class GPUSolver:
         if resident is None:
             # the delta encode succeeded but the carry is gone (dropped after
             # a decode repair, or never kept): the full pack runs
-            self._reject("no-carry")
+            self._note_delta_reject("no-carry")
             return None
         if resident.get("enc") is not base:
             # the carry may be the masked pack of a previous hybrid solve
@@ -373,41 +619,48 @@ class GPUSolver:
             # coordinates
             return self._solve_masked_delta(snap, enc, base)
         maybe_check_encoded(enc, where="pack-delta")
-        base_problem = resident["problem"]
-        with self._stage("copy"):
-            if enc is base:
-                problem = replace(base_problem, delta=EncodedDelta(
-                    added_sigs=np.zeros(0, np.int32), removed_enc=np.zeros(0, np.int64), row_diff=None,
-                    base=base_problem))
-            else:
-                problem = from_reference(enc, base=base_problem)
-        pack = self._solve_delta_inner(problem, base_problem)
-        if pack is None:
-            return None
-        self.last_solve_mode = "delta"
-        removed = problem.delta.removed_enc
-        n_prev = problem.n_pods - int(problem.delta.added_sigs.shape[0])
-        # this problem is the solver's own and the carry is keyed by `enc`:
-        # drop its delta, and so its link to the base problem, before
-        # `_finish` keeps it, or each resident problem would hold every
-        # problem before it (each link retains O(P) state)
-        problem.delta = None
-        # decode-delta handoff: the validated assignment continues the base
-        # decode's slot layout — tell _decode which base the memo must match
-        # and which slots the delta touched (removed base pods' slots + the
-        # appended tail's slots); everything else is provably unchanged
-        self._decode_delta_ctx = dict(
-            base=base,
-            removed=np.asarray(removed, dtype=np.int64) if removed.size else None,
-            n_prev=n_prev,
-        )
-        return self._finish(snap, enc, problem, pack, validated=True)
+        with self._span("pack", mode="delta"):
+            base_problem = resident["problem"]
+            with self._span("copy"):
+                if enc is base:
+                    problem = replace(base_problem, delta=EncodedDelta(
+                        added_sigs=np.zeros(0, np.int32), removed_enc=np.zeros(0, np.int64), row_diff=None,
+                        base=base_problem))
+                else:
+                    problem = from_reference(enc, base=base_problem)
+            pack = self._solve_delta_inner(problem, base_problem)
+            if pack is None:
+                return None
+            self.last_solve_mode = "delta"
+            info = pack.item_info
+            self._trace.note(delta_added=info["n_added"], delta_removed=info["n_removed"],
+                             delta_demoted=info["demoted"], row_refresh=info["row_refresh"])
+            removed = problem.delta.removed_enc
+            n_prev = problem.n_pods - int(problem.delta.added_sigs.shape[0])
+            # this problem is the solver's own and the carry is keyed by
+            # `enc`: drop its delta, and so its link to the base problem,
+            # before `_finish` keeps it, or each resident problem would hold
+            # every problem before it (each link retains O(P) state)
+            problem.delta = None
+            # decode-delta handoff: the validated assignment continues the
+            # base decode's slot layout — tell _decode which base the memo
+            # must match and which slots the delta touched (removed base
+            # pods' slots + the appended tail's slots); everything else is
+            # provably unchanged
+            self._decode_delta_ctx = dict(
+                base=base,
+                removed=np.asarray(removed, dtype=np.int64) if removed.size else None,
+                n_prev=n_prev,
+            )
+            return self._finish(snap, enc, problem, pack, validated=True, count=count)
 
-    def _finish(self, snap, enc, problem: EncodedProblem, pack: PackResult, validated: bool = False) -> Results:
+    def _finish(self, snap, enc, problem: EncodedProblem, pack: PackResult, validated: bool = False,
+                count: bool = True) -> Results:
         """The shared solve tail (full and delta): relaxation check,
-        validation verdict, decode, and the resident carry — kept only
-        after a successful decode, dropped after a minValues repair.
-        `validated=True`: the delta path validated before committing."""
+        validation verdict, decode, the resident carry — kept only after a
+        successful decode, dropped after a minValues repair — and the solve
+        counter. `validated=True`: the delta path validated before
+        committing."""
         # tier-0 honored every soft constraint; an unplaced pod means the
         # host relaxation loop must take over
         if pack.relaxation_required:
@@ -416,13 +669,15 @@ class GPUSolver:
             raise _TensorFallback(["relaxation required: soft constraints unsatisfiable tier-0"], family="relaxation")
         violations = [] if validated else pack.errors
         if violations:
+            self._count(m.SOLVER_VALIDATION_FAILURES_TOTAL)
             if self.force:
                 raise RuntimeError(f"tensor placement failed validation: {violations}")
             raise _TensorFallback([f"validation: {v}" for v in violations], family="validation")
         try:
-            with self._stage("decode"):
+            with self._span("decode"):
                 results = self._decode(snap, enc, pack.assignment, pack.slot_basis, pack.slot_zoneset)
         except DecodeError as e:
+            self._count(m.SOLVER_VALIDATION_FAILURES_TOTAL)
             if self.force:
                 raise
             raise _TensorFallback([f"validation: {e}"], family="validation")
@@ -433,6 +688,8 @@ class GPUSolver:
             self._resident = None
         else:
             self._keep_resident(problem, pack, enc=enc)
+        if count:
+            self._count(m.SOLVER_SOLVE_TOTAL, backend="gpu")
         return results
 
     # -- the encoded solve -----------------------------------------------------
@@ -442,38 +699,39 @@ class GPUSolver:
         resident problem (an identical resubmit, or a problem without a
         delta that is the resident one, revalidates from the carry), else
         the full pack. No decode: the carry is kept once the placement
-        validates."""
-        self.last_stages = {}
-        self.last_solve_mode = "full"
-        self.last_delta_reject = None
-        resident = self._resident
-        base = problem.delta.base if problem.delta is not None else problem
-        if resident is None or resident["problem"] is not base:
-            self._reject("no-carry")
-        else:
-            pack = self._solve_delta_inner(problem, base)
-            if pack is not None:
-                self.last_solve_mode = "delta"
+        validates. Flight-recorded as mode "full" or "delta"."""
+        with self._flight(int(problem.n_pods)):
+            self.last_solve_mode = "full"
+            self.last_backend = "gpu"
+            resident = self._resident
+            base = problem.delta.base if problem.delta is not None else problem
+            if resident is None or resident["problem"] is not base:
+                self._note_delta_reject("no-carry")
+            else:
+                with self._span("pack", mode="delta"):
+                    pack = self._solve_delta_inner(problem, base)
+                if pack is not None:
+                    self.last_solve_mode = "delta"
+                    self._keep_resident(problem, pack)
+                    return pack
+            with self._span("pack", mode="full"):
+                pack = self._solve_full(problem)
+            if not (pack.errors or pack.relaxation_required):
                 self._keep_resident(problem, pack)
-                return pack
-        pack = self._solve_full(problem)
-        if not (pack.errors or pack.relaxation_required):
-            self._keep_resident(problem, pack)
-        return pack
+            return pack
 
     def global_repack_plan_encoded(self, problem, seed: int = 0):
-        """One global repack proposal pass on an encoded consolidation round
-        (`solver.consolidation.ConsolidationProblem`, pending pods as extra
-        classes): the counterpart of the reference's
-        `TPUSolver.global_repack_plan`, without its flight record. Returns
-        (subsets best-first, info); proposals only, exact validation is the
-        caller's."""
+        """One flight-recorded global repack proposal pass on an encoded
+        consolidation round (`solver.consolidation.ConsolidationProblem`,
+        pending pods as extra classes): the counterpart of the reference's
+        `TPUSolver.global_repack_plan`, mode "consolidate", backend
+        "globalpack". Returns (subsets best-first, info); proposals only,
+        exact validation is the caller's."""
         from .consolidation import propose_problem_global
 
-        return propose_problem_global(problem, self.device, seed=seed)
-
-    def _reject(self, reason: str) -> None:
-        self.last_delta_reject = reason
+        with self.recorder.flight(n_pods=int(round(float(problem.pend_npods))), mode="consolidate",
+                                  backend="globalpack", registry=self.registry) as trace:
+            return propose_problem_global(problem, self.device, seed=seed, trace=trace, sync=self.stage_times)
 
     def _keep_resident(self, problem: EncodedProblem, pack: PackResult, enc=None) -> None:
         self._resident = dict(problem=problem, enc=enc, t=pack.tensors, targets=pack.targets, state=pack.state,
@@ -484,21 +742,22 @@ class GPUSolver:
 
     def _solve_full(self, problem: EncodedProblem) -> PackResult:
         p = problem
-        with self._stage("build_items"):
+        with self._span("build_items"):
             item_arrays, item_pods, info = build_items(p, with_info=True)
             items = make_item_tensors(item_arrays, self.device)
+        self._note_item_info(info)
         cap = p.n_existing + min(p.n_pods, SLOT_CAP)
-        with self._stage("make_tensors"):
+        with self._span("make_tensors"):
             t = make_tensors(p, self.device, n_slots=cap)
-        with self._stage("pack"):
+        with self._span("scan"):
             out = greedy_pack_grouped_compressed(t, items, p.n_pods)
             if out["open_count"] == out["n_slots"] and int(out["leftovers"].sum()) > 0 and cap < p.n_existing + p.n_pods:
                 t = make_tensors(p, self.device)
                 out = greedy_pack_grouped_compressed(t, items, p.n_pods)
-        with self._stage("assignment"):
+        with self._span("assignment"):
             assignment = assignment_from_triples(out["nz_item"], out["nz_slot"], out["nz_count"], item_pods, p.n_pods)
         relax = bool(p.has_relaxable and (assignment < 0).any())
-        with self._stage("validate"):
+        with self._span("validate"):
             errors = fast_validate(p, assignment, out["slot_basis"], out["slot_zoneset"])
         return PackResult(
             assignment=assignment,
@@ -535,7 +794,7 @@ class GPUSolver:
         row_diff = d.row_diff if d is not None else None
         rebuild_ports = bool(row_diff is not None and row_diff.ports_changed)
         if row_diff is not None:
-            with self._stage("carry_edits"):
+            with self._span("carry_edits"):
                 state, t = apply_row_diff(state, t, p, row_diff)
 
         removed = d.removed_enc if d is not None else None
@@ -552,7 +811,7 @@ class GPUSolver:
                 # undo: the recorded domain may exist because of the pod
                 irrev = (kinds == KIND_DOM_AFF) | (kinds == KIND_HOST_AFF)
                 if (touch & irrev[None, :]).any():
-                    self._reject("irreversible")
+                    self._note_delta_reject("irreversible")
                     return None
                 rebuild_ports = rebuild_ports or bool(p.sig_port_any[ps].any())
                 touched_anti = touch & (kinds == KIND_DOM_ANTI)[None, :]
@@ -566,7 +825,7 @@ class GPUSolver:
                 hmem = np.zeros((int(ps.shape[0]), G_pad), dtype=bool)
                 zmem[:, :G] = p.sig_member[ps] & spread_g[None, :]
                 hmem[:, :G] = p.sig_member[ps] & host_g[None, :]
-                with self._stage("recredit"):
+                with self._span("recredit"):
                     state = recredit_removals(state, t, rslot[placed].astype(np.int32), p.sig_req[ps], zmem, hmem)
             keep = np.ones(prev_assignment.shape[0], dtype=bool)
             keep[removed] = False
@@ -574,7 +833,7 @@ class GPUSolver:
 
         n_surv = int(prev_assignment.shape[0])
         surv_sigs = np.asarray(p.sig_of_pod)[:n_surv]
-        with self._stage("carry_edits"):
+        with self._span("carry_edits"):
             if anti_groups is not None:
                 state = recount_anti_groups(p, slot_zoneset, state, anti_groups, surv_sigs, prev_assignment)
             if rebuild_ports:
@@ -588,7 +847,7 @@ class GPUSolver:
         W_real = 0
         demoted = 0
         if n_added:
-            with self._stage("item_build"):
+            with self._span("item_build"):
                 # the same demotion split as build_items: a demoted
                 # multi-group shape packs one item per pod here too
                 S = int(p.n_sigs)
@@ -624,12 +883,12 @@ class GPUSolver:
                 W_pad = arrays["item_count"].shape[0]
                 item_pods = [np.nonzero(inv == w)[0] + n_prev for w in range(W_real)]
                 item_pods += [np.zeros(0, np.int64)] * (W_pad - W_real)
-            with self._stage("pack"):
+            with self._span("scan"):
                 out = greedy_pack_delta_compressed(state, t, items, n_added)
             if out["open_count"] == t.n_slots and int(out["leftovers"][:W_real].sum()) > 0:
-                self._reject("slot-exhausted")
+                self._note_delta_reject("slot-exhausted")
                 return None
-            with self._stage("merge"):
+            with self._span("merge"):
                 da = assignment_from_triples(out["nz_item"], out["nz_slot"], out["nz_count"], item_pods, p.n_pods)
                 assignment = np.concatenate([prev_assignment, np.full(n_added, -1, dtype=np.int64)])
                 assignment[da >= 0] = da[da >= 0]
@@ -640,12 +899,12 @@ class GPUSolver:
 
         # a failed check retries the full pack fresh
         if p.has_relaxable and (assignment < 0).any():
-            self._reject("validate")
+            self._note_delta_reject("validate")
             return None
-        with self._stage("validate"):
+        with self._span("delta_validate"):
             errors = fast_validate(p, assignment, slot_basis, slot_zoneset)
         if errors:
-            self._reject("validate")
+            self._note_delta_reject("validate")
             return None
         state = out["state"]
         return PackResult(
@@ -700,14 +959,13 @@ class GPUSolver:
         _tensor_pods, residual_pods = part
         keep = np.ones(enc.n_sigs, dtype=bool)
         keep[[int(s) for s in enc.fallback_sig_local]] = False
-        with self._stage("mask_encode"):
-            masked = mask_encode(enc, np.nonzero(keep)[0])
+        masked = self._mask_encode(enc, keep)
         if masked.n_pods == 0 or masked.n_rows == 0:
             self._hybrid_state = None
             return None
         sub_snap = snap.with_pods(masked.pods)
         try:
-            tensor_results = self._solve_full_snapshot(sub_snap, masked)
+            tensor_results = self._solve_full_snapshot(sub_snap, masked, count=False)
         except _TensorFallback:
             self._hybrid_state = None
             return None  # the tensor majority could not stand: the whole snapshot takes the host FFD
@@ -720,15 +978,29 @@ class GPUSolver:
     def _hybrid_residual(self, snap: SolverSnapshot, enc, keep: np.ndarray, residual_pods: list,
                          tensor_results: Results, mode: str) -> Results:
         """The exact host FFD on the flagged residual against the tensor
-        result's node state, with the spread counts across the seam."""
-        with self._stage("residual"):
+        result's node state, with the spread counts across the seam; counts
+        the merged solve under its mode."""
+        self._trace.note(residual_pods=len(residual_pods))
+        with self._span("residual"):
             results = solve_residual(
                 snap, residual_pods, tensor_results, seam_records=self._seam_records(enc, keep, tensor_results)
             )
         self.last_backend = "hybrid"
         self.last_solve_mode = mode
         self.last_fallback_reasons = enc.fallback_reasons
+        for family in sorted({_reason_family(r) for r in enc.fallback_reasons}):
+            self._count(m.SOLVER_HYBRID_RESIDUAL_TOTAL, reason=family)
+        self._count(m.SOLVER_SOLVE_TOTAL, backend=mode)
         return results
+
+    def _mask_encode(self, enc, keep: np.ndarray):
+        """The tensor-side sub-encoding of a hybrid solve, timed as the
+        reference's masked encode."""
+        with self._span("encode", mode="masked") as sp:
+            with self._span("mask_encode"):
+                masked = mask_encode(enc, np.nonzero(keep)[0])
+        self._observe(m.SOLVER_ENCODE_SECONDS, sp.dur, mode="masked")
+        return masked
 
     def _solve_masked_delta(self, snap: SolverSnapshot, enc, base) -> Results | None:
         """Hybrid-delta: `enc` is a pod delta of `base`, the previous hybrid
@@ -744,27 +1016,27 @@ class GPUSolver:
         if base is None:
             return None
         if hs is None or resident is None:
-            self._reject("no-carry")
+            self._note_delta_reject("no-carry")
             return None
         if hs["full_enc"] is not base or resident["enc"] is not hs["masked_enc"]:
-            self._reject("no-carry")
+            self._note_delta_reject("no-carry")
             return None
         if getattr(enc, "delta_row_diff", None) is not None:
             # a row-refresh diff cannot be applied to the masked carry
             # untranslated (the encoder routes a hybrid base full on one;
             # this guards any other arrival path)
-            self._reject("no-carry")
+            self._note_delta_reject("no-carry")
             return None
         keep = hs["keep"]  # bool [S] over the full encoding's signature axis
         if enc.n_sigs != keep.shape[0] or enc.fallback_has_global:
             # a grown signature axis or a snapshot-global reason: the kept
             # partition no longer describes this snapshot
-            self._reject("no-carry")
+            self._note_delta_reject("no-carry")
             return None
         # the delta's attribution must stay inside the kept partition: a
         # newly flagged tensor-side signature would invalidate the split
         if any(keep[int(s)] for s in enc.fallback_sig_local):
-            self._reject("fallback-global")
+            self._note_delta_reject("fallback-global")
             return None
         masked_base = hs["masked_enc"]
         remap = hs["remap"]
@@ -783,15 +1055,14 @@ class GPUSolver:
         else:
             masked_added = remap[added_sigs[keep[added_sigs]]].astype(np.int32)
 
-        with self._stage("mask_encode"):
-            masked_new = mask_encode(enc, np.nonzero(keep)[0])
+        masked_new = self._mask_encode(enc, keep)
         if masked_new.n_pods == 0:
             return None
         masked_new.delta_removed_enc = masked_removed
         masked_new.delta_added_sigs = masked_added
         sub_snap = snap.with_pods(masked_new.pods)
         try:
-            tensor_results = self._solve_delta(sub_snap, masked_new, masked_base)
+            tensor_results = self._solve_delta(sub_snap, masked_new, masked_base, count=False)
         except _TensorFallback:
             return None  # the cold hybrid (or the whole-snapshot fallback) takes over
         if tensor_results is None:
@@ -802,6 +1073,7 @@ class GPUSolver:
         if not residual_pods:
             # the out-of-window pods left the snapshot: a pure tensor delta
             self.last_solve_mode = "delta"
+            self._count(m.SOLVER_SOLVE_TOTAL, backend="gpu")
             return tensor_results
         return self._hybrid_residual(snap, enc, keep, residual_pods, tensor_results, "hybrid-delta")
 
@@ -1221,11 +1493,13 @@ class GPUSolver:
                     avail=_avail_of(template),
                 )
 
-        self.last_decode = dict(
-            mode="delta-reuse" if reused_slots else "full",
-            reused_slots=reused_slots,
-            dirty_slots=len(pods_by_slot),
-        )
+        decode_mode = "delta-reuse" if reused_slots else "full"
+        self.last_decode = dict(mode=decode_mode, reused_slots=reused_slots, dirty_slots=len(pods_by_slot))
+        self._trace.note(decode_mode=decode_mode, decode_reused_slots=reused_slots,
+                         decode_dirty_slots=len(pods_by_slot))
+        self._count(m.SOLVER_DECODE_TOTAL, mode=decode_mode)
+        if reused_slots and self.registry is not None:
+            self.registry.counter(m.SOLVER_DECODE_REUSED_SLOTS_TOTAL).inc(reused_slots)
         if save_new is not None and not repair_pods:
             has_entry = np.zeros(n_slots, dtype=bool)
             if save_new:
@@ -1258,6 +1532,8 @@ class GPUSolver:
             # both sides: every group kind, no cross-seam requirement).
             self._decode_repaired = True
             self.last_decode.update(repair_pods=len(repair_pods), repair_sigs=len(repair_sigs))
+            self._count(m.SOLVER_DECODE_REPAIR_TOTAL, reason="min-values")
+            self._trace.note(repair_pods=len(repair_pods), repair_sigs=len(repair_sigs), repair_reason="min-values")
             keep = np.ones(enc.n_sigs, dtype=bool)
             keep[sorted(repair_sigs)] = False
             results = solve_residual(

@@ -85,16 +85,18 @@ class ConsolidationSimulator:
 
     Build one per consolidation round over the round's candidate set; call
     `simulate(batch)` for each probe (batch must be a subset of the round's
-    candidates — anything else routes to the from-scratch path). `stages`
-    (a dict) receives host ms per stage, the solver's device synchronised
-    around each: "sim base" (the round-base encode), "sim_mask_encode" and
-    "solve_prepared" per masked probe (and the solver's own `last_stages`
-    under "solve_prepared <stage>"), "sim scratch" per from-scratch one."""
+    candidates — anything else routes to the from-scratch path). With a
+    `trace` (the round's `obs.trace.SolveTrace`) its stages are spans there:
+    "sim base" (the round-base encode), "sim_mask_encode" and
+    "solve_prepared" per masked probe (each `solve_prepared` also records
+    its own trace, mode "sim"), "sim scratch" per from-scratch one; the
+    solver's `stage_times` synchronises its device at their edges."""
 
-    def __init__(self, provisioner, cluster, clock, candidates, stages: dict | None = None):
+    def __init__(self, provisioner, cluster, clock, candidates, trace=None):
         from .consolidation import Stages
 
-        self._stage = Stages(stages, getattr(provisioner.solver, "device", None))
+        solver = provisioner.solver
+        self._stage = Stages(trace, getattr(solver, "device", None), bool(getattr(solver, "stage_times", False)))
         self.provisioner = provisioner
         self.cluster = cluster
         self.clock = clock
@@ -341,10 +343,6 @@ class ConsolidationSimulator:
         solver = self.provisioner.solver
         with self._stage("solve_prepared"):
             results = solver.solve_prepared(probe_snap, sim_enc)
-        into = self._stage.into
-        if into is not None:  # the solver's own split (GPUSolver(stage_times=True))
-            for k, v in getattr(solver, "last_stages", {}).items():
-                into[f"solve_prepared {k}"] = into.get(f"solve_prepared {k}", 0.0) + v
         if solver.last_backend != "gpu":
             # the masked pack couldn't stand (validation/relaxation): the
             # result IS the exact from-scratch solve of the true probe

@@ -149,13 +149,36 @@ def _store(ref, carry: _Carrier) -> Store:
     return store
 
 
-def snapshot_from_reference(ref_snap) -> SolverSnapshot:
+def registry_from_reference(ref_registry):
+    """The port's copy of a reference metrics registry: every family with its
+    type, name, help text, label names, buckets and values."""
+    from ..metrics.registry import Registry
+
+    reg = Registry()
+    with ref_registry._lock:
+        metrics = list(ref_registry._metrics.values())
+    for mt in metrics:
+        with mt._lock:
+            if mt.TYPE == "histogram":
+                h = reg.histogram(mt.name, mt.help, mt.label_names, mt.buckets)
+                h._counts = {k: list(v) for k, v in mt._counts.items()}
+                h._sums = dict(mt._sums)
+                h._totals = dict(mt._totals)
+            else:
+                make = reg.counter if mt.TYPE == "counter" else reg.gauge
+                make(mt.name, mt.help, mt.label_names)._values = dict(mt._values)
+    return reg
+
+
+def snapshot_from_reference(ref_snap, registry=None) -> SolverSnapshot:
     """The port's snapshot of the same cluster as `ref_snap`: its store's
     objects, nodepools, instance types, daemonset pods, pods and state
     nodes carried over by class and field name; its cluster rebuilt through
-    the port's informers from the carried store."""
-    if getattr(ref_snap, "registry", None) is not None:
-        raise NotImplementedError("a metrics registry cannot be carried over: the port has none")
+    the port's informers from the carried store. A reference snapshot with
+    a metrics registry gets `registry`, or a copy of its own
+    (`registry_from_reference`)."""
+    if registry is None and getattr(ref_snap, "registry", None) is not None:
+        registry = registry_from_reference(ref_snap.registry)
     carry = _Carrier()
     clock = carry(ref_snap.clock)
     store = None
@@ -174,6 +197,7 @@ def snapshot_from_reference(ref_snap) -> SolverSnapshot:
         pods=carry(ref_snap.pods),
         clock=clock,
         deleting_node_names=set(ref_snap.deleting_node_names),
+        registry=registry,
         **{name: getattr(ref_snap, name) for name in _SETTINGS},
     )
 
@@ -190,10 +214,13 @@ class SnapshotMirror:
     reference store gained since the last step are created in the port's
     in revision order (both stores then hand out the same revisions), and
     the port's informers keep its cluster in step. An update or a deletion
-    in the reference store raises `NotImplementedError`."""
+    in the reference store raises `NotImplementedError`. A reference metrics
+    registry is copied once (`registry_from_reference`) and the copy serves
+    every later step, so the port's counts accumulate as the reference's."""
 
     def __init__(self):
         self.carry = _Carrier()
+        self.registry = None
         self.ref_store = None
         self.store: Store | None = None
         self.cluster: Cluster | None = None
@@ -221,8 +248,8 @@ class SnapshotMirror:
 
     def snapshot(self, ref_snap) -> SolverSnapshot:
         """The port's snapshot of this step of the sequence."""
-        if getattr(ref_snap, "registry", None) is not None:
-            raise NotImplementedError("a metrics registry cannot be carried over: the port has none")
+        if self.registry is None and getattr(ref_snap, "registry", None) is not None:
+            self.registry = registry_from_reference(ref_snap.registry)
         carry = self.carry
         clock = carry(ref_snap.clock)
         clock.set(ref_snap.clock.now())
@@ -246,6 +273,7 @@ class SnapshotMirror:
             pods=[carry(p) for p in ref_snap.pods],
             clock=clock,
             deleting_node_names=set(ref_snap.deleting_node_names),
+            registry=self.registry if getattr(ref_snap, "registry", None) is not None else None,
             **{name: getattr(ref_snap, name) for name in _SETTINGS},
         )
 

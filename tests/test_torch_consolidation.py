@@ -183,10 +183,19 @@ def test_one_candidate_proposes_nothing():
 
 
 def test_stage_times_name_every_stage():
+    """The proposer's stages are spans on the trace it is given: the
+    reference's `lp_repack` and `round`, the port's stages inside them."""
+    from karpenter_tpu_torch.obs.trace import SolveTrace
+
     problem, ref = load("small_lp_6")
-    stages: dict = {}
-    propose_problem_lp(problem, "cpu", inits=reference_inits(problem, ref), stages=stages)
-    assert list(stages) == ["tensors", "K5 globalpack", "round", "K6 upload", "K6 kernel", "K6 download", "ladder"]
+    trace = SolveTrace(enabled=True)
+    propose_problem_lp(problem, "cpu", inits=reference_inits(problem, ref), trace=trace)
+    assert [(s.name, [c.name for c in s.children]) for s in trace.spans] == [
+        ("lp_repack", ["tensors", "K5 globalpack"]),
+        ("round", ["rounding", "K6 upload", "K6 kernel", "K6 download", "ladder"])]
+    assert list(trace.phase_totals) == ["tensors", "K5 globalpack", "lp_repack", "rounding", "K6 upload", "K6 kernel",
+                                        "K6 download", "ladder", "round"]
+    assert trace.attribution["lp_rounded"] >= 1 and trace.attribution["lp_proposals"] >= 1
 
 
 def test_global_repack_plan_encoded():

@@ -85,11 +85,19 @@ def test_encode_candidates_dense():
 def test_propose_subsets_lp_from_candidates(name):
     (cands, its, _p), (pc, pits, _pp) = round_of(name)
     clear_globals()
-    want = jcons.propose_subsets_lp(cands, its)
-    stages: dict = {}
-    got = tcons.propose_subsets_lp(pc, pits, device="cpu", stages=stages)
+    from karpenter_tpu.obs.trace import SolveTrace as RefTrace
+    from karpenter_tpu_torch.obs.trace import SolveTrace
+
+    ref_trace = RefTrace(enabled=True)
+    want = jcons.propose_subsets_lp(cands, its, trace=ref_trace)
+    trace = SolveTrace(enabled=True)
+    got = tcons.propose_subsets_lp(pc, pits, device="cpu", trace=trace)
     assert got == want
-    assert list(stages)[:3] == ["encode_candidates", "tensors", "K5 globalpack"]
+    assert list(trace.phase_totals)[:3] == ["encode_candidates", "tensors", "K5 globalpack"]
+    # the reference's spans and notes, the port's stages inside them
+    assert [s.name for s in trace.spans] == [s.name for s in ref_trace.spans] == ["encode_candidates", "lp_repack",
+                                                                                 "round"]
+    assert trace.spans[0].attrs == ref_trace.spans[0].attrs and trace.attribution == ref_trace.attribution
 
 
 def test_one_candidate_proposes_nothing():

@@ -18,7 +18,9 @@ The round: the reference wired directly (its `Provisioner` with
 (`GPUSolver(device="cpu")`, `Options()`, whose backend is "gpu") over its
 own fleet. One LP decision, `MultiNodeConsolidation._lp_option` over every
 candidate in the controller's order, must give the same `Command`
-(`testing.canonical.canonical_command`), masked and scratch probe counts;
+(`testing.canonical.canonical_command`), masked and scratch probe counts
+and the same round counters in a metrics registry (`round_counters`: the
+proposal batch, the LP iterations, the validations, the savings gauge);
 then one `DisruptionController.reconcile(force=True)` must execute the same
 command and leave the same NodeClaims in the store. At 8 nodes both sides
 run here; the reference's 5000-node round (the benchmark's target,
@@ -174,22 +176,40 @@ def port_side(n: int, device="cpu"):
     return SimpleNamespace(store=fleet.store, clock=fleet.clock, prov=prov, dc=dc, port=True)
 
 
+def round_counters(registry, metrics) -> dict:
+    """The LP round's counters: the proposal batch, the Adam steps, the
+    exact validations by decision, the savings gauge."""
+    return dict(proposals=registry.counter(metrics.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).value(proposer="lp"),
+                lp_iterations=registry.counter(metrics.SOLVER_CONSOLIDATION_LP_ITERATIONS_TOTAL).total(),
+                accepted=registry.counter(metrics.SOLVER_CONSOLIDATION_VALIDATION_TOTAL).value(decision="accept"),
+                rejected=registry.counter(metrics.SOLVER_CONSOLIDATION_VALIDATION_TOTAL).value(decision="reject"),
+                savings_per_hour=registry.gauge(metrics.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).value(proposer="lp"))
+
+
 def lp_decision(side) -> dict:
-    """One LP decision over every candidate in the controller's order."""
+    """One LP decision over every candidate in the controller's order, with
+    a metrics registry for the round (its counters recorded)."""
     mod = "karpenter_tpu_torch" if side.port else "karpenter_tpu"
     methods = __import__(f"{mod}.controllers.disruption.methods", fromlist=["MultiNodeConsolidation"])
+    metrics = __import__(f"{mod}.metrics", fromlist=["make_registry"])
     ctx = side.dc.ctx
     cands = side.dc.get_candidates()
     ctx.round_candidates = cands
     ctx.node_pool_totals = None
-    m = methods.MultiNodeConsolidation(ctx)
-    cmd = m._lp_option(cands, side.clock.now() + 1e9)
+    ctx.metrics = metrics.make_registry()
+    try:
+        m = methods.MultiNodeConsolidation(ctx)
+        cmd = m._lp_option(cands, side.clock.now() + 1e9)
+        counters = round_counters(ctx.metrics, metrics)
+    finally:
+        ctx.metrics = None
     if side.port:
         probes = (m.last_round["sim_masked"], m.last_round["sim_scratch"])
     else:
         trace = next(t for t in reversed(side.prov.solver.recorder.traces()) if t.mode == "consolidate")
         probes = (trace.attribution["sim_masked"], trace.attribution["sim_scratch"])
-    return dict(n_candidates=len(cands), command=json_form(canonical_command(cmd)), probes=list(probes))
+    return dict(n_candidates=len(cands), command=json_form(canonical_command(cmd)), probes=list(probes),
+                counters=counters)
 
 
 def disruption_pass(side) -> dict:

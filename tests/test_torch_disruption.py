@@ -82,17 +82,21 @@ class Pair:
     packages (module docstring). `backend` is "device" (the LP arm) or
     "ffd"; `clock_of(port)` may give a clock class of that package."""
 
-    def __init__(self, env, backend: str = "device", spot_to_spot: bool = False, clock_of=None):
+    def __init__(self, env, backend: str = "device", spot_to_spot: bool = False, clock_of=None, metrics: bool = False):
         objects = sorted((o for kind in KINDS for o in env.store.list(kind)), key=lambda o: o.metadata.resource_version)
         types = env.cloud_provider.get_instance_types(None)
         carried, carried_types = carry_objects([objects, types])
         now = env.clock.now()
-        self.ref = self._side(False, objects, types, now, backend, spot_to_spot, clock_of)
-        self.port = self._side(True, carried, carried_types, now, backend, spot_to_spot, clock_of)
+        if metrics:
+            from test_torch_metrics import fresh_default_recorders
+
+            fresh_default_recorders()
+        self.ref = self._side(False, objects, types, now, backend, spot_to_spot, clock_of, metrics)
+        self.port = self._side(True, carried, carried_types, now, backend, spot_to_spot, clock_of, metrics)
         clear_globals()
 
     @staticmethod
-    def _side(port, objects, types, now, backend, spot_to_spot, clock_of):
+    def _side(port, objects, types, now, backend, spot_to_spot, clock_of, metrics=False):
         m = lambda name: module(port, name)  # noqa: E731
         clock_cls = clock_of(port) if clock_of is not None else m("utils.clock").FakeClock
         clock = clock_cls(start=now)
@@ -102,16 +106,22 @@ class Pair:
         for o in objects:
             store.create(o)
         cloud = m("cloudprovider.fake").FakeCloudProvider(types)
-        solver = GPUSolver(device="cpu") if port else TPUSolver(recover=False)
-        prov = m("controllers.provisioning.provisioner").Provisioner(store, cluster, cloud, clock, solver=solver)
+        # with `metrics`: one registry and one event recorder per side, wired
+        # as the reference's Environment wires them
+        registry = m("metrics").make_registry() if metrics else None
+        events = m("events").Recorder(clock) if metrics else None
+        solver = GPUSolver(device="cpu", registry=registry) if port else TPUSolver(recover=False, registry=registry)
+        prov = m("controllers.provisioning.provisioner").Provisioner(store, cluster, cloud, clock, solver=solver,
+                                                                     metrics=registry, recorder=events)
         opts = m("operator.options")
         name = "ffd" if backend == "ffd" else ("gpu" if port else "tpu")
         options = opts.Options(solver_backend=name,
                                feature_gates=opts.FeatureGates(spot_to_spot_consolidation=spot_to_spot))
         ncd = m("controllers.nodeclaim.disruption").NodeClaimDisruptionController(store, cluster, cloud, clock)
-        dc = m("controllers.disruption.controller").DisruptionController(store, cluster, prov, cloud, clock, options)
+        dc = m("controllers.disruption.controller").DisruptionController(store, cluster, prov, cloud, clock, options,
+                                                                         recorder=events, metrics=registry)
         return SimpleNamespace(store=store, cluster=cluster, clock=clock, cloud=cloud, prov=prov, ncd=ncd, dc=dc,
-                               m=m, port=port)
+                               m=m, port=port, registry=registry, events=events)
 
     def run(self, fn):
         """`fn(side)` on each side from the same module state; the two
@@ -125,6 +135,12 @@ class Pair:
             out.append(fn(side))
         want, got = out
         assert got == want
+        if self.port.registry is not None:
+            from test_torch_metrics import assert_same_registry
+
+            assert_same_registry(self.port.registry, self.ref.registry, "disruption")
+            assert [(e.involved_kind, e.involved_name, e.reason, e.message) for e in self.port.events.events] == \
+                [(e.involved_kind, e.involved_name, e.reason, e.message) for e in self.ref.events.events]
         return got
 
     def flip(self) -> None:
@@ -541,11 +557,172 @@ def test_do_not_disrupt_pod_excludes_its_node():
 
 
 def test_metrics_and_cluster_cost_are_refused():
-    pair = Pair(empty_node_env())
+    """A metrics registry counts the disruption pass as the reference's does
+    (the eligible-nodes gauge, the decisions, the decision histogram's
+    count; exact); a ClusterCost is still refused."""
+    from karpenter_tpu_torch import metrics as pm
+
+    pair = Pair(empty_node_env(), metrics=True)
+    pair.flip()
+    pair.reconcile()
+    pair.reconcile()
     p = pair.port
+    assert p.registry.counter(pm.DISRUPTION_DECISIONS_TOTAL).total() >= 1
+    assert p.registry.histogram(pm.DISRUPTION_DECISION_EVAL_DURATION).count(method="Emptiness") >= 1
     dc_mod = p.m("controllers.disruption.controller")
-    with pytest.raises(NotImplementedError):
-        dc_mod.DisruptionController(p.store, p.cluster, p.prov, p.cloud, p.clock, p.dc.options, metrics=object())
     with pytest.raises(NotImplementedError):
         dc_mod.DisruptionController(p.store, p.cluster, p.prov, p.cloud, p.clock, p.dc.options, cluster_cost=object())
     assert p.dc.options.solver_backend == "gpu" and not p.dc.options.validate()
+
+
+# -- the disruption metrics and the round's flight record ------------------------------
+
+# the port's own stages inside the LP round's spans (solver/consolidation.py,
+# solver/simulate.py), left out where the round's span tree meets the reference's
+ROUND_PORT_SPANS = frozenset({"tensors", "K5 globalpack", "rounding", "K6 upload", "K6 kernel", "K6 download",
+                              "ladder", "sim base", "sim_mask_encode", "solve_prepared", "sim scratch"})
+
+
+def _round_view(trace, port: bool) -> dict:
+    def tree(spans):
+        return [(s.name, tree(s.children)) for s in spans if not (port and s.name in ROUND_PORT_SPANS)]
+
+    return dict(mode=trace.mode, backend=trace.backend, n_pods=trace.n_pods, spans=tree(trace.spans),
+                notes=dict(trace.attribution))
+
+
+@pytest.mark.parametrize("n", [4, 6])
+def test_lp_round_counts_and_traces_as_the_reference(n):
+    """A disruption pass through the LP on each side with a registry: every
+    family equal (the proposal batch, the LP iterations, the validations,
+    the savings gauge, the eligible-nodes gauge, the decisions), and the
+    round's trace (spans `encode_candidates`, `lp_repack`, `round`,
+    `validate`; the proposal and probe notes) equal the reference's."""
+    from karpenter_tpu_torch import metrics as pm
+    from karpenter_tpu_torch.obs.trace import TraceRecorder
+
+    pair = Pair(fleet_env(n), metrics=True)
+    ref_rec = pair.ref.prov.solver.recorder = type(pair.ref.prov.solver.recorder)(enabled=True)
+    port_rec = pair.port.prov.solver.recorder = TraceRecorder(enabled=True)
+    pair.flip()
+    got = pair.reconcile()
+    assert len(got["commands"]) == 1
+    reg = pair.port.registry
+    assert reg.counter(pm.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).value(proposer="lp") >= 1
+    assert reg.counter(pm.SOLVER_CONSOLIDATION_LP_ITERATIONS_TOTAL).total() == 8 * 300
+    assert reg.counter(pm.SOLVER_CONSOLIDATION_VALIDATION_TOTAL).value(decision="accept") >= 1
+    assert reg.gauge(pm.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).value(proposer="lp") > 0
+
+    def rounds(rec):
+        return [t for t in rec.traces() if t.mode == "consolidate"]
+
+    (want,), (round_trace,) = rounds(ref_rec), rounds(port_rec)
+    assert _round_view(round_trace, True) == _round_view(want, False)
+    assert [s.name for s in round_trace.spans][:3] == ["encode_candidates", "lp_repack", "round"]
+    view = pair.port.dc.methods[3].last_round
+    assert view["proposals"] == round_trace.attribution["proposals"] and "K5 globalpack" in view["stages"]
+    sims = [t for t in port_rec.traces() if t.mode == "sim"]
+    assert len(sims) == round_trace.attribution["sim_masked"] and all(t.backend == "gpu" for t in sims)
+
+
+def test_binary_search_counts_as_the_reference():
+    """The binary search called directly on each side with a registry: its
+    proposals and savings gauge equal the reference's."""
+    pair = Pair(fleet_env(5, cpu="1500m", swap_cpu="300m"), metrics=True)
+    pair.flip()
+
+    def first_n(side):
+        m, cands = method(side)
+        cmd = canonical_command(m._first_n_consolidation_option(m.sort_candidates(cands)))
+        pm = side.m("metrics")
+        return cmd, side.registry.counter(pm.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).value(proposer="binary-search"), \
+            side.registry.gauge(pm.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).value(proposer="binary-search")
+
+    cmd, proposals, savings = pair.run(first_n)
+    assert cmd[1] and proposals >= 1 and savings > 0
+
+
+@pytest.mark.parametrize("churn", ["nominated", "budget", "annotated"])
+def test_validator_counts_its_failures_as_the_reference(churn):
+    """`test_validator_aborts` with a registry on each side: the failed
+    validations counter agrees."""
+    pair = Pair(fleet_env(2), metrics=True)
+    pair.flip()
+
+    def validate(side):
+        m, cands = method(side)
+        eligible = [c for c in cands if m.should_disrupt(c)]
+        if churn == "nominated":
+            side.cluster.nominate_node(eligible[0].name())
+        elif churn == "budget":
+            budget = side.m("apis.nodepool").Budget
+            side.store.patch("NodePool", eligible[0].node_pool.metadata.name,
+                             lambda np_: setattr(np_.spec.disruption, "budgets", [budget(nodes="0")]))
+        else:
+            side.store.patch("Node", eligible[0].name(),
+                             lambda n: n.metadata.annotations.__setitem__(wk.DO_NOT_DISRUPT_ANNOTATION_KEY, "true"))
+        types = side.m("controllers.disruption.types")
+        validation = side.m("controllers.disruption.validation")
+        cmd = types.Command(reason="Underutilized", candidates=eligible[:1])
+        with pytest.raises(validation.ValidationError):
+            validation.Validator(m.ctx, m, mode="strict", metrics=side.registry).validate(cmd, delay_seconds=0)
+        return side.registry.counter(side.m("metrics").DISRUPTION_FAILED_VALIDATIONS_TOTAL).total()
+
+    assert pair.run(validate) >= 1
+
+
+def test_rejected_rungs_count_as_the_reference(monkeypatch):
+    """Every rung rejected by the Validator: the LP round's validation
+    counters and the queue's events agree across the packages."""
+    pair = Pair(fleet_env(6), metrics=True)
+    pair.flip()
+
+    def compute(side):
+        calls = {"n": 0, "validated": []}
+        with monkeypatch.context() as mp:
+            _flaky(side, 10**6, calls, mp)
+            m, cands = method(side)
+            cmds = m.compute_commands(cands, budgets(side, m.reason))
+        return [canonical_command(c) for c in cmds], calls["n"]
+
+    cmds, n = pair.run(compute)
+    assert cmds == [] and 1 <= n <= 3
+
+
+@pytest.mark.parametrize("fault", ["kernel-refusal", "host"])
+def test_a_kernel_refusal_fails_the_lp_round(fault, monkeypatch):
+    """K5's wrapper refusing its arguments on the card's path
+    (`build.require`: a `KernelError` that is also a ValueError) fails the
+    round: the binary search never answers for it, and the round's trace is
+    still committed. A host ValueError from the proposer falls back to the
+    binary search, as the reference's does."""
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels import globalpack as kgp
+    from karpenter_tpu_torch.obs.trace import TraceRecorder
+
+    pair = Pair(fleet_env(6), metrics=True)
+    pair.flip()
+    side = pair.port
+    m, cands = method(side)
+    rec = side.prov.solver.recorder = TraceRecorder(enabled=True)
+    searched = []
+    real_search = m._first_n_consolidation_option
+    monkeypatch.setattr(m, "_first_n_consolidation_option", lambda *a: searched.append(1) or real_search(*a))
+
+    def refused(t, onehot, compat_qn, pend_mass, pend_weight, d0, y0, n_iters):
+        if fault == "kernel-refusal":
+            build.require(d0, torch.device("cuda"), torch.float32, "d0")
+        raise ValueError("a host fault")
+
+    monkeypatch.setattr(kgp, "globalpack", refused)
+    if fault == "kernel-refusal":
+        with pytest.raises(build.KernelArgError, match="d0: on cpu, expected cuda"):
+            m.compute_commands(cands, budgets(side, m.reason))
+        assert searched == []
+    else:
+        m.compute_commands(cands, budgets(side, m.reason))
+        assert searched == [1]
+    (round_trace,) = [t for t in rec.traces() if t.mode == "consolidate"]
+    assert round_trace.backend == "lp" and "proposals" not in round_trace.attribution
+    pm = side.m("metrics")
+    assert side.registry.counter(pm.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).value(proposer="lp") == 0

@@ -6,7 +6,9 @@ encoding (`solve_encoded`) and from the snapshot into node claims
 (`solve`), solves an out-of-window snapshot on the hybrid path, runs one
 provisioning pass over a store (`Provisioner.reconcile`) and one disruption
 pass over its own consolidation fleet (`DisruptionController.reconcile`:
-the LP proposer, a masked probe, the Validator, a replacement created)."""
+the LP proposer, a masked probe, the Validator, a replacement created) —
+the solves, the pass and the round with a metrics registry, an enabled
+trace recorder and an event recorder."""
 
 from __future__ import annotations
 
@@ -49,10 +51,16 @@ _CHILD = textwrap.dedent(
     assert res.errors == [] and res.n_placed == 120, res.errors
     host = FFDSolver().solve(snap)
     assert not host.pod_errors and sum(len(c.pods) for c in host.new_node_claims) == 120
-    solver = GPUSolver(device="cpu")
+    from karpenter_tpu_torch.events import Recorder
+    from karpenter_tpu_torch.metrics import make_registry
+    from karpenter_tpu_torch.obs.trace import TraceRecorder
+    reg = make_registry()
+    solver = GPUSolver(device="cpu", registry=reg, recorder=TraceRecorder(enabled=True))
     results = solver.solve(snap)
     assert solver.last_backend == "gpu" and not results.pod_errors, results.pod_errors
     assert sum(len(c.pods) for c in results.new_node_claims) == 120
+    assert solver.recorder.last().mode == "full" and "decode" in solver.last_stages
+    assert reg.counter("karpenter_solver_solve_total").value(backend="gpu") == 1
     from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types_assorted
     from karpenter_tpu_torch.controllers.provisioning.provisioner import Provisioner
     snap = build_snapshot(120, 40, fallback_frac=0.1)
@@ -61,18 +69,27 @@ _CHILD = textwrap.dedent(
     assert (solver.last_solve_mode, solver.last_backend) == ("hybrid", "hybrid") and not results.pod_errors
     for p in snap.pods:
         snap.store.create(p)
-    solver = GPUSolver(device="cpu")
-    prov = Provisioner(snap.store, snap.cluster, FakeCloudProvider(instance_types_assorted(40)), snap.clock, solver=solver)
+    solver = GPUSolver(device="cpu", registry=reg, recorder=TraceRecorder(enabled=True))
+    prov = Provisioner(snap.store, snap.cluster, FakeCloudProvider(instance_types_assorted(40)), snap.clock, solver=solver,
+                       metrics=reg, recorder=Recorder(snap.clock))
     results = prov.reconcile(force=True)
     assert solver.last_solve_mode == "hybrid" and not results.pod_errors, results.pod_errors
+    assert solver.recorder.last().mode == "hybrid" and reg.counter("karpenter_nodeclaims_created_total").total() > 0
     assert len(snap.store.list("NodeClaim")) == len(results.new_node_claims) > 0
     from karpenter_tpu_torch.controllers.disruption.controller import DisruptionController
     from karpenter_tpu_torch.operator.options import Options
     from karpenter_tpu_torch.testing.scenarios import build_consolidation_fleet
     fleet = build_consolidation_fleet(6)
-    prov = Provisioner(fleet.store, fleet.cluster, fleet.cloud_provider, fleet.clock, solver=GPUSolver(device="cpu"))
-    dc = DisruptionController(fleet.store, fleet.cluster, prov, fleet.cloud_provider, fleet.clock, Options())
+    reg = make_registry()
+    events = Recorder(fleet.clock)
+    gpu = GPUSolver(device="cpu", registry=reg, recorder=TraceRecorder(enabled=True))
+    prov = Provisioner(fleet.store, fleet.cluster, fleet.cloud_provider, fleet.clock, solver=gpu, metrics=reg,
+                       recorder=events)
+    dc = DisruptionController(fleet.store, fleet.cluster, prov, fleet.cloud_provider, fleet.clock, Options(),
+                              recorder=events, metrics=reg)
     dc.reconcile(force=True)
+    assert reg.counter("karpenter_solver_consolidation_proposals_total").value(proposer="lp") >= 1
+    assert [t.mode for t in gpu.recorder.traces()].count("consolidate") == 1
     assert len(dc.queue._items) == 1 and len(dc.queue._items[0].command.candidates) >= 2
     assert dc.methods[3].last_round["sim_masked"] >= 1
     assert len(fleet.store.list("NodeClaim")) == 6 + len(dc.queue._items[0].command.replacements)

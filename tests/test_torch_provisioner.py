@@ -62,15 +62,19 @@ def module(port: bool, name: str):
 class Pair:
     """The same cluster in both packages, each with its own provisioner."""
 
-    def __init__(self, objects, types=None, solver: str = "tensor", **options):
+    def __init__(self, objects, types=None, solver: str = "tensor", metrics: bool = False, **options):
         types = types if types is not None else catalog.construct_instance_types()
         carried_objects, carried_types = carry_objects([list(objects), types])
-        self.ref = self._side(False, objects, types, solver, options)
-        self.port = self._side(True, carried_objects, carried_types, solver, options)
+        if metrics:
+            from test_torch_metrics import fresh_default_recorders
+
+            fresh_default_recorders()
+        self.ref = self._side(False, objects, types, solver, options, metrics)
+        self.port = self._side(True, carried_objects, carried_types, solver, options, metrics)
         clear_globals()
 
     @staticmethod
-    def _side(port: bool, objects, types, solver: str, options: dict):
+    def _side(port: bool, objects, types, solver: str, options: dict, metrics: bool = False):
         m = lambda name: module(port, name)  # noqa: E731
         clock = m("utils.clock").FakeClock()
         store = m("kube.store").Store(clock=clock)
@@ -79,14 +83,19 @@ class Pair:
         for o in objects:
             store.create(o)
         prov_mod = m("controllers.provisioning.provisioner")
+        # with `metrics`: a registry for the provisioner and its solver, and
+        # an event recorder, as the reference's Environment wires them
+        registry = m("metrics").make_registry() if metrics else None
+        events = m("events").Recorder(clock) if metrics else None
         s = None  # the reference's default: its host FFD
         if solver == "tensor":
-            s = GPUSolver(device="cpu") if port else TPUSolver(recover=False)
+            s = GPUSolver(device="cpu", registry=registry) if port else TPUSolver(recover=False, registry=registry)
         elif port:
             s = m("solver.ffd").FFDSolver()
         prov = prov_mod.Provisioner(store, cluster, m("cloudprovider.fake").FakeCloudProvider(types), clock, solver=s,
-                                    options=prov_mod.ProvisionerOptions(**options))
-        return SimpleNamespace(store=store, cluster=cluster, clock=clock, prov=prov, m=m)
+                                    options=prov_mod.ProvisionerOptions(**options), metrics=registry, recorder=events)
+        return SimpleNamespace(store=store, cluster=cluster, clock=clock, prov=prov, m=m, registry=registry,
+                               events=events)
 
     def sides(self):
         return (self.ref, self.port)
@@ -114,6 +123,11 @@ class Pair:
             assert got[key] == want[key], f"{key}: {got[key]!r}, reference {want[key]!r}"
         assert got["results"] == want["results"], "Results differ"
         assert got["claims"] == want["claims"], "NodeClaims differ"
+        if self.port.registry is not None:
+            from test_torch_metrics import assert_same_registry
+
+            assert_same_registry(self.port.registry, self.ref.registry, "provisioner pass")
+            assert self.port.events.reasons() == self.ref.events.reasons()
         return got
 
 
@@ -291,7 +305,13 @@ def test_watch_loss_resync():
 
 
 def test_batch_window_and_metrics_refused():
-    pair = Pair([pool(), make_pod(cpu="1", name="p0")])
+    """The batch window, and a metrics registry counting the passes as the
+    reference's does (every family, exact; histograms by their counts): the
+    claims created, the queue depth, the churn families, the effective-zone
+    gauge, the solver's counters."""
+    from karpenter_tpu_torch import metrics as pm
+
+    pair = Pair([pool(), make_pod(cpu="1", name="p0")], metrics=True)
     got = pair.reconcile()  # no trigger: the window is closed
     assert not got["ran"]
     for side in pair.sides():
@@ -299,10 +319,11 @@ def test_batch_window_and_metrics_refused():
         side.clock.step(1.5)
     got = pair.reconcile()
     assert got["ran"] and got["claims"]
-    from karpenter_tpu_torch.controllers.provisioning.provisioner import Provisioner
-
-    with pytest.raises(NotImplementedError, match="metrics"):
-        Provisioner(pair.port.store, pair.port.cluster, None, pair.port.clock, metrics=object())
+    reg = pair.port.registry
+    assert reg.counter(pm.NODECLAIMS_CREATED_TOTAL).total() == 1
+    assert reg.histogram(pm.SCHEDULER_SCHEDULING_DURATION).count() == 1
+    assert reg.counter(pm.SOLVER_SOLVE_TOTAL).value(backend="gpu") == 1
+    assert pair.port.prov.solver.last_solve_mode == "full"
 
 
 # -- the Batcher (tests/test_churn_loop.py:61) ---------------------------------------
@@ -437,3 +458,77 @@ def test_build_virtual_pods_matches_reference():
             w.metadata.name, w.metadata.uid, w.metadata.labels, w.metadata.annotations)
     cb.status.replicas = 0
     assert build_virtual_pods(carry_objects(cb), p_spec) == []
+
+
+# -- the provisioner's metrics (provisioner.py:88-106, :210-225; tests/test_effective_zone_metric.py) --
+
+@pytest.mark.parametrize("solver", ["tensor", "ffd"])
+def test_effective_zone_gauge_counts_as_the_reference(solver):
+    """Pods pinned to an unoffered zone, to one zone, and unconstrained:
+    every family equal to the reference's after each pass (the host FFD
+    publishes the effective-zone counts, the tensor path clears them), and
+    the gauge dropped once the stuck pod is gone."""
+    from karpenter_tpu_torch import metrics as pm
+
+    pods = [make_pod(cpu="100m", name="stuck", node_selector={wk.ZONE_LABEL_KEY: "test-zone-nowhere"}),
+            make_pod(cpu="100m", name="pinned", node_selector={wk.ZONE_LABEL_KEY: "test-zone-a"}),
+            make_pod(cpu="100m", name="free")]
+    pair = Pair([pool()] + pods, solver=solver, metrics=True)
+    pair.reconcile(force=True)
+    g = pair.port.registry.gauge(pm.SCHEDULER_PENDING_PODS_BY_EFFECTIVE_ZONE)
+    if solver == "ffd":
+        assert g.value(zone="test-zone-nowhere") == 1.0 and g.value(zone="flexible") == 1.0
+    else:
+        assert g.collect() == []
+    assert pair.port.registry.gauge(pm.SCHEDULER_UNSCHEDULABLE_PODS).value() == 1.0
+    for side in pair.sides():
+        side.store.delete("Pod", "stuck", namespace="default")
+    pair.reconcile(force=True)
+    assert g.value(zone="test-zone-nowhere") == 0.0
+
+
+def test_hybrid_passes_count_as_the_reference():
+    """Two hybrid passes with a registry and an event recorder on each
+    side: the solver's hybrid counters, the churn families and the events
+    equal the reference's."""
+    from karpenter_tpu_torch import metrics as pm
+
+    pair = Pair([pool()] + mixed_pods() + [preferred_affinity_pod()], metrics=True)
+    pair.reconcile(force=True)
+    pair.reconcile(force=True)
+    reg = pair.port.registry
+    assert reg.counter(pm.SOLVER_HYBRID_RESIDUAL_TOTAL).total() >= 1
+    assert reg.counter(pm.NODECLAIMS_CREATED_TOTAL).total() >= 1
+
+
+def test_podtracer_stamps_dispatch_and_solve():
+    """A pod tracer on the store's delivery seam and the provisioner: the
+    pass's batch note rides the solve's trace and the traced pods complete
+    at placement, with the same records (outcome, staging, stage names) as
+    on the reference's side."""
+    from karpenter_tpu_torch.obs.trace import TraceRecorder
+
+    pair = Pair([pool()], metrics=True)
+    pods = [make_pod(cpu="100m", name=f"t{i}") for i in range(3)]
+    carried = carry_objects(pods)
+    tracers = []
+    for side, objs in ((pair.ref, pods), (pair.port, carried)):
+        tracer = side.m("obs.podtrace").PodTracer(registry=side.registry)
+        side.store.set_event_tracer(tracer)
+        side.prov.podtracer = tracer
+        if side is pair.port:
+            side.prov.solver.recorder = TraceRecorder(enabled=True)
+        for o in objs:
+            side.store.create(o)
+        tracers.append(tracer)
+    pair.reconcile(force=True)
+    want, got = (t.dump() for t in tracers)
+
+    def shape(d):
+        return ([(e["uid"], e["name"], e["outcome"], e["staged"], sorted(e["stages"])) for e in d["events"]],
+                {k: d[k] for k in ("completed", "in_flight", "awaiting_bind", "cancelled", "deliveries")},
+                {k: v for k, v in d["slo"].items() if k != "burn_rate"})
+
+    assert shape(got) == shape(want) and got["completed"] == 3
+    batch = pair.port.prov.solver._trace.attribution["event_batch"]
+    assert batch["count"] == 3 and pair.port.prov.solver._staged_event_batch is None

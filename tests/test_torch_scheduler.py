@@ -198,13 +198,25 @@ def test_carry_over_keeps_identity():
 
 
 def test_unported_paths_raise():
-    """DRA and the metrics registry fail loudly instead of taking another
-    path."""
+    """DRA fails loudly instead of taking another path; a metrics registry
+    on the snapshot counts the FFD's memo and phases as the reference's does
+    (exact, the phase histograms by their counts)."""
+    from karpenter_tpu.metrics import make_registry
+    from test_torch_metrics import assert_same_registry, fresh_default_recorders
+
     snap = snapshot_from_reference(make_snapshot([make_pod(cpu="1")]))
     snap.dra_enabled = True
     with pytest.raises(NotImplementedError, match="dynamicresources"):
         FFDSolver().solve(snap)
-    snap.dra_enabled = False
-    snap.registry = object()
-    with pytest.raises(NotImplementedError, match="metrics"):
-        FFDSolver().solve(snap)
+    ref = make_snapshot([make_pod(cpu="1", name=f"m{i}") for i in range(6)])
+    ref.registry = make_registry()
+    port = snapshot_from_reference(ref)
+    fresh_default_recorders()
+    assert port.registry is not None and port.registry is not ref.registry
+    start = max(next(ref_nodeclaim._hostname_seq), next(port_nodeclaim._hostname_seq))
+    same_scheduler_state(start)
+    want = canonical(RefFFDSolver().solve(ref))
+    same_scheduler_state(start)
+    assert canonical(FFDSolver().solve(port)) == want
+    assert_same_registry(port.registry, ref.registry, "ffd")
+    assert port.registry.counter("karpenter_solver_ffd_memo_total").total() > 0

@@ -37,11 +37,11 @@ from test_torch_disruption import OD_ONLY, Pair, _fresh_state, fleet_env  # noqa
 torch.set_num_threads(1)
 
 
-def simulator(side, stages=None):
+def simulator(side, trace=None):
     sim_mod = side.m("solver.simulate")
     cands = side.dc.get_candidates()
     if side.port:
-        return sim_mod.ConsolidationSimulator(side.prov, side.cluster, side.clock, cands, stages=stages), cands
+        return sim_mod.ConsolidationSimulator(side.prov, side.cluster, side.clock, cands, trace=trace), cands
     return sim_mod.ConsolidationSimulator(side.prov, side.cluster, side.clock, cands), cands
 
 
@@ -157,12 +157,18 @@ def test_encodecache_untouched_by_masked_probes(fleet6):
 
 
 def test_stages_split_the_probe():
+    """The simulator's stages are spans on the round's trace; the masked
+    probe's own solve is a trace of its own, mode "sim", with its pack."""
+    from karpenter_tpu_torch.obs.trace import SolveTrace
+
     pair = flipped(fleet_env(4))
-    stages: dict = {}
-    sim, cands = simulator(pair.port, stages=stages)
-    pair.port.prov.solver.stage_times = True
+    round_trace = SolveTrace(enabled=True)
+    sim, cands = simulator(pair.port, trace=round_trace)
+    solver = pair.port.prov.solver
+    solver.stage_times = True
     sim.simulate(cands[:2])
-    assert {"sim base", "sim_mask_encode", "solve_prepared", "solve_prepared pack"} <= set(stages)
+    assert {"sim base", "sim_mask_encode", "solve_prepared"} <= set(round_trace.phase_totals)
+    assert solver.last_solve_mode == "sim" and "pack" in solver.last_stages
 
 
 def _env_with_pool():
