@@ -6,8 +6,9 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It prints the card's name and power limit, builds the eight CUDA kernels
-from `karpenter_tpu_torch/kernels/csrc/`, and for every fixture in
-`karpenter_tpu_torch/fixtures/` holds each pack kernel against its plain
+(and K2's slot-sharded form) from `karpenter_tpu_torch/kernels/csrc/`, and
+for every fixture in `karpenter_tpu_torch/fixtures/` holds each pack kernel
+against its plain
 PyTorch version on the card (`torch.equal`: integer, bool and identically
 computed f32 outputs) and the pack's flat output and final carry against the
 JAX reference stored in the fixture, and K1 on its own cases (`K1_CASES`:
@@ -127,6 +128,24 @@ its from-scratch re-simulation), the disrupted taints and the NodeClaims in
 the store (the replacement among them) must equal the reference's, with K5
 and K6 once and K1-K3 once per probe and once for the re-simulation.
 
+Then the meshed phase (`check_sharded`): the slot-sharded K2
+(`pack_scan_sharded.cu`, one cooperative launch, a block per shard, the
+three exchanges through global memory) against the plain multi-shard arm
+on `tests/test_sharded.py`'s zone-spread + anti-affinity snapshot at 3 and
+5 shards (slot axes padded), and against K2 at the headline and both
+existing fleets at 2, 4 and 8 shards and on the caps problems at 3 and 5,
+in every output and carry leaf, bit for bit, with K1 per shard
+(`sharded_feasibility`) against K1. Then `GPUSolver(mesh=make_mesh([dev] *
+4)).solve(snap)` over the seeded headline's `SOLVE_STEPS` and the hybrid
+headline's `HYBRID_STEPS`, the counts set to 0 just before each step and
+read just after: the reference's Results, mode and reasons at every step,
+K1 four times and the sharded K2 once on a full pack, the delta steps on
+the single-device path over the gathered carry. `anneal_sharded` (K7 per
+shard) against K7 on one device over the same keys, `sharded_compat_matrix`
+(K1 per shard) against K1 over the headline's pods. It times the sharded
+K2 at the headline per shard count, K2 in the same run and the plain arm
+once, and counts the exchanges.
+
 Then the delta path: every chain in `fixtures/chains/` is driven through
 `GPUSolver().solve_encoded` step by step, the counts set to 0 before each
 step and read after it. Each step must give the reference's mode and
@@ -216,7 +235,7 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
-from dataclasses import fields
+from dataclasses import fields, replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -235,6 +254,7 @@ PEAK_F32_S = 67e12
 REPLACES = {
     "feasibility": "karpenter_tpu/models/scheduler_model.py:436",
     "pack_scan": "karpenter_tpu/models/scheduler_model_grouped.py:1028",
+    "pack_scan_sharded": "karpenter_tpu/parallel/sharded.py:177",
     "sparsify": "karpenter_tpu/models/scheduler_model_grouped.py:1012",
     "recredit": "karpenter_tpu/models/scheduler_model_grouped.py:1111",
     "globalpack": "karpenter_tpu/models/globalpack.py:97",
@@ -245,7 +265,8 @@ REPLACES = {
     "anneal": "karpenter_tpu/models/consolidation_model.py:103",
     "perpod_pack": "karpenter_tpu/models/scheduler_model.py:508",
 }
-SOURCES = {"feasibility": "feasibility.cu", "pack_scan": "pack_scan.cu", "sparsify": "sparsify.cu",
+SOURCES = {"feasibility": "feasibility.cu", "pack_scan": "pack_scan.cu", "pack_scan_sharded": "pack_scan_sharded.cu",
+           "sparsify": "sparsify.cu",
            "recredit": "recredit.cu", "globalpack": "globalpack.cu", "score_subsets": "score_subsets.cu",
            "anneal_pack": "anneal.cu", "anneal": "anneal.cu", "perpod_pack": "perpod_pack.cu"}
 CONS = FIXTURES / "consolidation"
@@ -1273,6 +1294,323 @@ def check_provision(dev, card: str, errs: dict, runs: int = 5) -> dict:
           + ", ".join(f"{k} {x:.3f}" for k, x in med_split.items()) + "; solver stages ms: "
           + ", ".join(f"{k} {x:.3f}" for k, x in med.items()) + f") on {card}")
     return dict(path=path, ms=ms, stages=med, split=med_split)
+
+
+# -- the meshed phase: the slot-sharded pack on a mesh of one card's shards ------------
+
+MESH_SIZES = (2, 4, 8)  # shards of the sharded K2 held to K2 (the headline, both existing fleets)
+MESH_PLAIN_SIZES = (3, 5)  # shards of the sharded K2 held to the plain multi-shard arm (slot axes padded)
+MESH_SOLVE_SHARDS = 4  # the meshed GPUSolver's mesh: four shards of the card
+
+
+def mesh_small_snapshot():
+    """`tests/test_sharded.py`'s zone-spread + hostname anti-affinity
+    workload (6 db pods spread and anti-affine by hostname, 17 web pods
+    spread with skew 2, 9 plain pods) over the port's object model."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.cloudprovider import catalog
+    from karpenter_tpu_torch.kube import Store
+    from karpenter_tpu_torch.solver.snapshot import SolverSnapshot
+    from karpenter_tpu_torch.state.cluster import Cluster
+    from karpenter_tpu_torch.state.informer import start_informers
+    from karpenter_tpu_torch.testing import scenarios as sc
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    db, web = {"matchLabels": {"app": "db"}}, {"matchLabels": {"app": "web"}}
+    pods = ([sc.make_pod(cpu="500m", labels={"app": "db"}, tsc=[sc.zone_spread(1, db)],
+                         anti_affinity=[sc.hostname_anti_affinity(db)]) for _ in range(6)]
+            + [sc.make_pod(cpu="1", labels={"app": "web"}, tsc=[sc.zone_spread(2, web)]) for _ in range(17)]
+            + [sc.make_pod(cpu="2", memory="4Gi") for _ in range(9)])
+    store, clock = Store(), FakeClock()
+    cluster = Cluster(store, clock)
+    start_informers(store, cluster)
+    pool = sc.make_nodepool(requirements=[{"key": wk.ARCH_LABEL_KEY, "operator": "In", "values": ["amd64"]},
+                                          {"key": wk.OS_LABEL_KEY, "operator": "In", "values": ["linux"]}])
+    store.create(pool)
+    return SolverSnapshot(store=store, cluster=cluster, node_pools=[pool],
+                          instance_types={pool.metadata.name: catalog.construct_instance_types()},
+                          state_nodes=cluster.nodes(), daemonset_pods=[], pods=pods, clock=clock)
+
+
+def sharded_leaves(takes, left, shards) -> list:
+    """(name, tensor) of a slot-sharded scan's outputs: takes, leftovers and
+    every leaf of every shard's carry."""
+    out = [("takes", takes), ("leftovers", left)]
+    for s, carry in enumerate(shards):
+        out += [(f"shard {s} {leaf}", x) for leaf, x in zip(STATE_LEAVES, carry_leaves(carry))]
+    return out
+
+
+def expect_same_leaves(got: list, want: list, what: str) -> float:
+    import torch
+
+    expect([n for n, _ in got] == [n for n, _ in want], f"{what}: outputs differ in kind")
+    for (name, a), (_n, b) in zip(got, want):
+        expect(a.shape == b.shape and torch.equal(a, b), f"{what}: {name} differs")
+    return max_abs(*[(a, b) for (_n, a), (_m, b) in zip(got, want)])
+
+
+def mesh_launches(launched: tuple, full: bool, shards: int) -> dict:
+    """The launches of a solve step on the meshed solver: a step's full pack
+    (K1 -> K2 -> K3, `launched` as on one device) runs K1 once per shard and
+    the sharded K2; its delta packs and recredits are the single-device
+    path's."""
+    need = {k: int(k in launched) for k in ("feasibility", "pack_scan", "pack_scan_sharded", "sparsify", "recredit")}
+    if full:
+        need.update(feasibility=shards, pack_scan=0, pack_scan_sharded=1)
+    return need
+
+
+def check_mesh_steps(dev, what: str, fixture, steps, launches, full_steps, pods_of, force: bool) -> list:
+    """`GPUSolver(mesh=make_mesh([dev] * MESH_SOLVE_SHARDS)).solve(snap)`
+    over `steps` (the pods of step i from `pods_of(i, pods, solver)`), the
+    counts set to 0 just before each step and read just after: each step's
+    canonical Results, mode, backend and reasons equal to the reference's
+    (`fixture`, which the unmeshed solver also meets), with the launches of
+    `mesh_launches`; no step may fall back to the host (`force`: none may
+    try)."""
+    import random
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.parallel.sharded import make_mesh
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+    from karpenter_tpu_torch.testing.canonical import canonical_results, json_form
+
+    stored = json.loads(fixture.read_text())
+    expect(stored["seed"] == SNAPSHOT_SEED, f"{what}: the fixture was written for seed {stored['seed']}")
+    reset_bucket_highwater()
+    solver = GPUSolver(dev, force=force, mesh=make_mesh([dev] * MESH_SOLVE_SHARDS))
+    paths = []
+    snap = None
+    for i, (step, want, launched) in enumerate(zip(steps, stored["steps"], launches)):
+        expect(want["step"] == step, f"{what} {step}: the fixture's step is {want['step']}")
+        snap = pods_of(i, snap, solver)
+        random.seed(0)
+        build.reset_launches()
+        results = solver.solve(snap)
+        counts = {k: v for k, v in build.LAUNCHES.items() if v}
+        expect(solver.last_solve_mode != "fallback", f"{what} {step}: the solve fell back to the host")
+        backend = {"gpu": "tpu"}.get(solver.last_backend, solver.last_backend)
+        got = dict(mode=solver.last_solve_mode, backend=backend, reject=solver.last_delta_reject,
+                   reasons=list(solver.last_fallback_reasons))
+        for key, value in got.items():
+            expect(value == want[key], f"{what} {step}: {key} {value!r}, the JAX reference's {want[key]!r}")
+        expect(json_form(canonical_results(results)) == want["results"], f"{what} {step}: Results differ")
+        need = {k: v for k, v in mesh_launches(launched, step in full_steps, MESH_SOLVE_SHARDS).items() if v}
+        expect(counts == need, f"{what} {step}: launches {counts}, not {need}")
+        paths.append(counts)
+        print(f"meshed {what} {step} ({len(snap.pods)} pods, {MESH_SOLVE_SHARDS} shards): mode "
+              f"{solver.last_solve_mode}, {len(results.new_node_claims)} claims, Results == JAX reference; "
+              f"launches {counts}")
+    return paths
+
+
+def sharded_row(sharded: dict, errs: dict) -> dict:
+    """The sharded K2's entry of the `kernels` line: at MESH_SOLVE_SHARDS
+    shards, with its time per shard count and its exchanges per solve."""
+    row = kernel_row(sharded["row"], {"pack_scan_sharded": sharded["launches"]}, errs)
+    row.update(shards=MESH_SOLVE_SHARDS, ms_per_shards=sharded["ms_per_shards"], k2_same_run_ms=sharded["k2_ms"],
+               exchanges=sharded["exchanges"])
+    return row
+
+
+def check_sharded(dev, card: str, errs: dict) -> dict:
+    """The meshed phase. The slot-sharded K2 (`pack_scan_sharded`) against
+    the plain multi-shard arm on `mesh_small_snapshot` at `MESH_PLAIN_SIZES`
+    shards, against K2 at the headline and both existing fleets at
+    `MESH_SIZES` (takes, leftovers, every shard's carry), and K1 per shard
+    (`sharded_feasibility`) against K1, bit for bit. Then the meshed solve
+    over the seeded headline's `SOLVE_STEPS` and the hybrid headline's
+    `HYBRID_STEPS` (`check_mesh_steps`), `anneal_sharded` against K7 on one
+    device over the same keys and `sharded_compat_matrix` against K1 over
+    the headline's pods. Then it times the sharded K2 per shard count at the
+    headline (CUDA events, median), K2 in the same run, and the plain arm."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.anneal import anneal
+    from karpenter_tpu_torch.kernels.feasibility import compat_and_key, feasibility, feasibility_plain
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_sharded
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import make_tensors, reset_bucket_highwater
+    from karpenter_tpu_torch.models.scheduler_model_grouped import build_items, initial_state, make_item_tensors
+    from karpenter_tpu_torch.models.shard_exchange import pack_scan_sharded_plain
+    from karpenter_tpu_torch.parallel import sharded as sh
+    from karpenter_tpu_torch.solver.consolidation import tensors_from_problem
+    from karpenter_tpu_torch.solver.encode import encode
+    from karpenter_tpu_torch.solver.encoded import from_reference, load_npz
+    from karpenter_tpu_torch.utils.prng import chain_streams, prng_key, split
+
+    t1 = time.perf_counter()
+    reset_bucket_highwater()
+    problem = from_reference(encode(mesh_small_snapshot()))
+    arrays, _pods = build_items(problem)
+    items = make_item_tensors(arrays, dev)
+    t0 = make_tensors(problem, dev)
+    err = 0.0
+    for S in MESH_PLAIN_SIZES:
+        what = f"sharded K2 small S={S}"
+        mesh = sh.make_mesh([dev] * S)
+        t = sh.pad_slots_for_mesh(t0, mesh)
+        compat, key = sh.sharded_feasibility(t, items, mesh)
+        compat_p, key_p = feasibility_plain(t, items)
+        torch.cuda.synchronize()
+        expect(torch.equal(compat, compat_p) and same_bits(key, key_p), f"{what}: K1 per shard differs from plain")
+        *out, barrier = pack_scan_sharded(t, items, compat, key, n_slots=t.n_slots, n_shards=S)
+        got = sharded_leaves(*out)
+        plain = sharded_leaves(*pack_scan_sharded_plain(t, items, compat_p, key_p, n_slots=t.n_slots, n_shards=S)[:3])
+        torch.cuda.synchronize()
+        err = max(err, expect_same_leaves(got, plain, what))
+        print(f"{what} (N {t0.n_slots} -> {t.n_slots}, W {items.item_req.shape[0]}): == plain multi-shard arm, "
+              f"{int(barrier) // S} exchanges, leftovers {int(got[1][1].sum())}")
+    errs["pack_scan_sharded"] = err
+
+    exchanges = {}
+    for name in (HEADLINE, FLEET, FLEET_BIG):
+        _p, _r, t0, items, _nnz = prepare(name, dev)
+        compat, key = feasibility(t0, items)
+        for S in MESH_SIZES:
+            what = f"sharded K2 {name} S={S}"
+            mesh = sh.make_mesh([dev] * S)
+            t = sh.pad_slots_for_mesh(t0, mesh)
+            c_s, k_s = sh.sharded_feasibility(t, items, mesh)
+            takes, left, state = sh.pack_scan_sharded(t, items, c_s, k_s, mesh)
+            n_x = state.exchanges
+            takes1, left1, one = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+            torch.cuda.synchronize()
+            expect(torch.equal(c_s, compat) and same_bits(k_s, key), f"{what}: K1 per shard differs from K1")
+            got = [("takes", takes), ("leftovers", left)] + list(zip(STATE_LEAVES, carry_leaves(state.gather_state())))
+            want = [("takes", takes1), ("leftovers", left1)] + list(zip(STATE_LEAVES, carry_leaves(one)))
+            expect_same_leaves(got, want, what)
+            exchanges[(name, S)] = n_x
+        print(f"sharded K2 == K2 at {name} (N {t0.n_slots}, W {items.item_req.shape[0]}, open "
+              f"{int(one[6])}) for S in {MESH_SIZES}: exchanges " + ", ".join(f"S={S} {exchanges[(name, S)]}"
+                                                                            for S in MESH_SIZES))
+
+    # every small fixture (the host-affinity probe among them), and one
+    # whose items request nothing: a fitting open slot then holds 2^30 pods,
+    # K2's closed form for the take total fails, and such place() calls
+    # exchange their take total (gsum)
+    for name in sorted(p.stem for p in FIXTURES.glob("small_*.npz")):
+        _p, _r, t0, items0, _nnz = prepare(name, dev)
+        variants = [("", items0)]
+        if name == "small_existing_affinity":
+            variants.append((" zero requests", replace(items0, item_req=torch.zeros_like(items0.item_req))))
+        for label, items in variants:
+            compat, key = feasibility(t0, items)
+            for S in MESH_PLAIN_SIZES:
+                mesh = sh.make_mesh([dev] * S)
+                t = sh.pad_slots_for_mesh(t0, mesh)
+                takes, left, state = sh.pack_scan_sharded(t, items, compat, key, mesh)
+                n_x = state.exchanges
+                takes1, left1, one = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+                torch.cuda.synchronize()
+                got = [("takes", takes), ("leftovers", left)] + list(zip(STATE_LEAVES, carry_leaves(state.gather_state())))
+                want = [("takes", takes1), ("leftovers", left1)] + list(zip(STATE_LEAVES, carry_leaves(one)))
+                expect_same_leaves(got, want, f"sharded K2 {name}{label} S={S}")
+            print(f"sharded K2 == K2 at {name}{label} (N {t0.n_slots}) for S in {MESH_PLAIN_SIZES}: {n_x} exchanges "
+                  f"at S={S}, {place_calls(t0, items)} place() calls")
+
+    # past the axis caps (bit sets of several words, tables in the global
+    # spill): the other builds of the kernel, on padded slot axes
+    for name in CAPS_PACKS:
+        problem, ref = load_npz(CAPS / f"{name}.npz")
+        reset_bucket_highwater()
+        arrays, _pods = build_items(problem)
+        items = make_item_tensors(arrays, dev)
+        t0 = make_tensors(problem, dev, n_slots=int(ref["ref_n_slots"]))
+        compat, key = feasibility(t0, items)
+        for S in MESH_PLAIN_SIZES:
+            mesh = sh.make_mesh([dev] * S)
+            t = sh.pad_slots_for_mesh(t0, mesh)
+            takes, left, state = sh.pack_scan_sharded(t, items, compat, key, mesh)
+            takes1, left1, one = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+            torch.cuda.synchronize()
+            got = [("takes", takes), ("leftovers", left)] + list(zip(STATE_LEAVES, carry_leaves(state.gather_state())))
+            want = [("takes", takes1), ("leftovers", left1)] + list(zip(STATE_LEAVES, carry_leaves(one)))
+            expect_same_leaves(got, want, f"sharded K2 {name} S={S}")
+        print(f"sharded K2 == K2 at {name} (N {t0.n_slots}, D {t0.counts_dom_init.shape[1]}, G "
+              f"{t0.counts_dom_init.shape[0]}, R {items.item_req.shape[1]}) for S in {MESH_PLAIN_SIZES}")
+
+    snap, added, one_pod = seeded_snapshot()
+    base = list(snap.pods)
+    solve_pods = solve_step_pods(base, added, one_pod)
+
+    def solve_step(i, _prev, _solver):
+        snap.pods = solve_pods[i]
+        return snap
+
+    solve_paths = check_mesh_steps(dev, "solve", SOLVE_FIXTURE, SOLVE_STEPS, SOLVE_LAUNCHES, ("step 0",), solve_step,
+                                   force=True)
+    hsnap, _added, hone = seeded_snapshot(fallback_frac=HYBRID_FALLBACK_FRAC)
+    hpods = [list(hsnap.pods)]
+
+    def hybrid_step(i, _prev, solver):
+        hpods.append(hybrid_step_pods(i, hpods[-1], hone, solver.encode_cache.last_enc))
+        hsnap.pods = hpods[-1]
+        return hsnap
+
+    hybrid_paths = check_mesh_steps(dev, "hybrid", HYBRID_FIXTURE, HYBRID_STEPS, HYBRID_LAUNCHES,
+                                    ("H0 cold", "H3 removal"), hybrid_step, force=False)
+
+    problem, _ref = cons_load(CONS_ANNEAL)
+    ct, _aux = tensors_from_problem(problem, dev, dense_compat=True)
+    mesh = sh.make_mesh([dev] * MESH_SOLVE_SHARDS)
+    key7 = prng_key(7)
+    build.reset_launches()
+    bx, bs = sh.anneal_sharded(ct, key7, mesh, n_chains=64, n_steps=512)
+    anneal_counts = {k: v for k, v in build.LAUNCHES.items() if v}
+    x0, flips, u = (torch.from_numpy(a).to(dev) for a in chain_streams(split(key7, 64), 512, ct.node_price.shape[0]))
+    bx1, bs1 = anneal(ct, x0, flips, u)
+    torch.cuda.synchronize()
+    expect(torch.equal(bx, bx1) and torch.equal(bs, bs1), "anneal_sharded differs from K7 on one device")
+    expect(anneal_counts == {"anneal_pack": MESH_SOLVE_SHARDS, "anneal": MESH_SOLVE_SHARDS},
+           f"anneal_sharded launches {anneal_counts}")
+    from karpenter_tpu_torch.models.scheduler_model import make_pod_tensors
+
+    hp, _hr, ht, _hi, _hn = prepare(HEADLINE, dev)
+    pods = make_pod_tensors(hp, dev, ht)
+    compat_s = sh.sharded_compat_matrix(ht, pods, mesh)
+    compat_1 = compat_and_key(ht, pods.pod_mask, pods.pod_taint_ok, pods.pod_req)[0]
+    torch.cuda.synchronize()
+    expect(torch.equal(compat_s, compat_1), "sharded_compat_matrix differs from K1 over the pods")
+    print(f"anneal_sharded ({MESH_SOLVE_SHARDS} shards, 64 chains x 512 steps, {CONS_ANNEAL}) == K7 on one device, "
+          f"launches {anneal_counts}; sharded_compat_matrix ({hp.n_pods} pods) == K1")
+
+    # times at the headline: the sharded K2 per shard count, K2 in the same run, the plain arm
+    problem, _ref, t0, items, _nnz = prepare(HEADLINE, dev)
+    compat, key = feasibility(t0, items)
+    N = t0.n_slots
+    k2_ms = cuda_ms(lambda: pack_scan(t0, items, compat, key, n_slots=N), 3)
+    ms = {S: cuda_ms(lambda S=S: pack_scan_sharded(t0, items, compat, key, n_slots=N, n_shards=S), 3)
+          for S in MESH_SIZES}
+    S = MESH_SOLVE_SHARDS
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    takes_p, left_p, _shards_p, _barrier_p = pack_scan_sharded_plain(t0, items, compat, key, n_slots=N, n_shards=S)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    takes, left, _shards, _barrier = pack_scan_sharded(t0, items, compat, key, n_slots=N, n_shards=S)
+    torch.cuda.synchronize()
+    expect(torch.equal(takes, takes_p) and torch.equal(left, left_p), "sharded K2 at the headline differs from plain")
+    n_bytes, ops = k2_cost(t0, items, compat, key, initial_state(t0, N), takes, left)
+    R = items.item_req.shape[1]
+    nw = 1  # words of a domain mask at the headline (D = 5)
+    x_bytes = {s_: exchanges[(HEADLINE, s_)] * s_ * (1 + s_) * 4 * max(2, nw) + exchanges[(HEADLINE, s_)] * s_ * 8
+               for s_ in MESH_SIZES}
+    calls = place_calls(t0, items)
+    print(f"time sharded K2 at {HEADLINE} (CUDA events, median of 5 x 3): " + ", ".join(
+        f"S={s_} {ms[s_]:.4f} ms ({exchanges[(HEADLINE, s_)]} exchanges, {ms[s_] * 1e3 / exchanges[(HEADLINE, s_)]:.2f} "
+        f"us per exchange at most, {x_bytes[s_]} exchange bytes)" for s_ in MESH_SIZES)
+        + f"; K2 in the same run {k2_ms:.4f} ms ({calls} place() calls, {k2_ms * 1e3 / calls:.2f} us each); the plain "
+        f"multi-shard arm at S={S} {plain_ms:.1f} ms (one call) on {card} (R={R}, {time.perf_counter() - t1:.1f} s phase)")
+    row = dict(name="pack_scan_sharded", ms=ms[S], plain_ms=plain_ms, library_ms=None,
+               bytes=n_bytes + x_bytes[S], ops=ops)
+    return dict(row=row, ms_per_shards={str(s_): ms[s_] for s_ in MESH_SIZES}, k2_ms=k2_ms,
+                exchanges={f"{n}/{s_}": v for (n, s_), v in exchanges.items()},
+                launches=solve_paths[0].get("pack_scan_sharded", 0),
+                paths={"solve": solve_paths, "hybrid": hybrid_paths, "anneal": anneal_counts})
 
 
 class GCClock:
@@ -3157,8 +3495,8 @@ def run(dev, card: str) -> dict:
 
     names = sorted(p.stem for p in FIXTURES.glob("*.npz"))
     expect(HEADLINE in names and HEADLINE_AFF in names, "headline fixtures missing")
-    errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0, "globalpack": 0.0,
-            "score_subsets": 0.0, "anneal_pack": 0.0, "anneal": 0.0, "perpod_pack": 0.0}
+    errs = {"feasibility": 0.0, "pack_scan": 0.0, "pack_scan_sharded": 0.0, "sparsify": 0.0, "recredit": 0.0,
+            "globalpack": 0.0, "score_subsets": 0.0, "anneal_pack": 0.0, "anneal": 0.0, "perpod_pack": 0.0}
     for name in names:
         t1 = time.perf_counter()
         info = check_kernels(name, dev)
@@ -3182,8 +3520,10 @@ def run(dev, card: str) -> dict:
     provision = check_provision(dev, card, errs)
     t3 = time.perf_counter()
     consolidation = check_consolidation(dev, card, errs)
+    t4 = time.perf_counter()
+    sharded = check_sharded(dev, card, errs)
     print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {t3 - t2:.1f} s, "
-          f"consolidation phase {time.perf_counter() - t3:.1f} s")
+          f"consolidation phase {t4 - t3:.1f} s, meshed phase {time.perf_counter() - t4:.1f} s")
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
           f"{dense['ms']:.4f} ms (K1 + K2, CUDA events), {dense['plain_ms']:.4f} ms plain, "
@@ -3284,6 +3624,7 @@ def run(dev, card: str) -> dict:
     rows += time_consolidation(dev, cons_launches, errs)
     rows.append(kernel_row(perpod["perpod_pack"], perpod_runs[HEADLINE], errs))
     rows[-1].update(fleet_ms=perpod["perpod_pack"]["fleet_ms"], fleet_big_ms=perpod["perpod_pack"]["fleet_big_ms"])
+    rows.append(sharded_row(sharded, errs))
     for r in rows:
         print(f"time {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}"
@@ -3301,7 +3642,7 @@ def run(dev, card: str) -> dict:
                                        **dict(zip(("solve", "solve_resubmit", "solve_delta", "solve_delta_1pod"), solve["paths"])),
                                        **dict(zip(("hybrid", "hybrid_resubmit", "hybrid_delta_1pod", "hybrid_delta_removal",
                                                    "hybrid_residual_gone"), hybrid["paths"])),
-                                       "provision": provision["path"],
+                                       "provision": provision["path"], "meshed": sharded["paths"],
                                        "consolidation_reconcile": consolidation["pass_counts"]},
             "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"],
             "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")},

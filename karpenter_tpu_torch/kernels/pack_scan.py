@@ -1,5 +1,6 @@
 """K2 pack_scan: the grouped pack scan in one persistent CUDA block, with
-helper blocks of the same launch that first build the items' data.
+helper blocks of the same launch that first build the items' data; and its
+slot-sharded form.
 
 `pack_scan` launches `csrc/pack_scan.cu` for CUDA tensors and runs the plain
 `_pack_body` for CPU tensors. The carry is copied from `init_state` (or
@@ -7,7 +8,12 @@ built by `initial_state`) into fresh buffers that the kernel updates in
 place; they are returned as the final carry, in `initial_state`'s layout,
 so a later pack can start from them. The kernel touches only the open slots
 (`[0, open_count)` and those it opens): the slots past them come back as
-they went in."""
+they went in.
+
+`pack_scan_sharded` is the same scan with the slot axis split into S shards
+(`csrc/pack_scan_sharded.cu`: one cooperative launch, a block per shard, the
+shards' exchanges through global memory); on CPU tensors it runs the plain
+multi-shard arm (`models/shard_exchange.pack_scan_sharded_plain`)."""
 
 from __future__ import annotations
 
@@ -16,40 +22,33 @@ import ctypes
 import torch
 
 from ..models.scheduler_model_grouped import _pack_body, initial_state
+from ..models.shard_exchange import pack_scan_sharded_plain
 from . import build
 
 pack_scan_plain = _pack_body
 
 
-def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
-    """Returns (takes [W, N] i32, leftovers [W] i32, final carry)."""
+def _launch(entry: str, t, items, compat, key, N: int, carry: list, extra: tuple = ()):
+    """Check the inputs and launch `kt_<entry>` over the carry buffers
+    `carry` (updated in place, in `initial_state`'s leaf order); returns
+    (takes [W, N], leftovers [W], the scratch), or the launch's error code's
+    refusal."""
     dev = items.item_req.device
-    if dev.type == "cpu":
-        return _pack_body(t, items, n_slots=n_slots, init_state=init_state, precomputed=(compat, key))
-    if dev.type != "cuda":
-        raise build.KernelArgError(f"pack_scan: unsupported device {dev}")
     W, R = items.item_req.shape
-    N = int(n_slots)
     Nrows = t.row_alloc.shape[0]
     G, D = t.counts_dom_init.shape
-    Q = t.rank_domset.shape[0]
-    Kd = items.item_restrict.shape[1]
-    P1 = items.item_port_any.shape[1]
-    P2 = items.item_port_spec.shape[1]
-    HB = items.item_host_blocked.shape[1]
     if compat.shape != (W, Nrows) or key.shape != (W, Nrows):
-        raise build.KernelArgError("pack_scan: feasibility outputs do not match the items")
-
-    st = init_state if init_state is not None else initial_state(t, N)
-    slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone, counts_host, open_count, ports = st
-    carry = [x.clone().contiguous() for x in (slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone,
-                                              counts_host, open_count.reshape(1), *ports)]
+        raise build.KernelArgError(f"{entry}: feasibility outputs do not match the items")
     if carry[0].shape != (N,) or carry[1].shape != (N, R) or carry[5].shape != (G, N):
-        raise build.KernelArgError("pack_scan: carry does not match n_slots")
-    d_arr = (ctypes.c_int * 13)(W, N, Nrows, R, D, G, Q, Kd, P1, P2, HB, int(t.n_existing), int(t.n_rows_real))
+        raise build.KernelArgError(f"{entry}: carry does not match n_slots")
+    dims = (W, N, Nrows, R, D, G, t.rank_domset.shape[0], items.item_restrict.shape[1], items.item_port_any.shape[1],
+            items.item_port_spec.shape[1], items.item_host_blocked.shape[1], int(t.n_existing), int(t.n_rows_real))
+    d_arr = (ctypes.c_int * (13 + len(extra)))(*dims, *extra)
+    lib = build.lib()
     takes = torch.zeros((W, N), dtype=torch.int32, device=dev)
     leftovers = torch.zeros(W, dtype=torch.int32, device=dev)
-    scratch = torch.zeros(build.lib().kt_pack_scan_scratch(ctypes.addressof(d_arr)), dtype=torch.int32, device=dev)
+    scratch = torch.zeros(getattr(lib, f"kt_{entry}_scratch")(ctypes.addressof(d_arr)), dtype=torch.int32,
+                          device=dev)
     b, f, i = torch.bool, torch.float32, torch.int32
     inputs = [
         (t.row_alloc, f), (t.row_pool_rank, i), (t.rank_domset, b), (t.rank_dom_cap, f), (t.dom_key_of, i),
@@ -64,9 +63,66 @@ def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
     ptrs += [build.require(x, dev, dt, f"carry {k}").data_ptr() for k, (x, dt) in enumerate(zip(carry, carry_types))]
     ptrs += [takes.data_ptr(), leftovers.data_ptr(), scratch.data_ptr()]
     p_arr = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    rc = build.lib().kt_pack_scan(ctypes.addressof(p_arr), ctypes.addressof(d_arr), build.stream_ptr(dev))
-    build.check(rc, "pack_scan")
-    build.LAUNCHES["pack_scan"] += 1
+    rc = getattr(lib, f"kt_{entry}")(ctypes.addressof(p_arr), ctypes.addressof(d_arr), build.stream_ptr(dev))
+    if rc == _TOO_LARGE:
+        raise build.KernelArgError(f"{entry}: its scan blocks and the item blocks do not fit on the card at once "
+                                   "(a cooperative launch)")
+    build.check(rc, entry)
+    build.LAUNCHES[entry] += 1
+    return takes, leftovers, scratch
+
+
+def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
+    """Returns (takes [W, N] i32, leftovers [W] i32, final carry)."""
+    dev = items.item_req.device
+    if dev.type == "cpu":
+        return _pack_body(t, items, n_slots=n_slots, init_state=init_state, precomputed=(compat, key))
+    if dev.type != "cuda":
+        raise build.KernelArgError(f"pack_scan: unsupported device {dev}")
+    N = int(n_slots)
+    st = init_state if init_state is not None else initial_state(t, N)
+    slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone, counts_host, open_count, ports = st
+    carry = [x.clone().contiguous() for x in (slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone,
+                                              counts_host, open_count.reshape(1), *ports)]
+    takes, leftovers, _scratch = _launch("pack_scan", t, items, compat, key, N, carry)
     state = (carry[0], carry[1], carry[2], carry[3], carry[4], carry[5], carry[6].reshape(()),
              (carry[7], carry[8], carry[9]))
     return takes, leftovers, state
+
+
+# cudaErrorCooperativeLaunchTooLarge: the scan blocks and the item blocks
+# cannot all be resident at once
+_TOO_LARGE = 82
+MAX_SHARDS = 32  # one lane of a warp per shard in the exchange's reductions
+
+
+def pack_scan_sharded(t, items, compat, key, *, n_slots: int, n_shards: int):
+    """The scan with the slot axis split into `n_shards` shards of N / S
+    slots, from the initial carry. Returns (takes [W, N] i32, leftovers [W]
+    i32, the shards' carries in `initial_state`'s layout over their slots,
+    barrier): on CUDA the carries are views into the launch's buffers and
+    `barrier` is the launch's barrier counter (word 1 of its scratch, 0-d
+    int32), where every shard block adds one per exchange."""
+    dev = items.item_req.device
+    if dev.type == "cpu":
+        return pack_scan_sharded_plain(t, items, compat, key, n_slots=n_slots, n_shards=n_shards)
+    if dev.type != "cuda":
+        raise build.KernelArgError(f"pack_scan_sharded: unsupported device {dev}")
+    N, S = int(n_slots), int(n_shards)
+    if not 1 <= S <= MAX_SHARDS or N % S:
+        raise build.KernelArgError(f"pack_scan_sharded: {N} slots do not split into {S} shards (1 <= S <= {MAX_SHARDS})")
+    slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone, counts_host, open_count, ports = initial_state(t, N)
+    # the slot leaves over all N slots (shard s owns [s N / S, (s + 1) N / S));
+    # counts_zone and open_count once per shard
+    carry = [x.clone().contiguous() for x in (slot_basis, slot_rem, slot_zoneset, slot_rank)]
+    carry += [counts_zone.unsqueeze(0).repeat(S, 1, 1).contiguous(), counts_host.clone().contiguous(),
+              open_count.reshape(1).repeat(S).contiguous()]
+    carry += [x.clone().contiguous() for x in ports]
+    takes, leftovers, scratch = _launch("pack_scan_sharded", t, items, compat, key, N, carry, extra=(S,))
+    n = N // S
+    shards = tuple(
+        (carry[0][s * n:(s + 1) * n], carry[1][s * n:(s + 1) * n], carry[2][s * n:(s + 1) * n],
+         carry[3][s * n:(s + 1) * n], carry[4][s], carry[5][:, s * n:(s + 1) * n], carry[6][s],
+         tuple(carry[k][s * n:(s + 1) * n] for k in (7, 8, 9)))
+        for s in range(S))
+    return takes, leftovers, shards, scratch[1]

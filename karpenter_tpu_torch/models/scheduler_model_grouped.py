@@ -354,25 +354,53 @@ def _waterfill_multi(counts_g, member, skew_g, reg_g, min_domains_g, za, avail, 
 # -- the pack scan (plain version of kernel K2) ----------------------------------
 
 
-def initial_state(t: SchedulerTensors, n_slots: int):
+class SlotExchange:
+    """The slot axis's three cross-slot reductions on one device (the
+    reference's `axis=None` arm, `_pack_body` :482-495): the exclusive
+    prefix sum (`gprefix`), the sum (`gsum`) and the any over slots
+    (`gany_slots`). `parallel/sharded.py` gives `_pack_body` a shard's
+    exchange instead; its slot arrays are then the shard's slots
+    `[index * N_loc, (index + 1) * N_loc)` of the global axis."""
+
+    index = 0
+    count = 1
+
+    def gprefix(self, v):
+        return _i32(torch.cumsum(v, 0, dtype=torch.int64) - v)
+
+    def gsum(self, v):
+        return _i32(v.sum())
+
+    def gany_slots(self, m):
+        return m.any(dim=0)
+
+
+SINGLE = SlotExchange()
+
+
+def initial_state(t: SchedulerTensors, n_slots: int, exchange: SlotExchange = SINGLE):
     """The scan's starting carry: slots below n_existing hold the existing
     nodes' envelopes, domain sets and ports; the rest are closed.
     (slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone, counts_host,
-    open_count, (port_any, port_wild, port_spec))."""
+    open_count, (port_any, port_wild, port_spec)). Under a shard's exchange
+    the slot leaves are the shard's (global slot ids, reference :497-501)."""
     dev = t.device
     Nrows = t.row_alloc.shape[0]
-    slot_ids = torch.arange(n_slots, dtype=torch.int32, device=dev)
+    n_loc = n_slots // exchange.count
+    lo = exchange.index * n_loc
+    slot_ids = lo + torch.arange(n_loc, dtype=torch.int32, device=dev)
     in_ex = slot_ids < t.n_existing
     safe_row = torch.clamp(slot_ids, 0, Nrows - 1).to(torch.int64)
     safe_ex = torch.clamp(slot_ids, 0, t.existing_domset.shape[0] - 1).to(torch.int64)
     col = in_ex.unsqueeze(1)
+    counts_host = t.counts_host_init if exchange.count == 1 else t.counts_host_init[:, lo:lo + n_loc]
     return (
         torch.where(in_ex, slot_ids, -1).to(torch.int32),
         torch.where(col, t.row_alloc[safe_row], NEG).to(torch.float32),
         torch.where(col, t.existing_domset[safe_ex], False),
-        torch.full((n_slots,), -1, dtype=torch.int32, device=dev),
+        torch.full((n_loc,), -1, dtype=torch.int32, device=dev),
         t.counts_dom_init.clone(),
-        t.counts_host_init.clone(),
+        counts_host.clone(),
         torch.tensor(t.n_existing, dtype=torch.int32, device=dev),
         (
             torch.where(col, t.existing_port_any[safe_ex], False),
@@ -382,22 +410,29 @@ def initial_state(t: SchedulerTensors, n_slots: int):
     )
 
 
-def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_state=None, precomputed=None):
-    """Plain PyTorch version of the grouped pack scan (single device).
+def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_state=None, precomputed=None,
+               exchange: SlotExchange = SINGLE):
+    """Plain PyTorch version of the grouped pack scan.
 
     Walks the W items in order; each step dispatches one of five paths
     (simple / zone / anti / dom-affinity / host-affinity), every path placing
     replicas through `place`. Returns (takes [W, N] i32, leftovers [W] i32,
-    final carry) — the carry in `initial_state`'s layout."""
+    final carry) — the carry in `initial_state`'s layout. Every reduction
+    over slots goes through `exchange` (reference `axis`, :450-512): under a
+    shard's exchange the slot arrays, takes and carry are the shard's, N
+    stays the global slot count and every other value is the same in every
+    shard."""
     dev = t.device
     W, R = items.item_req.shape
     N = n_slots
+    ex = exchange
+    n_loc = N // ex.count
     Nrows = t.row_alloc.shape[0]
     G, D = t.counts_dom_init.shape
     Kd = items.item_restrict.shape[1]
     Q = t.rank_domset.shape[0]
     n_existing = t.n_existing
-    slot_ids = torch.arange(N, dtype=torch.int32, device=dev)
+    slot_ids = ex.index * n_loc + torch.arange(n_loc, dtype=torch.int32, device=dev)
     in_existing = slot_ids < n_existing
     row_ids = torch.arange(Nrows, dtype=torch.int32, device=dev)
     is_offering_row = (row_ids >= n_existing) & (row_ids < t.n_rows_real)
@@ -420,8 +455,8 @@ def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_st
         compat_items = compat_matrix(t.row_labels, t.row_taint_class, items.item_mask, items.item_taint_ok, t.dom_keys)
         choose_key_items = row_choose_key(t.row_alloc, t.row_pool_rank, items.item_req)
 
-    state = init_state if init_state is not None else initial_state(t, N)
-    takes = torch.zeros((W, N), dtype=torch.int32, device=dev)
+    state = init_state if init_state is not None else initial_state(t, N, ex)
+    takes = torch.zeros((W, n_loc), dtype=torch.int32, device=dev)
     leftovers = torch.zeros(W, dtype=torch.int32, device=dev)
 
     for i in range(W):
@@ -503,9 +538,9 @@ def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_st
                 0,
             )
             cap_j = torch.clamp(cap_j, 0, INF_I)
-            prefix = _i32(torch.cumsum(cap_j, 0, dtype=torch.int64) - cap_j)
+            prefix = ex.gprefix(cap_j)
             take = torch.minimum(torch.clamp_min(cnt - prefix, 0), cap_j).to(torch.int32)
-            left = cnt - _i32(take.sum())
+            left = cnt - ex.gsum(take)
 
             rank_cap_ok = (t.rank_domset & narrow & rank_fits_d).any(dim=1)
             fr = fits_row & (rank_ok & rank_cap_ok)[rank_of_row]
@@ -520,7 +555,7 @@ def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_st
             is_new = (slot_ids >= open_count) & (slot_ids < open_count + m)
             pos = slot_ids - open_count
             new_take = torch.where(is_new, torch.minimum(torch.clamp_min(left - pos * cstar, 0), cstar), 0).to(torch.int32)
-            left = left - _i32(new_take.sum())
+            left = left - ex.gsum(new_take)
 
             new_zs = t.rank_domset[ro] & narrow
             col = is_new.unsqueeze(1)
@@ -566,7 +601,7 @@ def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_st
             def dom_ok_of(zs_now):
                 return perkey_dom_ok(zs_now, za, restrict, t.dom_key_of)
 
-            any_rec = bool(rec_ok_of(st[4]).any())
+            any_rec = bool(ex.gsum(rec_ok_of(st[4]).to(torch.int32)) > 0)
             boot_cnt = torch.zeros_like(c) if any_rec else torch.clamp_max(c, 1)
             take1, left1, st = place(boot_cnt, slot_compat_of(st[2]) & dom_ok_of(st[1]), rank_ok_all, za, st)
             rest = c - (boot_cnt - left1)
@@ -580,7 +615,7 @@ def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_st
             allowed_rec = za & kmask & reg_star & (vsum > 0)
             any_rec = bool(allowed_rec.any())
             bootstrapable = za & kmask & reg_star
-            take_all = torch.zeros(N, dtype=torch.int32, device=dev)
+            take_all = torch.zeros(n_loc, dtype=torch.int32, device=dev)
             pending = c
             placed_z = torch.zeros(D, dtype=torch.int32, device=dev)
             boot = -1
@@ -597,7 +632,7 @@ def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_st
             counts_zone = counts_zone + torch.where(aff_mask.unsqueeze(1), placed_z.unsqueeze(0), 0)
         elif is_anti_item:
             reg_star = torch.where(zone_member_mask.unsqueeze(1), t.group_registered, False).any(dim=0)
-            take_all = torch.zeros(N, dtype=torch.int32, device=dev)
+            take_all = torch.zeros(n_loc, dtype=torch.int32, device=dev)
             pending = c
             for _ in range(D + 1):
                 vsum = _i32(torch.where(zone_member_mask.unsqueeze(1), counts_zone, 0).sum(dim=0))
@@ -607,15 +642,15 @@ def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_st
                 row_gate = (t.rank_domset & empty).any(dim=1) & rank_ok_other
                 cnt = torch.clamp_max(pending, 1)
                 take, left, st = place(cnt, elig, row_gate, narrow, st)
-                blocked = ((take > 0).unsqueeze(1) & st[1]).any(dim=0) & kmask
+                blocked = ex.gany_slots((take > 0).unsqueeze(1) & st[1]) & kmask
                 counts_zone = counts_zone + torch.where(zone_member_mask.unsqueeze(1), blocked.to(torch.int32).unsqueeze(0), 0)
                 take_all = take_all + take
                 pending = pending - (cnt - left)
         elif is_zm:
-            slotcap_z = (
+            slotcap_z = ex.gany_slots(
                 (slot_compat_of(st[2]) & (_int_cap(st[0], req) > 0) & port_ok_of(st[6]) & other_ok_of(st[1])).unsqueeze(1)
                 & st[1]
-            ).any(dim=0)
+            )
             zm_col = zone_member_mask.unsqueeze(1)
             vsum = _i32(torch.where(zm_col, counts_zone, 0).sum(dim=0))
             skew_star = torch.where(zone_member_mask & is_dom_spread_g, t.group_skew, INF_I).amin()
@@ -650,7 +685,7 @@ def _pack_body(t: SchedulerTensors, items: ItemTensors, *, n_slots: int, init_st
                 head = torch.where(zm_col, head_g, INF_I).amin(dim=0)
                 return torch.clamp(torch.where(reg_all_members & available, head, 0), 0, INF_I)
 
-            take_all = torch.zeros(N, dtype=torch.int32, device=dev)
+            take_all = torch.zeros(n_loc, dtype=torch.int32, device=dev)
             pending = c - _i32(inc.sum())
             placed_z = torch.zeros(D, dtype=torch.int32, device=dev)
             for z in range(D):

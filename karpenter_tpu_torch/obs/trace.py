@@ -56,6 +56,10 @@ JIT_WATCHLIST = (
     ("anneal", "karpenter_tpu_torch.models.consolidation_model", "anneal_chains"),
     ("lp_repack", "karpenter_tpu_torch.models.consolidation_model", "lp_repack"),
     ("lp_score", "karpenter_tpu_torch.models.consolidation_model", "score_subsets"),
+    # the meshed pack's entry points (`parallel/sharded.py`): its slot-sharded
+    # scan and its batch-sharded feasibility
+    ("pack_sharded", "karpenter_tpu_torch.parallel.sharded", "pack_scan_sharded"),
+    ("shard_feas", "karpenter_tpu_torch.parallel.sharded", "sharded_feasibility"),
 )
 
 _BUILD_MODULE = "karpenter_tpu_torch.kernels.build"

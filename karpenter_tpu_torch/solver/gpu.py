@@ -43,6 +43,14 @@ The trace's spans carry the reference's names (`encode`, `pack`,
 `validate`, `decode`, `residual`, `fallback`); the port's finer stages
 (`PORT_SPANS`) are child spans inside them.
 
+`GPUSolver(mesh=...)` (reference :253-262, :337-365) packs in full on a
+mesh of shards (`parallel/sharded.py`): "auto", the default, is None (the
+single-device path) until a mesh over distinct cards has its exchange
+(ROADMAP Queue 1 item 9); an explicit such mesh raises. The meshed full
+pack pads the slot axis to a mesh multiple, runs K1 once per shard and the
+slot-sharded K2 under a `shard_exchange` span, and keeps its carry per
+shard; a delta gathers it once and runs the single-device path over it.
+
 `solve_prepared(snap, enc)` packs an encoding derived outside the solver
 (a consolidation probe's masked sub-encode) in full, flight-recorded as
 mode "sim", and leaves the warm state of the provisioning solves as it
@@ -84,6 +92,15 @@ from ..models.scheduler_model_grouped import (
 )
 from ..kernels.build import device_fault
 from ..obs.trace import SolveTrace, default_recorder
+from ..parallel.sharded import (
+    ShardedState,
+    default_mesh,
+    greedy_pack_compressed_sharded,
+    mesh_device,
+    on_one_device,
+    pad_slots_for_mesh,
+    same_device,
+)
 from ..scheduling.hostports import pod_host_ports as _php
 from ..scheduling.requirements import Operator, Requirement, Requirements
 from ..utils import resources as res
@@ -257,8 +274,20 @@ class GPUSolver:
     name = "gpu"
 
     def __init__(self, device=None, force: bool = False, stage_times: bool = False, registry=None, recorder=None,
-                 tenant: str = "", recover: bool = True):
+                 tenant: str = "", recover: bool = True, mesh="auto"):
         self.device = resolve_device(device)
+        # the meshed pack (reference tpu.py:253-262): "auto" resolves through
+        # default_mesh() (None on one card); an explicit Mesh or None
+        # overrides it. A mesh's shards lie on this solver's device. A mesh
+        # over distinct cards has no exchange yet (ROADMAP Queue 1 item 9):
+        # "auto" then takes the single-device path, an explicit one raises.
+        if mesh == "auto":
+            mesh = default_mesh()
+            if mesh is not None and not on_one_device(mesh):
+                mesh = None
+        if mesh is not None and not same_device(mesh_device(mesh), self.device):
+            raise ValueError(f"GPUSolver: the mesh's device {mesh.devices[0]} is not the solver's {self.device}")
+        self.mesh = mesh
         self.force = force
         self.recover = recover
         self.fault_hook = None
@@ -749,11 +778,9 @@ class GPUSolver:
         cap = p.n_existing + min(p.n_pods, SLOT_CAP)
         with self._span("make_tensors"):
             t = make_tensors(p, self.device, n_slots=cap)
-        with self._span("scan"):
-            out = greedy_pack_grouped_compressed(t, items, p.n_pods)
-            if out["open_count"] == out["n_slots"] and int(out["leftovers"].sum()) > 0 and cap < p.n_existing + p.n_pods:
-                t = make_tensors(p, self.device)
-                out = greedy_pack_grouped_compressed(t, items, p.n_pods)
+        t, out = self._pack(t, items, p.n_pods)
+        if out["open_count"] == out["n_slots"] and int(out["leftovers"].sum()) > 0 and cap < p.n_existing + p.n_pods:
+            t, out = self._pack(make_tensors(p, self.device), items, p.n_pods)
         with self._span("assignment"):
             assignment = assignment_from_triples(out["nz_item"], out["nz_slot"], out["nz_count"], item_pods, p.n_pods)
         relax = bool(p.has_relaxable and (assignment < 0).any())
@@ -777,6 +804,20 @@ class GPUSolver:
             targets=item_pad_targets(t, items),
         )
 
+    def _pack(self, t, items, n_pods: int):
+        """The full pack, K1 -> K2 -> K3 (span `scan`). On a mesh of more
+        than one shard (reference tpu.py:337-365): the slot axis padded to a
+        mesh multiple, batch-sharded feasibility, the slot-sharded scan, then
+        K3 over the gathered takes, under a `shard_exchange` span (its n_dev
+        the mesh size). Returns (the tensors the pack and its carry are
+        consistent with, its outputs)."""
+        if self.mesh is None or self.mesh.size <= 1:
+            with self._span("scan"):
+                return t, greedy_pack_grouped_compressed(t, items, n_pods)
+        t = pad_slots_for_mesh(t, self.mesh)
+        with self._span("shard_exchange", n_dev=int(self.mesh.size)), self._span("scan"):
+            return t, greedy_pack_compressed_sharded(t, items, n_pods, self.mesh)
+
     # -- delta -----------------------------------------------------------------
 
     def _solve_delta_inner(self, problem: EncodedProblem, base: EncodedProblem) -> PackResult | None:
@@ -785,6 +826,11 @@ class GPUSolver:
         resident = self._resident
         t = resident["t"]
         state = resident["state"]
+        if isinstance(state, ShardedState):
+            # a meshed pack's carry: the delta runs on the single-device path
+            # over it, gathered once (the reference's delta over its sharded
+            # carry, parallel/sharded.py:29-34)
+            state = state.gather_state()
         prev_assignment = resident["assignment"]
         slot_basis = resident["slot_basis"]
         slot_zoneset = resident["slot_zoneset"]

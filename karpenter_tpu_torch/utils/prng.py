@@ -151,12 +151,18 @@ def lp_inits(seed: int, n_inits: int, n: int, q: int) -> tuple[np.ndarray, np.nd
 
 
 def anneal_streams(seed: int, n_chains: int, n_steps: int, n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The annealed search's streams (`anneal_chains`): per key of
-    `split(PRNGKey(seed), n_chains)`, (k_init, k_loop) = split(key), x0 =
-    bernoulli(k_init, 0.3, (n,)); then per step (key, k1, k2) = split(key,
-    3), the flip randint(k1, (), 0, n) and the acceptance draw uniform(k2).
-    Returns (x0 [C, n] bool, flips [C, S] int32, u [C, S] float32)."""
-    keys = split(prng_key(seed), n_chains)
+    """The annealed search's streams (`anneal_chains`) for the keys of
+    `split(PRNGKey(seed), n_chains)`: `chain_streams` of them."""
+    return chain_streams(split(prng_key(seed), n_chains), n_steps, n)
+
+
+def chain_streams(keys: np.ndarray, n_steps: int, n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The streams `anneal_chains` draws from each key of `keys` [C, 2]:
+    (k_init, k_loop) = split(key), x0 = bernoulli(k_init, 0.3, (n,)); then
+    per step (key, k1, k2) = split(key, 3), the flip randint(k1, (), 0, n)
+    and the acceptance draw uniform(k2). Returns (x0 [C, n] bool, flips
+    [C, S] int32, u [C, S] float32)."""
+    n_chains = keys.shape[0]
     kk = split(keys, 2)
     x0 = bernoulli(kk[:, 0], 0.3, (n,))
     key = kk[:, 1]

@@ -72,8 +72,8 @@ def test_gpusolver_on_card_matches_reference(cuda_device):
     problem, ref = load_npz(FIXTURE_DIR / "small_spread_anti_ports.npz")
     build.reset_launches()
     res = GPUSolver().solve_encoded(problem)
-    assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "sparsify": 1, "recredit": 0, "globalpack": 0,
-                              "score_subsets": 0, "anneal_pack": 0, "anneal": 0, "perpod_pack": 0}
+    assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "pack_scan_sharded": 0, "sparsify": 1, "recredit": 0,
+                              "globalpack": 0, "score_subsets": 0, "anneal_pack": 0, "anneal": 0, "perpod_pack": 0}
     assert res.errors == []
     np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
 
@@ -466,3 +466,64 @@ def test_feasibility_random_edges_equal_plain_on_card(cuda_device, seed):
     assert build.LAUNCHES["feasibility"] == 1
     compat_p, key_p = compat_and_key_plain(*args)
     assert torch.equal(compat, compat_p) and torch.equal(key.view(torch.int32), key_p.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SMALL)
+@pytest.mark.parametrize("n_shards", (3, 8))
+def test_sharded_pack_scan_equals_k2_and_plain_on_card(cuda_device, name, n_shards):
+    """The slot-sharded K2 against K2 (gathered carry) and against the plain
+    multi-shard arm (every shard's carry), on a slot axis padded to the
+    shard count."""
+    from karpenter_tpu_torch.kernels.feasibility import feasibility
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_sharded
+    from karpenter_tpu_torch.models import scheduler_model_grouped as tsg
+    from karpenter_tpu_torch.models.shard_exchange import pack_scan_sharded_plain
+    from karpenter_tpu_torch.parallel import sharded as sh
+
+    problem, ref = load_npz(FIXTURE_DIR / f"{name}.npz")
+    arrays, _pods = tsg.build_items(problem)
+    items = tsg.make_item_tensors(arrays, cuda_device)
+    mesh = sh.make_mesh([cuda_device] * n_shards)
+    t = sh.pad_slots_for_mesh(tsm.make_tensors(problem, cuda_device, n_slots=int(ref["ref_n_slots"])), mesh)
+    compat, key = feasibility(t, items)
+    takes, left, shards, barrier = pack_scan_sharded(t, items, compat, key, n_slots=t.n_slots, n_shards=n_shards)
+    takes_p, left_p, shards_p, _barrier_p = pack_scan_sharded_plain(t, items, compat, key, n_slots=t.n_slots,
+                                                                    n_shards=n_shards)
+    takes_1, left_1, one = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+    assert torch.equal(takes, takes_p) and torch.equal(left, left_p)
+    assert torch.equal(takes, takes_1) and torch.equal(left, left_1)
+    for s, s_p in zip(shards, shards_p):
+        for a, b in zip(list(s[:7]) + list(s[7]), list(s_p[:7]) + list(s_p[7])):
+            assert torch.equal(a, b)
+    assert int(barrier) % n_shards == 0 and int(barrier) > 0
+    whole = sh.ShardedState(mesh, shards, barrier).gather_state()
+    for a, b in zip(list(whole[:7]) + list(whole[7]), list(one[:7]) + list(one[7])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_meshed_solver_on_card_matches_unmeshed(cuda_device):
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.parallel.sharded import make_mesh
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+
+    problem, ref = load_npz(FIXTURE_DIR / "small_spread_anti_ports.npz")
+    build.reset_launches()
+    res = GPUSolver(mesh=make_mesh([cuda_device] * 4)).solve_encoded(problem)
+    assert build.LAUNCHES["pack_scan_sharded"] == 1 and build.LAUNCHES["feasibility"] == 4
+    assert build.LAUNCHES["pack_scan"] == 0
+    assert res.errors == []
+    np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
+
+
+@pytest.mark.gpu
+def test_sharded_pack_scan_refuses_what_it_cannot_split(cuda_device):
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan_sharded
+    from types import SimpleNamespace as NS
+
+    x = torch.zeros((2, 2), dtype=torch.float32, device=cuda_device)
+    for n_slots, n_shards in ((10, 3), (64, 33)):
+        with pytest.raises(build.KernelArgError, match="do not split"):
+            pack_scan_sharded(None, NS(item_req=x), None, None, n_slots=n_slots, n_shards=n_shards)

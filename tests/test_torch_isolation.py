@@ -8,7 +8,8 @@ provisioning pass over a store (`Provisioner.reconcile`) and one disruption
 pass over its own consolidation fleet (`DisruptionController.reconcile`:
 the LP proposer, a masked probe, the Validator, a replacement created) —
 the solves, the pass and the round with a metrics registry, an enabled
-trace recorder and an event recorder."""
+trace recorder and an event recorder — and solves the encoding again on a
+mesh of three CPU shards (`parallel/sharded.py`)."""
 
 from __future__ import annotations
 
@@ -40,6 +41,11 @@ _CHILD = textwrap.dedent(
     res = GPUSolver(device="cpu").solve_encoded(p)
     assert res.errors == [], res.errors
     assert (res.assignment == ref["ref_assignment"]).all()
+    from karpenter_tpu_torch.parallel.sharded import ShardedState, make_mesh
+    meshed = GPUSolver(device="cpu", mesh=make_mesh(["cpu"] * 3))
+    res = meshed.solve_encoded(p)
+    assert res.errors == [] and (res.assignment == ref["ref_assignment"]).all(), res.errors
+    assert isinstance(meshed._resident["state"], ShardedState)
     from karpenter_tpu_torch.solver.encode import encode
     from karpenter_tpu_torch.solver.encoded import from_reference
     from karpenter_tpu_torch.solver.ffd import FFDSolver
@@ -131,6 +137,14 @@ def test_no_port_file_imports_jax_or_reference():
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+def test_parallel_imports_nothing_of_jax_or_reference():
+    """The meshed pack (`parallel/`) stands alone like the rest of the port:
+    no import of jax or of the JAX package, lazy ones included."""
+    files = sorted((PORT / "parallel").glob("*.py"))
+    assert [f.name for f in files] == ["__init__.py", "sharded.py"]
+    assert [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN] == []
 
 
 def test_relative_imports_name_port_modules():

@@ -388,7 +388,7 @@ class TestKernelLibrarySentinel:
         from karpenter_tpu.obs.trace import JIT_WATCHLIST as REF
         from karpenter_tpu_torch.obs.trace import JIT_WATCHLIST
 
-        ref_labels = [label for label, _m, _a in REF if label not in ("pack_sharded", "shard_feas")]
+        ref_labels = [label for label, _m, _a in REF]
         assert [label for label, _m, _a in JIT_WATCHLIST] == ref_labels
         for _label, mod, attr in JIT_WATCHLIST:
             fn = getattr(__import__(mod, fromlist=[attr]), attr)

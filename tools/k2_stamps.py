@@ -6,7 +6,8 @@ Run on a machine with a CUDA card, from the repository root:
     python3 tools/k2_stamps.py karpenter_tpu_torch/kernels/csrc/pack_scan.cu
 
 It builds the given source as it is, and a copy with `clock64()` stamps in
-thread 0, each with nvcc into its own library under `build/stamps/`, and
+thread 0 (the source with the header it includes, `pack_scan_common.cuh`
+from its own directory, put in its place), each with nvcc into its own library under `build/stamps/`, and
 runs both through the `pack_scan` wrapper on the two headline fixtures and
 the two existing fleets (K1's outputs from its plain version; both checked
 against the plain pack). Each stamp adds the cycles since the previous
@@ -62,7 +63,8 @@ STAMPS = (
     ("  // wait for the item blocks", "before", "setup"),
     ("  if (W > 0 && FITS) prefetch_item(k, a, 0, 0);", "before", "wait_items"),
     ("  int xc = 0, pc = 0;", "before", "first_prefetch"),
-    ("  const int oc0 = oc, nch = (oc0 + NT - 1) / NT;\n", "after", "branch"),
+    ("  const int nch = C::kSharded ? (max(ahi - k.base(), 0) + NT - 1) / NT : (oc0 + NT - 1) / NT;\n", "after",
+     "branch"),
     ("  float bv = __int_as_float(0x7f800000);\n", "before", "place_a_slots"),
     ("  for (int off = 16; off > 0; off >>= 1) {\n", "before", "place_a_rows"),
     ("    s.xmax[b1][w] = mx;\n  }\n", "after", "place_a_reduce"),
@@ -71,8 +73,22 @@ STAMPS = (
     ("  oc = wadd(oc0, m);", "before", "place_c"),
     ("    cp_async_wait_all();  // item i+1's data\n", "before", "branch"),
     ("    cp_async_wait_all();  // item i+1's data\n    __syncthreads();\n", "after", "item_end_wait"),
-    ("  if (tid == 0) a.open_count[0] = oc;", "before", "final"),
+    ("  if (tid == 0) a.open_count[X::kSharded ? k.shard : 0] = oc;", "before", "final"),
 )
+
+
+HEADER = "pack_scan_common.cuh"
+
+
+def whole_source(path: Path) -> str:
+    """The source at `path` with the shared header it includes (from the
+    same directory) put in place of its #include: one text to stamp and
+    to build."""
+    src = path.read_text()
+    inc = f'#include "{HEADER}"'
+    if inc in src:
+        src = src.replace(inc, (path.parent / HEADER).read_text().replace("#pragma once\n", ""))
+    return src
 
 
 def stamped_source(src: str) -> str:
@@ -154,7 +170,7 @@ def main() -> int:
     from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_plain
 
     dev = torch.device("cuda")
-    src = Path(sys.argv[1]).read_text()
+    src = whole_source(Path(sys.argv[1]))
     text = stamped_source(src)
     with ThreadPoolExecutor(2) as ex:
         stamped, unstamped = ex.map(lambda ts: build_one(*ts), ((text, "pack_scan_stamped"),
