@@ -106,6 +106,23 @@ runs: a cold hybrid solve by stage (encode, mask_encode, the masked pack,
 decode, residual), the warm one-pod hybrid-delta and one provisioning pass
 on a fresh store and solver.
 
+Then the DRA phase (`check_dra`): the seeded headline made into its DRA
+variant (`testing/scenarios.add_dra`: 256 of its plain pods hold a device
+claim from a `ResourceClaimTemplate`, 192 one GPU and 64 two GPUs of one
+NVLink island under a matchAttribute constraint; a `DeviceClass` selects
+the GPUs by a CEL expression; 16 of the 100 instance types carry 8 template
+GPUs, one of them drawing on a partitionable counter set), solved cold
+(D0) and with one plain pod appended (D1) by `GPUSolver().solve`, then one
+`Provisioner.reconcile(force=True)` with the DynamicResources gate on over
+a store holding its pods pending (D2), the counts set to 0 just before each
+step and read just after. Each step's canonical `Results`, mode, backend,
+fallback reasons, the residual allocator's committed allocations and claim
+metadata and D2's NodeClaims must equal the JAX reference's
+(`fixtures/snapshot/headline_5000x100_dra_results.json`), with K1-K3
+launched once each and each pack held to its plain version on its kept
+inputs. It times a cold DRA solve by stage, the allocator's share of the
+residual FFD split out, median of 5 warm runs.
+
 Then the consolidation phase (`check_consolidation`): the port builds the
 reference benchmark's 5000-node underutilized fleet itself
 (`testing/scenarios.build_consolidation_fleet(5000)`, on a `FakeClock`) and
@@ -133,18 +150,21 @@ Then the meshed phase (`check_sharded`): the slot-sharded K2
 three exchanges through global memory) against the plain multi-shard arm
 on `tests/test_sharded.py`'s zone-spread + anti-affinity snapshot at 3 and
 5 shards (slot axes padded), and against K2 at the headline and both
-existing fleets at 2, 4 and 8 shards and on the caps problems at 3 and 5,
+existing fleets at 2, 4 and 8 shards and on the caps problems at 3 and 5;
+at 33 and 64 shards (past one warp's lanes: `MESH_WIDE_SIZES`) against K2
+at the headline and both fleets,
 in every output and carry leaf, bit for bit, with K1 per shard
 (`sharded_feasibility`) against K1. Then `GPUSolver(mesh=make_mesh([dev] *
 4)).solve(snap)` over the seeded headline's `SOLVE_STEPS` and the hybrid
 headline's `HYBRID_STEPS`, the counts set to 0 just before each step and
 read just after: the reference's Results, mode and reasons at every step,
 K1 four times and the sharded K2 once on a full pack, the delta steps on
-the single-device path over the gathered carry. `anneal_sharded` (K7 per
+the single-device path over the gathered carry; and the seeded headline's
+first step on a mesh of 33 shards (K1 33 times). `anneal_sharded` (K7 per
 shard) against K7 on one device over the same keys, `sharded_compat_matrix`
 (K1 per shard) against K1 over the headline's pods. It times the sharded
-K2 at the headline per shard count, K2 in the same run and the plain arm
-once, and counts the exchanges.
+K2 at the headline per shard count (2, 4, 8, 33 on a padded slot axis,
+64), K2 in the same run and the plain arm once, and counts the exchanges.
 
 Then the delta path: every chain in `fixtures/chains/` is driven through
 `GPUSolver().solve_encoded` step by step, the counts set to 0 before each
@@ -221,6 +241,8 @@ CUDA graph, each beside an empty kernel's launch timed the same two ways.
 
 Output: a `kernels` JSON line, the card line, then as the last line
 `{"ok": true, "device": {...}}`. Any mismatch or exception exits non-zero.
+`python3 chip_smoke.py --only dra` runs just the DRA phase (after the
+build) and prints its result in place of the `kernels` line.
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero before printing any result.
 """
@@ -1296,10 +1318,212 @@ def check_provision(dev, card: str, errs: dict, runs: int = 5) -> dict:
     return dict(path=path, ms=ms, stages=med, split=med_split)
 
 
+# -- the DRA phase: a provisioning solve with claim-bearing pods -------------------------
+DRA_FIXTURE = FIXTURES / "snapshot" / "headline_5000x100_dra_results.json"
+DRA_STEPS = ("D0 cold", "D1 one pod", "D2 provision")
+DRA_LAUNCHES = (  # kernels each DRA step must launch, once each (every other kernel: none)
+    ("feasibility", "pack_scan", "sparsify"),  # D0: the masked problem packed in full
+    ("feasibility", "pack_scan", "sparsify"),  # D1: the one pod packed from the masked carry
+    ("feasibility", "pack_scan", "sparsify"),  # D2: the pass's cold hybrid solve
+)
+
+
+def dra_snapshot(build_snapshot=None, names=None, kube=None, resources=None):
+    """The DRA headline (`testing/scenarios.add_dra` over the seeded
+    headline: 256 of its plain pods hold device claims, 16 of its instance
+    types carry template GPUs) and the one plain pod D1 appends. The
+    arguments are `seeded_snapshot`'s and `add_dra`'s (the port's builders
+    and object model by default; the fixture's writer passes the
+    reference's)."""
+    from karpenter_tpu_torch.testing.scenarios import add_dra
+
+    snap, _added, one = seeded_snapshot(SNAPSHOT_SEED, build_snapshot, names)
+    add_dra(snap, kube=kube, resources=resources)
+    return snap, one
+
+
+@contextmanager
+def kept_allocators(module=None):
+    """Keep every DRA `Allocator` built while it lasts (the residual
+    scheduler's), in a list it yields. `module` is the allocator module
+    (the port's by default)."""
+    if module is None:
+        import karpenter_tpu_torch.scheduling.dynamicresources.allocator as module
+    kept: list = []
+    real = module.Allocator.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        kept.append(self)
+
+    module.Allocator.__init__ = init
+    try:
+        yield kept
+    finally:
+        module.Allocator.__init__ = real
+
+
+@contextmanager
+def allocator_clock(split: dict, key: str = "allocator"):
+    """Add the wall ms of the port's DRA allocator (its construction, every
+    allocation, superposition and commit, nested calls counted once) into
+    `split[key]` while it lasts."""
+    import karpenter_tpu_torch.scheduling.dynamicresources.allocator as alloc
+
+    names = ("__init__", "allocate", "commit", "superpose_template_allocation", "commit_template_metadata",
+             "release_instance_types", "template_devices")
+    real = {n: getattr(alloc.Allocator, n) for n in names}
+    depth = [0]
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    split[key] = split.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return call
+
+    for n, fn in real.items():
+        setattr(alloc.Allocator, n, timed(fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(alloc.Allocator, n, fn)
+
+
+def dra_provisioner(snap, solver, kube=None, resources=None, provisioning=None, fake=None):
+    """A `Provisioner` with the DynamicResources gate on over `snap`'s store
+    (its pods created pending), a `FakeCloudProvider` of the headline's
+    instance types with `dra_gpu_types` applied, and `solver`. The modules
+    are the port's by default."""
+    from karpenter_tpu_torch.testing.scenarios import dra_gpu_types
+
+    if provisioning is None:
+        import karpenter_tpu_torch.controllers.provisioning.provisioner as provisioning
+    if fake is None:
+        import karpenter_tpu_torch.cloudprovider.fake as fake
+    pending_store(snap)
+    types = fake.instance_types_assorted(SNAPSHOT_SHAPE[1])
+    dra_gpu_types(types, kube, resources)
+    return provisioning.Provisioner(snap.store, snap.cluster, fake.FakeCloudProvider(types), snap.clock, solver=solver,
+                                    options=provisioning.ProvisionerOptions(dynamic_resources_enabled=True))
+
+
+def check_dra(dev, card: str, errs: dict, runs: int = 5) -> dict:
+    """The DRA phase: the DRA headline (`dra_snapshot`) solved by
+    `GPUSolver().solve(snap)` cold (D0) and with one plain pod appended
+    (D1), then one `Provisioner.reconcile(force=True)` with the
+    DynamicResources gate on over a store holding its pods pending (D2),
+    the counts set to 0 just before each step and read just after. Each
+    step's canonical `Results`, mode, backend, fallback reasons and the
+    residual allocator's committed allocations and claim metadata
+    (`testing.canonical.canonical_allocation`), and D2's NodeClaims in the
+    store, must equal the JAX reference's (`DRA_FIXTURE`), with the
+    launches of `DRA_LAUNCHES`; each pack is run again on its kept inputs
+    against its plain version. No step may fall back to the host unless the
+    reference's does. Then it times a cold DRA solve on a fresh solver,
+    median of `runs` warm runs, by stage (device synchronised after each),
+    with the allocator's share of the residual."""
+    import itertools
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch.controllers.provisioning.scheduling import nodeclaim
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+    from karpenter_tpu_torch.testing.canonical import (canonical_allocation, canonical_node_claims, canonical_results,
+                                                       json_form)
+
+    stored = json.loads(DRA_FIXTURE.read_text())
+    expect(stored["seed"] == SNAPSHOT_SEED, f"the DRA fixture was written for seed {stored['seed']}, not {SNAPSHOT_SEED}")
+    paths = []
+
+    def step(i, solve, store=None):
+        want = stored["steps"][i]
+        what = f"dra {DRA_STEPS[i]}"
+        expect(want["step"] == DRA_STEPS[i], f"{what}: the fixture's step is {want['step']}")
+        random.seed(0)
+        nodeclaim._hostname_seq = itertools.count(1)
+        seen: dict = {"pack": [], "rc": []}
+        with kept_snapshot_inputs(seen), kept_allocators() as allocs:
+            build.reset_launches()
+            results, solver = solve()
+            counts = dict(build.LAUNCHES)
+        backend = {"gpu": "tpu"}.get(solver.last_backend, solver.last_backend)
+        got = dict(mode=solver.last_solve_mode, backend=backend, reasons=list(solver.last_fallback_reasons))
+        for key, value in got.items():
+            expect(value == want[key], f"{what}: {key} {value!r}, the JAX reference's {want[key]!r}")
+        expect(json_form(canonical_results(results)) == want["results"], f"{what}: Results differ from the JAX reference's")
+        alloc = json_form([canonical_allocation(a) for a in allocs])
+        expect(alloc == want["allocations"], f"{what}: the DRA allocations differ from the JAX reference's")
+        if store is not None:
+            expect(json_form(canonical_node_claims(store)) == want["claims"],
+                   f"{what}: the NodeClaims in the store differ from the JAX reference's")
+        expect(want["mode"] != "fallback" or solver.last_solve_mode == "fallback", f"{what}: fell back")
+        need = {k: int(k in DRA_LAUNCHES[i]) for k in counts}
+        expect(counts == need, f"{what}: launches {counts}, not {need}")
+        expect(len(seen["pack"]) == 1 and not seen["rc"], f"{what}: {len(seen['pack'])} packs, {len(seen['rc'])} recredits")
+        check_snapshot_kernels(seen, what, errs)
+        paths.append({k: v for k, v in counts.items() if v})
+        n_meta = sum(len(a[1]) for a in alloc)
+        print(f"{what} ({len(results.new_node_claims)} claims, {len(results.pod_errors)} pod errors): mode "
+              f"{solver.last_solve_mode}, backend {solver.last_backend}, {len(solver.last_fallback_reasons)} fallback "
+              f"reasons, {len(allocs)} allocator(s), {n_meta} claims' template metadata; Results and allocations == JAX "
+              f"reference; launches {paths[-1]}")
+
+    snap, one = dra_snapshot()
+    base = list(snap.pods)
+    reset_bucket_highwater()
+    solver = GPUSolver(dev)
+    step(0, lambda: (solver.solve(snap), solver))
+    snap.pods = base + [one]
+    step(1, lambda: (solver.solve(snap), solver))
+    psnap, _one = dra_snapshot()
+    reset_bucket_highwater()
+    gpu = GPUSolver(dev)
+    prov = dra_provisioner(psnap, gpu)
+    step(2, lambda: (prov.reconcile(force=True), gpu), store=psnap.store)
+
+    snap.pods = base
+    times, stages = [], []
+    for r in range(runs + 1):
+        reset_bucket_highwater()
+        gpu = GPUSolver(dev, stage_times=True)  # a fresh solver: a cold DRA solve
+        split: dict = {}
+        with allocator_clock(split):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = gpu.solve(snap)
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        expect(gpu.last_solve_mode == "hybrid" and not res.pod_errors, f"timed DRA solve: mode {gpu.last_solve_mode}")
+        stages.append({**gpu.last_stages, "allocator (within residual)": split.get("allocator", 0.0)})
+    ms = statistics.median(times[1:])
+    med = {k: statistics.median(x.get(k, 0.0) for x in stages[1:]) for k in stages[-1]}
+    print(f"time DRA snapshot to NodeClaims, cold DRA solve {SNAPSHOT_SHAPE[0]}x{SNAPSHOT_SHAPE[1]} (256 claim-bearing "
+          f"pods, fresh solver): median of {runs} warm runs {ms:.3f} ms (runs ms: {[round(x, 3) for x in times]}; "
+          f"stages ms: " + ", ".join(f"{k} {x:.3f}" for k, x in med.items()) + f") on {card}")
+    return dict(paths=paths, ms=ms, stages=med)
+
+
 # -- the meshed phase: the slot-sharded pack on a mesh of one card's shards ------------
 
 MESH_SIZES = (2, 4, 8)  # shards of the sharded K2 held to K2 (the headline, both existing fleets)
 MESH_PLAIN_SIZES = (3, 5)  # shards of the sharded K2 held to the plain multi-shard arm (slot axes padded)
+# shard counts past one warp's lanes (the exchange reduces over the shards in
+# strides of 32): held to K2 at the headline and both existing fleets, timed
+# at the headline (33 on a padded slot axis), and the meshed solve's first
+# step at 33. The plain arm (a thread per shard, ~10 / ~25 s here on the small
+# snapshot) meets them in `tests/test_torch_cuda.py` and, at 33, against the
+# reference in `tests/test_torch_sharded.py`.
+MESH_WIDE_SIZES = (33, 64)
 MESH_SOLVE_SHARDS = 4  # the meshed GPUSolver's mesh: four shards of the card
 
 
@@ -1361,9 +1585,10 @@ def mesh_launches(launched: tuple, full: bool, shards: int) -> dict:
     return need
 
 
-def check_mesh_steps(dev, what: str, fixture, steps, launches, full_steps, pods_of, force: bool) -> list:
-    """`GPUSolver(mesh=make_mesh([dev] * MESH_SOLVE_SHARDS)).solve(snap)`
-    over `steps` (the pods of step i from `pods_of(i, pods, solver)`), the
+def check_mesh_steps(dev, what: str, fixture, steps, launches, full_steps, pods_of, force: bool,
+                     shards: int = MESH_SOLVE_SHARDS) -> list:
+    """`GPUSolver(mesh=make_mesh([dev] * shards)).solve(snap)` over `steps`
+    (the pods of step i from `pods_of(i, pods, solver)`), the
     counts set to 0 just before each step and read just after: each step's
     canonical Results, mode, backend and reasons equal to the reference's
     (`fixture`, which the unmeshed solver also meets), with the launches of
@@ -1380,7 +1605,7 @@ def check_mesh_steps(dev, what: str, fixture, steps, launches, full_steps, pods_
     stored = json.loads(fixture.read_text())
     expect(stored["seed"] == SNAPSHOT_SEED, f"{what}: the fixture was written for seed {stored['seed']}")
     reset_bucket_highwater()
-    solver = GPUSolver(dev, force=force, mesh=make_mesh([dev] * MESH_SOLVE_SHARDS))
+    solver = GPUSolver(dev, force=force, mesh=make_mesh([dev] * shards))
     paths = []
     snap = None
     for i, (step, want, launched) in enumerate(zip(steps, stored["steps"], launches)):
@@ -1397,10 +1622,10 @@ def check_mesh_steps(dev, what: str, fixture, steps, launches, full_steps, pods_
         for key, value in got.items():
             expect(value == want[key], f"{what} {step}: {key} {value!r}, the JAX reference's {want[key]!r}")
         expect(json_form(canonical_results(results)) == want["results"], f"{what} {step}: Results differ")
-        need = {k: v for k, v in mesh_launches(launched, step in full_steps, MESH_SOLVE_SHARDS).items() if v}
+        need = {k: v for k, v in mesh_launches(launched, step in full_steps, shards).items() if v}
         expect(counts == need, f"{what} {step}: launches {counts}, not {need}")
         paths.append(counts)
-        print(f"meshed {what} {step} ({len(snap.pods)} pods, {MESH_SOLVE_SHARDS} shards): mode "
+        print(f"meshed {what} {step} ({len(snap.pods)} pods, {shards} shards): mode "
               f"{solver.last_solve_mode}, {len(results.new_node_claims)} claims, Results == JAX reference; "
               f"launches {counts}")
     return paths
@@ -1424,8 +1649,11 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
     over the seeded headline's `SOLVE_STEPS` and the hybrid headline's
     `HYBRID_STEPS` (`check_mesh_steps`), `anneal_sharded` against K7 on one
     device over the same keys and `sharded_compat_matrix` against K1 over
-    the headline's pods. Then it times the sharded K2 per shard count at the
-    headline (CUDA events, median), K2 in the same run, and the plain arm."""
+    the headline's pods. At `MESH_WIDE_SIZES` (33, 64) shards it also holds
+    the sharded K2 to K2 at the headline and both fleets, and runs the
+    seeded headline's first solve step on a mesh of 33. Then it times the sharded K2 per shard count at
+    the headline (CUDA events, median; 33 on a padded slot axis), K2 in the
+    same run, and the plain arm."""
     import torch
 
     from karpenter_tpu_torch.kernels.anneal import anneal
@@ -1469,7 +1697,7 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
     for name in (HEADLINE, FLEET, FLEET_BIG):
         _p, _r, t0, items, _nnz = prepare(name, dev)
         compat, key = feasibility(t0, items)
-        for S in MESH_SIZES:
+        for S in MESH_SIZES + MESH_WIDE_SIZES:
             what = f"sharded K2 {name} S={S}"
             mesh = sh.make_mesh([dev] * S)
             t = sh.pad_slots_for_mesh(t0, mesh)
@@ -1484,8 +1712,8 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
             expect_same_leaves(got, want, what)
             exchanges[(name, S)] = n_x
         print(f"sharded K2 == K2 at {name} (N {t0.n_slots}, W {items.item_req.shape[0]}, open "
-              f"{int(one[6])}) for S in {MESH_SIZES}: exchanges " + ", ".join(f"S={S} {exchanges[(name, S)]}"
-                                                                            for S in MESH_SIZES))
+              f"{int(one[6])}) for S in {MESH_SIZES + MESH_WIDE_SIZES}: exchanges "
+              + ", ".join(f"S={S} {exchanges[(name, S)]}" for S in MESH_SIZES + MESH_WIDE_SIZES))
 
     # every small fixture (the host-affinity probe among them), and one
     # whose items request nothing: a fitting open slot then holds 2^30 pods,
@@ -1542,6 +1770,8 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
 
     solve_paths = check_mesh_steps(dev, "solve", SOLVE_FIXTURE, SOLVE_STEPS, SOLVE_LAUNCHES, ("step 0",), solve_step,
                                    force=True)
+    wide_paths = check_mesh_steps(dev, "solve", SOLVE_FIXTURE, SOLVE_STEPS[:1], SOLVE_LAUNCHES[:1], ("step 0",),
+                                  solve_step, force=True, shards=MESH_WIDE_SIZES[0])
     hsnap, _added, hone = seeded_snapshot(fallback_frac=HYBRID_FALLBACK_FRAC)
     hpods = [list(hsnap.pods)]
 
@@ -1582,8 +1812,10 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
     compat, key = feasibility(t0, items)
     N = t0.n_slots
     k2_ms = cuda_ms(lambda: pack_scan(t0, items, compat, key, n_slots=N), 3)
-    ms = {S: cuda_ms(lambda S=S: pack_scan_sharded(t0, items, compat, key, n_slots=N, n_shards=S), 3)
-          for S in MESH_SIZES}
+    padded = {S: sh.pad_slots_for_mesh(t0, sh.make_mesh([dev] * S)) for S in MESH_SIZES + MESH_WIDE_SIZES}
+    ms = {S: cuda_ms(lambda S=S: pack_scan_sharded(padded[S], items, compat, key, n_slots=padded[S].n_slots,
+                                                   n_shards=S), 3)
+          for S in MESH_SIZES + MESH_WIDE_SIZES}
     S = MESH_SOLVE_SHARDS
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1598,19 +1830,20 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
     R = items.item_req.shape[1]
     nw = 1  # words of a domain mask at the headline (D = 5)
     x_bytes = {s_: exchanges[(HEADLINE, s_)] * s_ * (1 + s_) * 4 * max(2, nw) + exchanges[(HEADLINE, s_)] * s_ * 8
-               for s_ in MESH_SIZES}
+               for s_ in MESH_SIZES + MESH_WIDE_SIZES}
     calls = place_calls(t0, items)
     print(f"time sharded K2 at {HEADLINE} (CUDA events, median of 5 x 3): " + ", ".join(
-        f"S={s_} {ms[s_]:.4f} ms ({exchanges[(HEADLINE, s_)]} exchanges, {ms[s_] * 1e3 / exchanges[(HEADLINE, s_)]:.2f} "
-        f"us per exchange at most, {x_bytes[s_]} exchange bytes)" for s_ in MESH_SIZES)
+        f"S={s_} {ms[s_]:.4f} ms (N {padded[s_].n_slots}, {exchanges[(HEADLINE, s_)]} exchanges, "
+        f"{ms[s_] * 1e3 / exchanges[(HEADLINE, s_)]:.2f} us per exchange at most, {x_bytes[s_]} exchange bytes)"
+        for s_ in MESH_SIZES + MESH_WIDE_SIZES)
         + f"; K2 in the same run {k2_ms:.4f} ms ({calls} place() calls, {k2_ms * 1e3 / calls:.2f} us each); the plain "
         f"multi-shard arm at S={S} {plain_ms:.1f} ms (one call) on {card} (R={R}, {time.perf_counter() - t1:.1f} s phase)")
     row = dict(name="pack_scan_sharded", ms=ms[S], plain_ms=plain_ms, library_ms=None,
                bytes=n_bytes + x_bytes[S], ops=ops)
-    return dict(row=row, ms_per_shards={str(s_): ms[s_] for s_ in MESH_SIZES}, k2_ms=k2_ms,
+    return dict(row=row, ms_per_shards={str(s_): ms[s_] for s_ in MESH_SIZES + MESH_WIDE_SIZES}, k2_ms=k2_ms,
                 exchanges={f"{n}/{s_}": v for (n, s_), v in exchanges.items()},
                 launches=solve_paths[0].get("pack_scan_sharded", 0),
-                paths={"solve": solve_paths, "hybrid": hybrid_paths, "anneal": anneal_counts})
+                paths={"solve": solve_paths, "solve_33": wide_paths, "hybrid": hybrid_paths, "anneal": anneal_counts})
 
 
 class GCClock:
@@ -3518,11 +3751,14 @@ def run(dev, card: str) -> dict:
     hybrid = check_hybrid(dev, card, errs)
     t2 = time.perf_counter()
     provision = check_provision(dev, card, errs)
+    t5 = time.perf_counter()
+    dra = check_dra(dev, card, errs)
+    print(f"DRA phase {time.perf_counter() - t5:.1f} s")
     t3 = time.perf_counter()
     consolidation = check_consolidation(dev, card, errs)
     t4 = time.perf_counter()
     sharded = check_sharded(dev, card, errs)
-    print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {t3 - t2:.1f} s, "
+    print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {t5 - t2:.1f} s, "
           f"consolidation phase {t4 - t3:.1f} s, meshed phase {time.perf_counter() - t4:.1f} s")
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
@@ -3643,16 +3879,27 @@ def run(dev, card: str) -> dict:
                                        **dict(zip(("hybrid", "hybrid_resubmit", "hybrid_delta_1pod", "hybrid_delta_removal",
                                                    "hybrid_residual_gone"), hybrid["paths"])),
                                        "provision": provision["path"], "meshed": sharded["paths"],
+                                       **dict(zip(("dra_cold", "dra_delta_1pod", "dra_provision"), dra["paths"])),
                                        "consolidation_reconcile": consolidation["pass_counts"]},
             "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"],
             "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")},
             "solve_ms": {**solve["ms"], "decode": solve["decode_ms"], "stages": solve["stages"]},
             "hybrid_ms": {**hybrid["ms"], "stages": hybrid["stages"], "provision": provision["ms"],
                           "provision_split": provision["split"], "provision_stages": provision["stages"]},
-            "observability": observability,
+            "observability": observability, "dra_ms": {"cold": dra["ms"], "stages": dra["stages"]},
             "consolidation_ms": {"decision": consolidation["ms"], "stages": consolidation["stages"],
                                  "reconcile": consolidation["pass_ms"], "reconcile_split": consolidation["pass_split"],
                                  "fleet_build_s": consolidation["build_s"], "probes": consolidation["probes"]}}
+
+
+def run_dra(dev, card: str) -> dict:
+    """The DRA phase alone (`--only dra`), for a quick check of the slice;
+    the whole run is `run`."""
+    errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0}
+    t1 = time.perf_counter()
+    out = check_dra(dev, card, errs)
+    print(f"DRA phase {time.perf_counter() - t1:.1f} s")
+    return {"dra": out, "errs": errs}
 
 
 def host_cpu() -> str:
@@ -3671,7 +3918,12 @@ def host_cpu() -> str:
     return platform.machine() or "unknown CPU"
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port on one GPU.")
+    ap.add_argument("--only", choices=("dra",), help="run only this phase (after the build)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -3705,7 +3957,7 @@ def main() -> int:
         if line.startswith("== ") or any(w in line for w in ("Compiling entry", "registers", "stack frame", "spill")):
             print("ptxas:", line.strip())
 
-    line = run(dev, card)
+    line = run_dra(dev, card) if args.only == "dra" else run(dev, card)
     print(json.dumps(line))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3715,7 +3967,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         rc = 1

@@ -246,7 +246,29 @@ class SchedulingNodeClaim:
         # types that would collapse it to empty are pruned
         # (allocator.go:90-134)
         if (pod_data.resource_claims or pod_data.resource_claim_err) and self.allocator is not None:
-            raise NotImplementedError("dynamic resource allocation needs scheduling/dynamicresources, which is not ported")
+            if pod_data.resource_claim_err is not None:
+                return None, None, pod_data.resource_claim_err, False
+            per_it = {}
+            for it in remaining:
+                tracker = self.dra_trackers.get(it.name)
+                if tracker is None:
+                    from ....scheduling.dynamicresources.allocator import AllocationTracker
+
+                    # shares the allocator's pool-budget registry so template
+                    # counter sets (partitionable devices) bound this claim
+                    tracker = AllocationTracker(budgets=self.allocator.counter_budgets)
+                result, derr = self.allocator.allocate(
+                    self.hostname, self.allocator.template_devices(it), pod_data.resource_claims, tracker
+                )
+                if derr is None:
+                    per_it[it.name] = (tracker, result)
+            kept, metas = self.allocator.superpose_template_allocation(self.hostname, per_it)
+            surviving = [it for it in remaining if it.name in kept]
+            if not surviving:
+                return None, None, "no instance type can allocate the pod's dynamic resources", False
+            remaining = surviving
+            self._pending_dra = kept
+            self._pending_dra_meta = metas
 
         # reserved-offering reservations (nodeclaim.go:303-350): collect every
         # compatible+available reserved offering the claim could launch into;

@@ -175,7 +175,9 @@ class Scheduler:
         # one DRA allocator per solve, shared by every candidate (provisioner.go:333-344)
         self.allocator = None
         if dra_enabled:
-            raise NotImplementedError("dynamic resource allocation needs scheduling/dynamicresources, which is not ported")
+            from ....scheduling.dynamicresources import Allocator
+
+            self.allocator = Allocator(store, clock)
 
         # one ReservationManager per solve, shared by every claim so reserved
         # capacity is bounded ACROSS claims (scheduler.go:186, NewScheduler)
@@ -457,7 +459,10 @@ class Scheduler:
             strict = Requirements.from_pod(pod, strict=True)
         claims, claim_err = [], None
         if self.allocator is not None and pod.spec.resource_claims:
-            raise NotImplementedError("dynamic resource allocation needs scheduling/dynamicresources, which is not ported")
+            from ....scheduling.dynamicresources import resolve_pod_claims
+
+            claims, claim_err = resolve_pod_claims(self.store, pod)
+            claims = claims or []  # claim_err is carried separately and fails CanAdd
         return PodData(
             requests=res.pod_requests(pod),
             requirements=requirements,

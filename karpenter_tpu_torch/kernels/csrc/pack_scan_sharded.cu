@@ -27,8 +27,10 @@
 // shard has passed exchange e + 1, so after every shard read exchange e's),
 // arrives at the shard blocks' barrier (a counter every shard adds one to
 // with release order at device scope; exchange e ends when it reaches
-// (e + 1) S, read with acquire order), reads all S parts from L2 and
-// reduces them in shard order; a block barrier hands the result to the
+// (e + 1) S, read with acquire order), reads all S parts from L2 (lane l
+// the parts of shards l, l + 32, ..., so any S) and reduces them (the
+// prefix over the shards before this one; the int32 sums wrap, so their
+// order does not change them); a block barrier hands the result to the
 // block. The wait is bounded and traps (~2^34 cycles), as K2's does. A shard
 // whose slots are all past the open count still joins every exchange with
 // zeros: every branch reaches the same exchanges in every shard. The
@@ -103,13 +105,17 @@ struct GridExchange {
         __stcg(p + 1, mx);
       }
       arrive_wait(k, e);
-      unsigned ts = 0, ms = 0;
-      if (lane < k.nshard) {
-        const uint32_t* p = part(k, e, lane);
-        ts = __ldcg(p);
-        ms = __ldcg(p + 1);
+      // lane l reads shards l, l + 32, ...: its sums of the earlier shards'
+      // totals and of all of them, and its largest capacity
+      unsigned lo = 0, ts = 0, ms = 0;
+      for (int sh = lane; sh < k.nshard; sh += 32) {
+        const uint32_t* p = part(k, e, sh);
+        const unsigned t_sh = __ldcg(p);
+        if (sh < k.shard) lo += t_sh;
+        ts += t_sh;
+        ms = max(ms, __ldcg(p + 1));
       }
-      const unsigned off = __reduce_add_sync(FULL, lane < k.shard ? ts : 0u);
+      const unsigned off = __reduce_add_sync(FULL, lo);
       const unsigned all = __reduce_add_sync(FULL, ts);
       const unsigned gm = __reduce_max_sync(FULL, ms);
       if (lane == 0) {
@@ -133,7 +139,8 @@ struct GridExchange {
       const unsigned e = g.ep;
       if (lane == 0) __stcg(part(k, e, k.shard), block_sum);
       arrive_wait(k, e);
-      const unsigned v = lane < k.nshard ? __ldcg(part(k, e, lane)) : 0u;
+      unsigned v = 0;
+      for (int sh = lane; sh < k.nshard; sh += 32) v += __ldcg(part(k, e, sh));
       const unsigned all = __reduce_add_sync(FULL, v);
       if (lane == 0) g.v[3] = all;
     }
@@ -179,7 +186,7 @@ extern "C" int kt_pack_scan_sharded(const long long* ptrs, const int* dims, void
   PackArgs a;
   fill_args(a, ptrs, dims);
   const int S = dims[13];
-  if (S < 1 || S > 32 || a.N % S != 0) return (int)cudaErrorInvalidValue;
+  if (S < 1 || a.N % S != 0) return (int)cudaErrorInvalidValue;
   const Layout L = layout_of_args(a, S, GridExchange::kStaticExtra);
   const void* kern = !L.fits    ? (const void*)pack_scan_sharded_kernel<0, false>
                      : a.nw == 1 ? (const void*)pack_scan_sharded_kernel<1, true>

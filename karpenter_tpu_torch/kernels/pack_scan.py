@@ -65,7 +65,8 @@ def _launch(entry: str, t, items, compat, key, N: int, carry: list, extra: tuple
     p_arr = (ctypes.c_longlong * len(ptrs))(*ptrs)
     rc = getattr(lib, f"kt_{entry}")(ctypes.addressof(p_arr), ctypes.addressof(d_arr), build.stream_ptr(dev))
     if rc == _TOO_LARGE:
-        raise build.KernelArgError(f"{entry}: its scan blocks and the item blocks do not fit on the card at once "
+        scan = f"its {extra[0]} shard blocks" if extra else "its scan block"
+        raise build.KernelArgError(f"{entry}: {scan} and the item blocks do not fit on the card at once "
                                    "(a cooperative launch)")
     build.check(rc, entry)
     build.LAUNCHES[entry] += 1
@@ -93,7 +94,6 @@ def pack_scan(t, items, compat, key, *, n_slots: int, init_state=None):
 # cudaErrorCooperativeLaunchTooLarge: the scan blocks and the item blocks
 # cannot all be resident at once
 _TOO_LARGE = 82
-MAX_SHARDS = 32  # one lane of a warp per shard in the exchange's reductions
 
 
 def pack_scan_sharded(t, items, compat, key, *, n_slots: int, n_shards: int):
@@ -109,8 +109,8 @@ def pack_scan_sharded(t, items, compat, key, *, n_slots: int, n_shards: int):
     if dev.type != "cuda":
         raise build.KernelArgError(f"pack_scan_sharded: unsupported device {dev}")
     N, S = int(n_slots), int(n_shards)
-    if not 1 <= S <= MAX_SHARDS or N % S:
-        raise build.KernelArgError(f"pack_scan_sharded: {N} slots do not split into {S} shards (1 <= S <= {MAX_SHARDS})")
+    if S < 1 or N % S:
+        raise build.KernelArgError(f"pack_scan_sharded: {N} slots do not split into {S} shards")
     slot_basis, slot_rem, slot_zoneset, slot_rank, counts_zone, counts_host, open_count, ports = initial_state(t, N)
     # the slot leaves over all N slots (shard s owns [s N / S, (s + 1) N / S));
     # counts_zone and open_count once per shard

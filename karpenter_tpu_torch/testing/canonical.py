@@ -8,8 +8,9 @@ hostname requirement left out (its value is a placeholder drawn from a
 process-global counter); per existing node: its name and its sorted pod
 keys; every pod error, key and message. `canonical_node_claims` gives the
 NodeClaims a provisioning pass created in a store the same way,
-`canonical_command` a disruption `Command` and `canonical_store` every
-object of a store. Only tests and `chip_smoke.py` call this.
+`canonical_allocation` a DRA allocator's committed allocations and claim
+metadata, `canonical_command` a disruption `Command` and `canonical_store`
+every object of a store. Only tests and `chip_smoke.py` call this.
 """
 
 from __future__ import annotations
@@ -60,6 +61,36 @@ def canonical_command(cmd) -> tuple:
     )
     results = canonical_results(cmd.results) if cmd.results is not None else None
     return cmd.reason, tuple(cmd.candidate_names()), replacements, results
+
+
+def _milli(q: dict | None) -> tuple:
+    return tuple(sorted((k, v.milli) for k, v in (q or {}).items()))
+
+
+def canonical_allocation(allocator) -> tuple:
+    """A DRA `Allocator`'s committed state: the claims' targets (claim key,
+    node or in-flight NodeClaim), per claim its template-allocation metadata
+    (`resource_claim_allocation_metadata()`: the NodeClaim, whether template
+    devices served it, per instance type in order the requirements its
+    devices contributed and its picks as (request, device id, consumed
+    capacity), the pessimistic total), and the loop tracker's exclusive
+    devices, consumed capacity and remaining counter budgets."""
+
+    def reqs(r):
+        return None if r is None else tuple(sorted(_requirement(x) for x in r.values()))
+
+    def picks(ps):
+        return tuple((name, tuple(ref.device_id), _milli(cap)) for name, ref, cap in ps)
+
+    meta = tuple(
+        (key, m.node_claim_id, m.used_template_devices, tuple((it, reqs(r)) for it, r in m.contributed.items()),
+         tuple((it, picks(p)) for it, p in m.devices.items()), reqs(m.total))
+        for key, m in sorted(allocator.resource_claim_allocation_metadata().items()))
+    t = allocator.loop_tracker
+    tracker = (tuple(sorted(t.exclusive)), tuple(sorted((d, _milli(c)) for d, c in t.consumed.items())),
+               tuple(sorted((pk, tuple(sorted((cs, _milli(cn)) for cs, cn in sets.items())))
+                            for pk, sets in t.remaining_counters.items())))
+    return tuple(sorted(allocator.claim_targets.items())), meta, tracker
 
 
 def _conditions(cs) -> tuple:

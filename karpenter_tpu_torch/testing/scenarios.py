@@ -432,3 +432,73 @@ def build_consolidation_fleet(n_nodes: int, hetero_prices: bool = False) -> Cons
     clock.step(44)
     NodeClaimDisruptionController(store, cluster, cloud, clock).reconcile()
     return ConsolidationFleet(store=store, cluster=cluster, clock=clock, cloud_provider=cloud)
+
+
+# -- the DRA headline: the seeded headline with device claims -----------------
+DRA_SEED = 1  # picks the claim-bearing pods
+DRA_DRIVER = "gpu.example.com"
+DRA_CLASS = "gpu-h100"
+# the DeviceClass's selector: a CEL expression (allocator_test.go's corpus form)
+DRA_SELECTOR = f'device.driver == "{DRA_DRIVER}" && device.attributes["{DRA_DRIVER}"].model == "h100"'
+DRA_GPUS = 8  # template GPUs per GPU-bearing instance type
+DRA_GPU_SIZES = (4, 8, 16, 32, 48, 64, 96, 128)  # vCPUs of the GPU-bearing linux/amd64 types
+DRA_PARTITIONED = "s-32x-amd64-linux"  # its GPUs draw from a shared counter set
+DRA_CLAIM_PODS = (192, 64)  # pods with a one-GPU claim, pods with a two-GPU matchAttribute claim
+
+
+def dra_gpu_types(types: list, kube=None, resources=None) -> list:
+    """Give 16 of the headline's linux/amd64 instance types (both families,
+    `DRA_GPU_SIZES` vCPUs) 8 template GPUs each, every GPU with a model and
+    an NVLink island attribute (two GPUs an island) and 80Gi of memory; the
+    GPUs of `DRA_PARTITIONED` draw 80Gi each from a 320Gi counter set, so a
+    node of that type funds only four. In place; returns the GPU-bearing
+    types. `kube` and `resources` are the object-model modules to build
+    with (the port's by default)."""
+    if kube is None:
+        from .. import kube
+    if resources is None:
+        from ..utils import resources
+    sizes = {f"-{c}x-amd64-linux" for c in DRA_GPU_SIZES}
+    out = [it for it in types if any(it.name.endswith(s) for s in sizes) and it.name[0] in "cs"]
+    for it in out:
+        partitioned = it.name == DRA_PARTITIONED
+        it.dynamic_resources = [
+            kube.Device(name=f"gpu-{k}", driver=DRA_DRIVER,
+                        attributes={f"{DRA_DRIVER}/model": "h100", f"{DRA_DRIVER}/island": k // 2},
+                        capacity=resources.parse_resource_list({"memory": "80Gi"}),
+                        consumes_counters=[{"counterSet": "gpu-memory", "counters": {"memory": "80Gi"}}]
+                        if partitioned else [])
+            for k in range(DRA_GPUS)]
+        if partitioned:
+            it.dynamic_resources_counters = [{"name": "gpu-memory", "counters": {"memory": "320Gi"}}]
+    return out
+
+
+def add_dra(snap, seed: int = DRA_SEED, kube=None, resources=None):
+    """The DRA variant of a headline snapshot, in place: the DeviceClass and
+    two ResourceClaimTemplates in its store (one GPU; two GPUs of one
+    NVLink island, a matchAttribute constraint), `dra_gpu_types` over its
+    instance types, and claims on 256 of its plain pods (no labels, no
+    affinity, no spread, no selector; drawn with `random.Random(seed)`):
+    192 of them a one-GPU claim, 64 a two-GPU one, each from its template.
+    Sets `dra_enabled`. Returns the claim-bearing pods."""
+    if kube is None:
+        from .. import kube
+    for its in {id(v): v for v in snap.instance_types.values()}.values():
+        dra_gpu_types(its, kube, resources)
+    meta = kube.ObjectMeta
+    snap.store.create(kube.DeviceClass(metadata=meta(name=DRA_CLASS), selectors=[{"cel": DRA_SELECTOR}]))
+    snap.store.create(kube.ResourceClaimTemplate(
+        metadata=meta(name="one-gpu"), requests=[{"name": "gpu", "deviceClassName": DRA_CLASS, "count": 1}]))
+    snap.store.create(kube.ResourceClaimTemplate(
+        metadata=meta(name="gpu-pair"), requests=[{"name": "gpus", "deviceClassName": DRA_CLASS, "count": 2}],
+        constraints=[{"matchAttribute": f"{DRA_DRIVER}/island"}]))
+    plain = [p for p in snap.pods
+             if not p.metadata.labels and p.spec.affinity is None and not p.spec.topology_spread_constraints
+             and not p.spec.node_selector]
+    picked = random.Random(seed).sample(plain, sum(DRA_CLAIM_PODS))
+    for k, pod in enumerate(picked):
+        template = "one-gpu" if k < DRA_CLAIM_PODS[0] else "gpu-pair"
+        pod.spec.resource_claims = [{"name": "gpu", "resourceClaimTemplateName": template}]
+    snap.dra_enabled = True
+    return picked

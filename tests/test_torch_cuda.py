@@ -470,11 +470,12 @@ def test_feasibility_random_edges_equal_plain_on_card(cuda_device, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", SMALL)
-@pytest.mark.parametrize("n_shards", (3, 8))
+@pytest.mark.parametrize("n_shards", (3, 8, 33, 64))
 def test_sharded_pack_scan_equals_k2_and_plain_on_card(cuda_device, name, n_shards):
     """The slot-sharded K2 against K2 (gathered carry) and against the plain
     multi-shard arm (every shard's carry), on a slot axis padded to the
-    shard count."""
+    shard count; 33 and 64 shards are past one warp's lanes (the exchange
+    reduces in strides of 32)."""
     from karpenter_tpu_torch.kernels.feasibility import feasibility
     from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_sharded
     from karpenter_tpu_torch.models import scheduler_model_grouped as tsg
@@ -515,6 +516,33 @@ def test_meshed_solver_on_card_matches_unmeshed(cuda_device):
     assert build.LAUNCHES["pack_scan"] == 0
     assert res.errors == []
     np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
+
+
+@pytest.mark.gpu
+def test_wide_mesh_solve_on_card_matches_reference(cuda_device):
+    """`GPUSolver(mesh=make_mesh([cuda] * 33))` on the seeded headline: the
+    reference's Results, K1 once per shard and the slot-sharded K2 once
+    (`chip_smoke.check_mesh_steps`)."""
+    import chip_smoke
+
+    snap, _added, _one = chip_smoke.seeded_snapshot()
+    paths = chip_smoke.check_mesh_steps(cuda_device, "solve", chip_smoke.SOLVE_FIXTURE, chip_smoke.SOLVE_STEPS[:1],
+                                        chip_smoke.SOLVE_LAUNCHES[:1], ("step 0",), lambda i, _p, _s: snap,
+                                        force=True, shards=33)
+    assert paths[0]["pack_scan_sharded"] == 1 and paths[0]["feasibility"] == 33
+
+
+@pytest.mark.gpu
+def test_dra_steps_on_card_match_reference(cuda_device):
+    """The DRA headline's steps on the card (`chip_smoke.check_dra`): the
+    reference's Results, modes, reasons and allocations, K1-K3 once each per
+    step, each pack equal to its plain version on its kept inputs."""
+    import chip_smoke
+
+    errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0}
+    out = chip_smoke.check_dra(cuda_device, torch.cuda.get_device_name(0), errs, runs=1)
+    assert out["paths"] == [{"feasibility": 1, "pack_scan": 1, "sparsify": 1}] * 3
+    assert errs == {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0}
 
 
 @pytest.mark.gpu

@@ -8,8 +8,10 @@ provisioning pass over a store (`Provisioner.reconcile`) and one disruption
 pass over its own consolidation fleet (`DisruptionController.reconcile`:
 the LP proposer, a masked probe, the Validator, a replacement created) —
 the solves, the pass and the round with a metrics registry, an enabled
-trace recorder and an event recorder — and solves the encoding again on a
-mesh of three CPU shards (`parallel/sharded.py`)."""
+trace recorder and an event recorder —, solves the encoding again on a
+mesh of three CPU shards (`parallel/sharded.py`), and solves a snapshot
+with device claims on the hybrid path (the DRA allocator in the residual)
+and runs the KWOK DRA driver and the device-allocation controller."""
 
 from __future__ import annotations
 
@@ -99,6 +101,24 @@ _CHILD = textwrap.dedent(
     assert len(dc.queue._items) == 1 and len(dc.queue._items[0].command.candidates) >= 2
     assert dc.methods[3].last_round["sim_masked"] >= 1
     assert len(fleet.store.list("NodeClaim")) == 6 + len(dc.queue._items[0].command.replacements)
+    from karpenter_tpu_torch.controllers.dynamicresources import DeviceAllocationController, DRAConfig, DRAKwokDriver
+    from karpenter_tpu_torch.kube import Node, ObjectMeta
+    from karpenter_tpu_torch.testing.scenarios import add_dra
+    snap = build_snapshot(600, 40)
+    claimed = add_dra(snap)
+    solver = GPUSolver(device="cpu")
+    results = solver.solve(snap)
+    assert (solver.last_solve_mode, solver.last_backend) == ("hybrid", "hybrid") and not results.pod_errors
+    placed = {{p.metadata.uid for c in results.new_node_claims for p in c.pods}}
+    assert all(p.metadata.uid in placed for p in claimed)
+    snap.store.create(DRAConfig(metadata=ObjectMeta(name="cfg"), driver="gpu.example.com",
+                                devices=snap.instance_types["default-pool"][8].dynamic_resources))
+    snap.store.create(Node(metadata=ObjectMeta(name="n1", labels=dict([("karpenter.sh/registered", "true")]))))
+    DRAKwokDriver(snap.store).reconcile()
+    claimed[0].spec.node_name = "n1"
+    snap.store.create(claimed[0])
+    DeviceAllocationController(snap.store, snap.cluster, snap.clock).reconcile()
+    assert snap.store.list("ResourceClaim")[0].status.allocation["nodeName"] == "n1"
     import torch
     torch.cuda.is_available = lambda: False
     try:
@@ -139,6 +159,17 @@ def test_no_port_file_imports_jax_or_reference():
     assert bad == []
 
 
+def test_dra_imports_nothing_of_jax_or_reference():
+    """DRA (`scheduling/dynamicresources/`, `controllers/dynamicresources/`)
+    stands alone like the rest of the port: no import of jax or of the JAX
+    package, lazy ones included."""
+    files = sorted((PORT / "scheduling" / "dynamicresources").glob("*.py"))
+    files += sorted((PORT / "controllers" / "dynamicresources").glob("*.py"))
+    assert [f.name for f in files] == ["__init__.py", "allocator.py", "cel.py", "__init__.py", "deviceallocation.py",
+                                       "kwokdriver.py"]
+    assert [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN] == []
+
+
 def test_parallel_imports_nothing_of_jax_or_reference():
     """The meshed pack (`parallel/`) stands alone like the rest of the port:
     no import of jax or of the JAX package, lazy ones included."""
@@ -150,7 +181,7 @@ def test_parallel_imports_nothing_of_jax_or_reference():
 def test_relative_imports_name_port_modules():
     """Every relative import (lazy ones inside functions too) resolves to a
     module of the port, or a name in one: a reference module left out of the
-    port (DRA, the native tables, metrics, tracing) is never reached."""
+    port (the native tables, the operator, serving) is never reached."""
     import importlib
     import importlib.util
 

@@ -14,8 +14,10 @@ instance-type names; per existing node its sorted pod keys; every pod error,
 key and message. Tolerance: exact.
 
 The port's scheduler is the signature-batched one (the reference's default
-arm; the reference's own tests hold its other arm equal to that one). Dynamic resource allocation and the metrics
-registry are not ported: asking for them raises `NotImplementedError`.
+arm; the reference's own tests hold its other arm equal to that one). With
+the DynamicResources gate on, the scheduler builds the port's DRA allocator
+(`tests/test_torch_dra.py` holds its cases); a metrics registry on the
+snapshot counts as the reference's does.
 """
 
 from __future__ import annotations
@@ -198,16 +200,17 @@ def test_carry_over_keeps_identity():
 
 
 def test_unported_paths_raise():
-    """DRA fails loudly instead of taking another path; a metrics registry
-    on the snapshot counts the FFD's memo and phases as the reference's does
-    (exact, the phase histograms by their counts)."""
+    """With the DynamicResources gate on, the solve equals the reference's
+    (it raised `NotImplementedError` before the allocator was ported); a
+    metrics registry on the snapshot counts the FFD's memo and phases as
+    the reference's does (exact, the phase histograms by their counts)."""
     from karpenter_tpu.metrics import make_registry
     from test_torch_metrics import assert_same_registry, fresh_default_recorders
 
-    snap = snapshot_from_reference(make_snapshot([make_pod(cpu="1")]))
-    snap.dra_enabled = True
-    with pytest.raises(NotImplementedError, match="dynamicresources"):
-        FFDSolver().solve(snap)
+    dra = make_snapshot([make_pod(cpu="1")])
+    dra.dra_enabled = True
+    want, got = solve_both(dra)
+    assert got == want and want[0]
     ref = make_snapshot([make_pod(cpu="1", name=f"m{i}") for i in range(6)])
     ref.registry = make_registry()
     port = snapshot_from_reference(ref)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import random
 import threading
 import time
+import types
 
 import jax
 import numpy as np
@@ -123,6 +124,44 @@ def test_zone_spread_and_anti_affinity(n_dev):
     )
     got = assert_pack_equivalent(make_snapshot(pods), n_dev)
     assert int(got[1].sum()) == 0, "no leftovers expected"
+
+
+@pytest.mark.parametrize("n_dev", (33,))
+def test_plain_arm_past_one_warp_equals_reference_pack(n_dev):
+    """Past the reference's eight CPU devices and past one warp's lanes (the
+    slot-sharded K2's exchange reduces in strides of 32): the port's plain
+    multi-shard arm at 33 shards (a thread each; 64 take twice as long
+    here, the card's tests run both), on the zone-spread + anti-affinity
+    snapshot, against the reference's single-device pack over the same
+    padded slot axis (every output), and its gathered carry against the
+    port's single-device carry, bit for bit."""
+    from karpenter_tpu.models import scheduler_model_grouped as jsg
+    from karpenter_tpu_torch.models.scheduler_model_grouped import _pack_body
+
+    sel = {"matchLabels": {"app": "db"}}
+    pods = ([make_pod(cpu="500m", labels={"app": "db"}, tsc=[zone_spread(1, sel)],
+                      anti_affinity=[hostname_anti_affinity(sel)]) for _ in range(4)]
+            + [make_pod(cpu="2", memory="4Gi") for _ in range(3)])
+    enc = encode(make_snapshot(pods))
+    p = from_reference(enc)
+    arrays, _ = build_items(p)
+    items = make_item_tensors(arrays, "cpu")
+    mesh = sh.make_mesh(["cpu"] * n_dev)
+    t = sh.pad_slots_for_mesh(tsm.make_tensors(p, "cpu"), mesh)
+    assert t.n_slots % n_dev == 0
+    got = sh.greedy_pack_grouped_sharded_state(t, items, mesh)
+    ref_arrays, _ = ref_build_items(enc)
+    # the reference's padding reads only the mesh's size
+    jt = jsh.pad_slots_for_mesh(jsm.make_tensors(enc, with_pods=False), types.SimpleNamespace(size=n_dev))
+    assert jt.n_slots == t.n_slots
+    want = jsg.greedy_pack_grouped(jt, ref_make_item_tensors(ref_arrays))
+    for name, a, b in zip(sh.PACK_OUTPUTS, got[:6], want):
+        np.testing.assert_array_equal(bits(a), bits(b), err_msg=f"{name} (S={n_dev})")
+    compat, key = sh.sharded_feasibility(t, items, mesh)
+    _takes, _left, one = _pack_body(t, items, n_slots=t.n_slots, precomputed=(compat, key))
+    for name, a, b in zip(CARRY, leaves(got[6].gather_state()), leaves(one)):
+        assert torch.equal(a, b), f"carry {name} (S={n_dev})"
+    assert int(got[6].barrier) == n_dev * got[6].exchanges > 0
 
 
 @pytest.mark.parametrize("n_dev", SHARDS)
