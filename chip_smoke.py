@@ -166,6 +166,23 @@ shard) against K7 on one device over the same keys, `sharded_compat_matrix`
 K2 at the headline per shard count (2, 4, 8, 33 on a padded slot axis,
 64), K2 in the same run and the plain arm once, and counts the exchanges.
 
+Then the operator phase (`check_operator`): the seeded headline's nodepool
+and 100 instance types in the operator's `Environment(Options())` with no
+device (its `GPUSolver` on the card), the 5000 pods created pending, then a
+2 s clock step and `tick(provision_force=True)` for each tick that
+`fixtures/operator/headline_5000x100_ticks.json` recorded of the JAX
+reference's operator (a full provisioning pass, then launch, registration,
+binding and consolidation rounds). Each tick's canonical state (NodeClaims,
+Nodes, each pod's node, events, counters) has the fixture's digest, its
+solves the fixture's modes and notes, its disruption commands the
+fixture's; the last tick's state equals the fixture's in full. The counts
+are set to 0 before each tick and read after it: K1-K3 once per pack, K4
+once per delta that removes pods, K5 and K6 once per LP decision, as the
+recorded solves say; each kept pack, recredit, K5 and K6 call is run again
+against its plain version. Each tick's wall ms is printed once, split into
+the provisioner, the binder, the NodeClaim lifecycle, the disruption
+controller and the rest.
+
 Then the delta path: every chain in `fixtures/chains/` is driven through
 `GPUSolver().solve_encoded` step by step, the counts set to 0 before each
 step and read after it. Each step must give the reference's mode and
@@ -241,8 +258,9 @@ CUDA graph, each beside an empty kernel's launch timed the same two ways.
 
 Output: a `kernels` JSON line, the card line, then as the last line
 `{"ok": true, "device": {...}}`. Any mismatch or exception exits non-zero.
-`python3 chip_smoke.py --only dra` runs just the DRA phase (after the
-build) and prints its result in place of the `kernels` line.
+`python3 chip_smoke.py --only dra` (or `--only operator`) runs just the DRA
+(or the operator) phase after the build and prints its result in place of
+the `kernels` line.
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero before printing any result.
 """
@@ -612,43 +630,101 @@ def check_snapshot_kernels(seen: dict, what: str, errs: dict) -> None:
     """Each pack and recredit a snapshot solve made, repeated on its kept
     inputs: the kernel against its plain version and against the solve's
     own output, bit for bit (K2 with every carry leaf)."""
+    plain_reruns(kernel_reruns({k: seen[k] for k in ("rc", "pack")}, what), what, errs)
+
+
+def kernel_reruns(seen: dict, what: str) -> list:
+    """Each kept call of `seen` (`kept_snapshot_inputs`: "pack", "rc";
+    `kept_proposer_inputs`: "k5", "k6") run again through its kernel on
+    its kept inputs and held to the path's own output, bit for bit. Returns
+    the jobs of the plain half (`plain_reruns`): per call its kind, inputs
+    and the kernel's outputs."""
     import torch
 
-    from karpenter_tpu_torch.kernels.feasibility import feasibility, feasibility_plain
-    from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_plain
-    from karpenter_tpu_torch.kernels.recredit import recredit, recredit_plain
-    from karpenter_tpu_torch.kernels.sparsify import flat_outputs, flat_outputs_plain
+    from karpenter_tpu_torch.kernels.feasibility import feasibility
+    from karpenter_tpu_torch.kernels.globalpack import globalpack
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan
+    from karpenter_tpu_torch.kernels.recredit import recredit
+    from karpenter_tpu_torch.kernels.score_subsets import score_subsets_packed, unpack
+    from karpenter_tpu_torch.kernels.sparsify import flat_outputs
 
-    for state, t, args, path_out in seen["rc"]:
+    jobs = []
+    for state, t, args, path_out in seen.get("rc", ()):
         got = recredit(state, t, *args)
-        plain = recredit_plain(state, t, *args)
         torch.cuda.synchronize()
-        pairs = list(zip(carry_leaves(got), carry_leaves(plain)))
-        for leaf, (a, b), c in zip(STATE_LEAVES, pairs, carry_leaves(path_out)):
-            expect(torch.equal(a, b), f"{what}: K4 {leaf} differs from plain")
+        for leaf, a, c in zip(STATE_LEAVES, carry_leaves(got), carry_leaves(path_out)):
             expect(torch.equal(a, c), f"{what}: K4 {leaf} differs from the solve's")
-        errs["recredit"] = max(errs["recredit"], max_abs(*pairs))
-    for t, items, nnz, init, path_out in seen["pack"]:
+        jobs.append(("rc", (state, t, args), got))
+    for t, items, nnz, init, path_out in seen.get("pack", ()):
         compat, key = feasibility(t, items)
-        compat_p, key_p = feasibility_plain(t, items)
         takes, left, out = pack_scan(t, items, compat, key, n_slots=t.n_slots, init_state=init)
-        takes_p, left_p, out_p = pack_scan_plain(t, items, n_slots=t.n_slots, init_state=init,
-                                                 precomputed=(compat_p, key_p))
         flat = flat_outputs(takes, left, out[0], out[2], out[6], nnz)
-        flat_p = flat_outputs_plain(takes_p, left_p, out_p[0], out_p[2], out_p[6], nnz)
         torch.cuda.synchronize()
-        expect(torch.equal(compat, compat_p), f"{what}: K1 compat differs from plain")
-        expect(same_bits(key, key_p), f"{what}: K1 key differs from plain")
-        expect(torch.equal(takes, takes_p) and torch.equal(left, left_p), f"{what}: K2 differs from plain")
-        leaves = list(zip(carry_leaves(out), carry_leaves(out_p)))
-        for leaf, (a, b), c in zip(STATE_LEAVES, leaves, carry_leaves(path_out["state"])):
-            expect(torch.equal(a, b), f"{what}: K2 carry {leaf} differs from plain")
+        for leaf, a, c in zip(STATE_LEAVES, carry_leaves(out), carry_leaves(path_out["state"])):
             expect(torch.equal(a, c), f"{what}: K2 carry {leaf} differs from the solve's")
-        expect(torch.equal(flat, flat_p), f"{what}: K3 flat output differs from plain")
         expect(torch.equal(flat, path_out["flat"]), f"{what}: K3 flat output differs from the solve's")
-        errs["feasibility"] = max(errs["feasibility"], max_abs((compat, compat_p), (key, key_p)))
-        errs["pack_scan"] = max(errs["pack_scan"], max_abs((takes, takes_p), (left, left_p), *leaves))
-        errs["sparsify"] = max(errs["sparsify"], max_abs((flat, flat_p)))
+        jobs.append(("pack", (t, items, nnz, init), (compat, key, takes, left, out, flat)))
+    for args, (d_path, s_path) in seen.get("k5", ()):
+        d, s = globalpack(*args)
+        torch.cuda.synchronize()
+        expect(torch.equal(d, d_path) and torch.equal(s, s_path), f"{what}: K5 differs from the round's own call")
+        jobs.append(("k5", args, d))
+    for args, packed_path in seen.get("k6", ()):
+        packed = score_subsets_packed(*args)
+        torch.cuda.synchronize()
+        expect(torch.equal(packed, packed_path), f"{what}: K6 differs from the round's own call")
+        jobs.append(("k6", args, unpack(packed, int(args[-1].shape[0]))))
+    return jobs
+
+
+def plain_reruns(jobs: list, what: str, errs: dict) -> None:
+    """The plain half of `kernel_reruns`' jobs: each call's plain version on
+    the same inputs against the kernel's outputs, bit for bit (K5's d within
+    D_TOL); the largest differences go into `errs`."""
+    import torch
+
+    from karpenter_tpu_torch.kernels.feasibility import feasibility_plain
+    from karpenter_tpu_torch.kernels.globalpack import globalpack_plain
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan_plain
+    from karpenter_tpu_torch.kernels.recredit import recredit_plain
+    from karpenter_tpu_torch.kernels.score_subsets import score_subsets_plain
+    from karpenter_tpu_torch.kernels.sparsify import flat_outputs_plain
+
+    for kind, inputs, got in jobs:
+        if kind == "rc":
+            state, t, args = inputs
+            plain = recredit_plain(state, t, *args)
+            pairs = list(zip(carry_leaves(got), carry_leaves(plain)))
+            for leaf, (a, b) in zip(STATE_LEAVES, pairs):
+                expect(torch.equal(a, b), f"{what}: K4 {leaf} differs from plain")
+            errs["recredit"] = max(errs["recredit"], max_abs(*pairs))
+        elif kind == "pack":
+            t, items, nnz, init = inputs
+            compat, key, takes, left, out, flat = got
+            compat_p, key_p = feasibility_plain(t, items)
+            takes_p, left_p, out_p = pack_scan_plain(t, items, n_slots=t.n_slots, init_state=init,
+                                                     precomputed=(compat_p, key_p))
+            flat_p = flat_outputs_plain(takes_p, left_p, out_p[0], out_p[2], out_p[6], nnz)
+            expect(torch.equal(compat, compat_p), f"{what}: K1 compat differs from plain")
+            expect(same_bits(key, key_p), f"{what}: K1 key differs from plain")
+            expect(torch.equal(takes, takes_p) and torch.equal(left, left_p), f"{what}: K2 differs from plain")
+            leaves = list(zip(carry_leaves(out), carry_leaves(out_p)))
+            for leaf, (a, b) in zip(STATE_LEAVES, leaves):
+                expect(torch.equal(a, b), f"{what}: K2 carry {leaf} differs from plain")
+            expect(torch.equal(flat, flat_p), f"{what}: K3 flat output differs from plain")
+            errs["feasibility"] = max(errs["feasibility"], max_abs((compat, compat_p), (key, key_p)))
+            errs["pack_scan"] = max(errs["pack_scan"], max_abs((takes, takes_p), (left, left_p), *leaves))
+            errs["sparsify"] = max(errs["sparsify"], max_abs((flat, flat_p)))
+        elif kind == "k5":
+            d_p, _s_p = globalpack_plain(*inputs)
+            err = max_abs((got, d_p))
+            errs["globalpack"] = max(errs["globalpack"], err)
+            expect(err <= D_TOL, f"{what}: K5 d differs from plain by {err}")
+        else:
+            s, f = got
+            s_p, f_p = score_subsets_plain(*inputs)
+            errs["score_subsets"] = max(errs["score_subsets"], max_abs((s, s_p), (f, f_p)))
+            expect(torch.equal(s, s_p) and torch.equal(f, f_p), f"{what}: K6 differs from plain")
 
 
 def check_snapshot(dev, card: str, errs: dict, runs: int = 5) -> dict:
@@ -1513,6 +1589,328 @@ def check_dra(dev, card: str, errs: dict, runs: int = 5) -> dict:
     return dict(paths=paths, ms=ms, stages=med)
 
 
+# -- the operator phase: whole controller rounds of the operator's Environment ----------
+OPERATOR_FIXTURE = FIXTURES / "operator" / "headline_5000x100_ticks.json"
+OPERATOR_MAX_TICKS = 8  # the fixture's ticks at most (it ends at the first tick that changes nothing)
+OPERATOR_STEP = 2.0  # clock seconds before each tick
+OPERATOR_SEED = 0  # `random`'s seed before the first tick (the NodeClaims' name suffixes)
+OPERATOR_SPLIT = (("provisioner", "provisioner", "reconcile"), ("binder", "binder", "bind_all"),
+                  ("lifecycle", "lifecycle", "reconcile_all"), ("disruption", "disruption", "reconcile"))
+TIMED_NOTES = frozenset({"event_batch"})  # trace notes whose values are wall times
+
+
+def operator_env(snap, environment, options, **kwargs):
+    """An operator `Environment` (the default `FakeClock`) over a seeded
+    snapshot: the snapshot's nodepool in its store, its instance types
+    behind the KWOK provider, its pods created pending. `environment` and
+    `options` are the package's `Environment` class and an `Options`."""
+    np_ = snap.node_pools[0]
+    env = environment(options=options, instance_types=snap.instance_types[np_.metadata.name], **kwargs)
+    env.store.create(np_)
+    for pod in snap.pods:
+        env.store.create(pod)
+    return env
+
+
+def operator_start(nodeclaim) -> None:
+    """The module state the ticks start from: `random` seeded (claim names)
+    and the hostname placeholders of `nodeclaim` (the package's scheduling
+    nodeclaim module) counted from 1."""
+    import itertools
+    import random
+
+    random.seed(OPERATOR_SEED)
+    nodeclaim._hostname_seq = itertools.count(1)
+
+
+def solve_view(tr) -> dict:
+    """A solve's trace as the fixture keeps it: mode, backend (the port's
+    "gpu" read as the reference's "tpu"), pods, signatures, fallback
+    reasons and notes (wall times left out)."""
+    from karpenter_tpu_torch.testing.canonical import json_form
+
+    return json_form(dict(mode=tr.mode, backend={"gpu": "tpu"}.get(tr.backend, tr.backend), n_pods=tr.n_pods,
+                          n_sigs=tr.n_sigs, reasons=list(tr.fallback_reasons),
+                          notes={k: v for k, v in tr.attribution.items() if k not in TIMED_NOTES}))
+
+
+def operator_launches(solves: list) -> dict:
+    """The kernels a tick's solves launch, from their traces: K1-K3 once per
+    pack (a trace noting `pack_items`: full, masked and simulation solves;
+    or a delta noting added pods), K4 once per delta that removes pods, K5
+    and K6 once per LP decision (a `consolidate` trace noting its
+    proposals)."""
+    packs = sum(1 for s in solves if "pack_items" in s["notes"] or s["notes"].get("delta_added", 0) > 0)
+    recredits = sum(1 for s in solves if s["notes"].get("delta_removed", 0) > 0)
+    lp = sum(1 for s in solves if s["mode"] == "consolidate" and "proposals" in s["notes"])
+    need = {"feasibility": packs, "pack_scan": packs, "sparsify": packs, "recredit": recredits,
+            "globalpack": lp, "score_subsets": lp}
+    return {k: v for k, v in need.items() if v}
+
+
+class OperatorWatch:
+    """Steps an `Environment`'s clock and ticks it, keeping per tick what
+    the fixture records: the canonical state's digest, the NodeClaims,
+    Nodes and bound pods, the solves its trace recorder saw, and each
+    disruption method's commands (reason, candidates, replacements and a
+    digest of the whole `canonical_command`)."""
+
+    def __init__(self, env):
+        self.env = env
+        self.recorder = env.trace_recorder
+        self.seq = self.recorder.seq
+        self.decisions: list = []
+        for method in env.disruption.methods:
+            method.compute_commands = self._watched(method.compute_commands, type(method).__name__)
+
+    def _watched(self, real, name: str):
+        from karpenter_tpu_torch.testing.canonical import canonical_command, json_form
+
+        def compute_commands(candidates, budgets):
+            cmds = real(candidates, budgets)
+            for cmd in cmds:
+                full = json_form(canonical_command(cmd))
+                self.decisions.append([name, full[0], full[1], len(full[2]), digest(full)])
+            return cmds
+
+        return compute_commands
+
+    def tick(self) -> tuple:
+        """One clock step and one `tick(provision_force=True)`: (the
+        canonical state, the tick's record)."""
+        from karpenter_tpu_torch.testing.canonical import canonical_operator, json_form
+
+        env = self.env
+        env.clock.step(OPERATOR_STEP)
+        self.decisions = []
+        env.tick(provision_force=True)
+        traces = [tr for tr in self.recorder.traces() if tr.seq > self.seq]
+        expect(len(traces) == self.recorder.seq - self.seq, "the trace ring dropped a solve of the tick")
+        self.seq = self.recorder.seq
+        state = json_form(canonical_operator(env))
+        pods = env.store.list("Pod")
+        return state, dict(digest=digest(state), claims=env.store.count("NodeClaim"), nodes=env.store.count("Node"),
+                           bound=sum(1 for p in pods if p.spec.node_name), pods=len(pods),
+                           solves=[solve_view(tr) for tr in traces], decisions=self.decisions)
+
+
+def digest(x) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps(x).encode()).hexdigest()
+
+
+def operator_ticks(watch: OperatorWatch, max_ticks: int, quiet: int = 1) -> tuple[list, list]:
+    """Tick until `quiet` ticks in a row change nothing (or `max_ticks`):
+    the ticks' records (each with `changed`) and the last canonical state."""
+    from karpenter_tpu_torch.testing.canonical import canonical_operator, json_form
+
+    prev = json_form(canonical_operator(watch.env))
+    records, state, still = [], prev, 0
+    for _ in range(max_ticks):
+        state, rec = watch.tick()
+        rec["changed"] = state != prev
+        records.append(rec)
+        prev = state
+        still = 0 if rec["changed"] else still + 1
+        if still == quiet:
+            break
+    return records, state
+
+
+def moved(x, dev):
+    """`x` with every tensor it holds (in tuples, lists, dicts and the port's
+    dataclasses, nested) moved to `dev`."""
+    import copy
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if type(x) in (tuple, list):
+        return type(x)(moved(v, dev) for v in x)
+    if type(x) is dict:
+        return {k: moved(v, dev) for k, v in x.items()}
+    if type(x).__module__.startswith("karpenter_tpu_torch.") and hasattr(x, "__dict__"):
+        y = copy.copy(x)
+        for k, v in vars(x).items():
+            setattr(y, k, moved(v, dev))
+        return y
+    return x
+
+
+ERR_KEYS = ("feasibility", "pack_scan", "sparsify", "recredit", "globalpack", "score_subsets")
+
+
+def plain_worker(root: str, dev: str, jobs, results) -> None:
+    """`plain_reruns` in a process of its own, on `dev` (`PlainWorker`):
+    each message is a pickled (what, jobs) with the tensors on the host; the
+    answer per message is (what, errs, the failure or None). None ends it."""
+    import pickle
+
+    sys.path.insert(0, root)
+    while True:
+        msg = jobs.get()
+        if msg is None:
+            return
+        what, batch = pickle.loads(msg)
+        errs = dict.fromkeys(ERR_KEYS, 0.0)
+        try:
+            plain_reruns(moved(batch, dev), what, errs)
+            results.put((what, errs, None))
+        except Exception as e:  # noqa: BLE001 - the parent fails with it
+            results.put((what, errs, f"{type(e).__name__}: {e}"))
+
+
+class PlainWorker:
+    """The plain half of the kept calls' re-runs (`plain_reruns`), in a
+    second process on the card, so that it runs beside the next ticks: the
+    parent runs each kernel again itself (`kernel_reruns`) and sends the
+    jobs over. `finish` waits for every answer and fails on the first
+    failure; the process is always stopped."""
+
+    def __init__(self, dev):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.jobs, self.results = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=plain_worker, args=(str(ROOT), str(dev), self.jobs, self.results), daemon=True)
+        self.proc.start()
+        self.sent = 0
+
+    def submit(self, what: str, jobs: list) -> None:
+        import pickle
+
+        self.jobs.put(pickle.dumps((what, moved(jobs, "cpu"))))
+        self.sent += 1
+
+    def finish(self, errs: dict, timeout: float = 600.0) -> None:
+        import queue
+
+        self.jobs.put(None)
+        deadline = time.perf_counter() + timeout
+        failures = []
+        for _ in range(self.sent):
+            while True:
+                try:
+                    what, got, failure = self.results.get(timeout=5.0)
+                    break
+                except queue.Empty:
+                    expect(self.proc.is_alive(), f"the plain re-runs' process ended (exit code {self.proc.exitcode})")
+                    expect(time.perf_counter() < deadline, "the plain re-runs' process gave no answer in time")
+            for k, v in got.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            if failure is not None:
+                failures.append(f"{what}: {failure}")
+        expect(not failures, "; ".join(failures))
+
+    def close(self) -> None:
+        self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=10)
+
+
+def check_operator(dev, card: str, errs: dict) -> dict:
+    """The operator phase: the seeded headline's nodepool, 100 instance types
+    and 5000 pending pods in an `Environment(Options())` with no device (so
+    its `GPUSolver` is on the card), ticked once per tick of
+    `OPERATOR_FIXTURE` after a 2 s clock step. Each tick's canonical state
+    (NodeClaims, Nodes, each pod's node, events, counters) has the JAX
+    reference's digest, its solves the reference's modes and notes, its
+    disruption decisions the reference's commands; the last tick's state
+    equals the reference's in full. The counts are set to 0 before each tick
+    and read after: they follow the recorded solves (`operator_launches`),
+    and each kept pack, recredit, K5 and K6 call is run again against its
+    plain version, the plain half in a second process on the card
+    (`PlainWorker`) beside the next ticks. Once, no median: each tick's wall
+    ms, split into the provisioner, binder, lifecycle, disruption and the
+    rest."""
+    import torch
+
+    from karpenter_tpu_torch.controllers.provisioning.scheduling import nodeclaim
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.obs import trace
+    from karpenter_tpu_torch.operator import Environment
+    from karpenter_tpu_torch.operator.options import Options
+
+    want = json.loads(OPERATOR_FIXTURE.read_text())
+    expect(want["shape"] == list(SNAPSHOT_SHAPE) and want["seed"] == SNAPSHOT_SEED, "operator fixture: another cluster")
+    trace._DEFAULT = trace.TraceRecorder()
+    reset_bucket_highwater()
+    snap, _added, _one = seeded_snapshot()
+    env = operator_env(snap, Environment, Options())
+    solver = env.provisioner.solver
+    expect(type(solver).__name__ == "GPUSolver" and solver.device.type == "cuda",
+           f"operator: the provisioner's solver is {type(solver).__name__} on {getattr(solver, 'device', None)}")
+    split: dict = {}
+
+    def timed(name: str, obj, attr: str):
+        real = getattr(obj, attr)
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                split[name] = split.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+        setattr(obj, attr, call)
+
+    for name, owner, attr in OPERATOR_SPLIT:
+        timed(name, getattr(env, owner), attr)
+    watch = OperatorWatch(env)
+    operator_start(nodeclaim)
+    ticks, totals, state = [], {}, None
+    worker = PlainWorker(dev)
+    try:
+        for k, w in enumerate(want["ticks"]):
+            what = f"operator tick {k}"
+            seen: dict = {"pack": [], "rc": [], "k5": [], "k6": []}
+            split.clear()
+            with kept_snapshot_inputs(seen), kept_proposer_inputs(seen):
+                build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, rec = watch.tick()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                counts = {n: c for n, c in build.LAUNCHES.items() if c}
+            for key in ("claims", "nodes", "bound", "pods", "solves", "decisions", "digest"):
+                expect(rec[key] == w[key],
+                       f"{what}: {key} {str(rec[key])[:300]}, the JAX reference's {str(w[key])[:300]}")
+            need = operator_launches(w["solves"])
+            expect(counts == need, f"{what}: launches {counts}, the recorded solves need {need}")
+            kept = {"pack_scan": len(seen["pack"]), "recredit": len(seen["rc"]), "globalpack": len(seen["k5"]),
+                    "score_subsets": len(seen["k6"])}
+            expect(all(v == need.get(k, 0) for k, v in kept.items()), f"{what}: kept calls {kept} for {need}")
+            t1 = time.perf_counter()
+            worker.submit(what, kernel_reruns(seen, what))
+            del seen
+            rerun_s = time.perf_counter() - t1
+            for n, c in counts.items():
+                totals[n] = totals.get(n, 0) + c
+            tick_split = {n: round(split.get(n, 0.0), 3) for n, _o, _a in OPERATOR_SPLIT}
+            tick_split["rest"] = round(wall - sum(tick_split.values()), 3)
+            modes = [s["mode"] for s in rec["solves"]]
+            ticks.append(dict(ms=round(wall, 3), split=tick_split, launches=counts, modes=modes))
+            print(f"{what}: {wall:.3f} ms (" + ", ".join(f"{n} {v:.3f}" for n, v in tick_split.items())
+                  + f") on {card}; {rec['claims']} NodeClaims, {rec['nodes']} Nodes, {rec['bound']} of {rec['pods']} pods "
+                  f"bound, solves {modes}, {len(rec['decisions'])} disruption commands, launches {counts}; digest == JAX "
+                  f"reference; kept calls' kernels == the path's ({rerun_s:.1f} s)")
+        t1 = time.perf_counter()
+        worker.finish(errs)
+        print(f"operator: every kept call == plain on the card (the plain re-runs' process ended "
+              f"{time.perf_counter() - t1:.1f} s after the last tick)")
+    finally:
+        worker.close()
+    expect(state == want["final"], "operator: the last tick's state differs from the JAX reference's")
+    return dict(ticks=ticks, launches=totals)
+
+
 # -- the meshed phase: the slot-sharded pack on a mesh of one card's shards ------------
 
 MESH_SIZES = (2, 4, 8)  # shards of the sharded K2 held to K2 (the headline, both existing fleets)
@@ -1907,28 +2305,7 @@ def check_proposer_inputs(seen: dict, what: str, errs: dict) -> None:
     """Each K5 and K6 call of a round, repeated on its kept inputs: K5 within
     D_TOL of its plain version (and equal to the round's own output), K6 bit
     for bit."""
-    import torch
-
-    from karpenter_tpu_torch.kernels.globalpack import globalpack, globalpack_plain
-    from karpenter_tpu_torch.kernels.score_subsets import score_subsets_packed, score_subsets_plain, unpack
-
-    for args, (d_path, s_path) in seen["k5"]:
-        d, s = globalpack(*args)
-        d_p, _s_p = globalpack_plain(*args)
-        torch.cuda.synchronize()
-        err = max_abs((d, d_p))
-        errs["globalpack"] = max(errs["globalpack"], err)
-        expect(err <= D_TOL, f"{what}: K5 d differs from plain by {err}")
-        expect(torch.equal(d, d_path) and torch.equal(s, s_path), f"{what}: K5 differs from the round's own call")
-    for args, packed_path in seen["k6"]:
-        M = int(args[-1].shape[0])
-        packed = score_subsets_packed(*args)
-        s, f = unpack(packed, M)
-        s_p, f_p = score_subsets_plain(*args)
-        torch.cuda.synchronize()
-        errs["score_subsets"] = max(errs["score_subsets"], max_abs((s, s_p), (f, f_p)))
-        expect(torch.equal(s, s_p) and torch.equal(f, f_p), f"{what}: K6 differs from plain")
-        expect(torch.equal(packed, packed_path), f"{what}: K6 differs from the round's own call")
+    plain_reruns(kernel_reruns({k: seen[k] for k in ("k5", "k6")}, what), what, errs)
 
 
 def consolidation_side(dev):
@@ -3758,8 +4135,11 @@ def run(dev, card: str) -> dict:
     consolidation = check_consolidation(dev, card, errs)
     t4 = time.perf_counter()
     sharded = check_sharded(dev, card, errs)
+    t6 = time.perf_counter()
+    operator = check_operator(dev, card, errs)
     print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {t5 - t2:.1f} s, "
-          f"consolidation phase {t4 - t3:.1f} s, meshed phase {time.perf_counter() - t4:.1f} s")
+          f"consolidation phase {t4 - t3:.1f} s, meshed phase {t6 - t4:.1f} s, "
+          f"operator phase {time.perf_counter() - t6:.1f} s")
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
           f"{dense['ms']:.4f} ms (K1 + K2, CUDA events), {dense['plain_ms']:.4f} ms plain, "
@@ -3880,7 +4260,8 @@ def run(dev, card: str) -> dict:
                                                    "hybrid_residual_gone"), hybrid["paths"])),
                                        "provision": provision["path"], "meshed": sharded["paths"],
                                        **dict(zip(("dra_cold", "dra_delta_1pod", "dra_provision"), dra["paths"])),
-                                       "consolidation_reconcile": consolidation["pass_counts"]},
+                                       "consolidation_reconcile": consolidation["pass_counts"],
+                                       "operator": operator["launches"]},
             "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"],
             "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")},
             "solve_ms": {**solve["ms"], "decode": solve["decode_ms"], "stages": solve["stages"]},
@@ -3889,7 +4270,8 @@ def run(dev, card: str) -> dict:
             "observability": observability, "dra_ms": {"cold": dra["ms"], "stages": dra["stages"]},
             "consolidation_ms": {"decision": consolidation["ms"], "stages": consolidation["stages"],
                                  "reconcile": consolidation["pass_ms"], "reconcile_split": consolidation["pass_split"],
-                                 "fleet_build_s": consolidation["build_s"], "probes": consolidation["probes"]}}
+                                 "fleet_build_s": consolidation["build_s"], "probes": consolidation["probes"]},
+            "operator_ticks": operator["ticks"]}
 
 
 def run_dra(dev, card: str) -> dict:
@@ -3900,6 +4282,16 @@ def run_dra(dev, card: str) -> dict:
     out = check_dra(dev, card, errs)
     print(f"DRA phase {time.perf_counter() - t1:.1f} s")
     return {"dra": out, "errs": errs}
+
+
+def run_operator(dev, card: str) -> dict:
+    """The operator phase alone (`--only operator`)."""
+    errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0, "globalpack": 0.0,
+            "score_subsets": 0.0}
+    t1 = time.perf_counter()
+    out = check_operator(dev, card, errs)
+    print(f"operator phase {time.perf_counter() - t1:.1f} s")
+    return {"operator": out, "errs": errs}
 
 
 def host_cpu() -> str:
@@ -3922,7 +4314,7 @@ def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=("dra",), help="run only this phase (after the build)")
+    ap.add_argument("--only", choices=("dra", "operator"), help="run only this phase (after the build)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3957,7 +4349,7 @@ def main(argv: list[str]) -> int:
         if line.startswith("== ") or any(w in line for w in ("Compiling entry", "registers", "stack frame", "spill")):
             print("ptxas:", line.strip())
 
-    line = run_dra(dev, card) if args.only == "dra" else run(dev, card)
+    line = {"dra": run_dra, "operator": run_operator, None: run}[args.only](dev, card)
     print(json.dumps(line))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

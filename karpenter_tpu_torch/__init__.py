@@ -8,6 +8,12 @@ tensors, runs the signature-grouped pack through hand-written CUDA kernels
 that carries a delta of the previous one is solved from the device-resident
 carry of that solve: removals re-credited, only the added pods packed.
 
+Around it stands the reference's host side, copied: the object model, the
+host scheduler and encoder, the provisioner, disruption, DRA, metrics and
+observability, and the operator (`operator.Environment`), which wires every
+controller and runs a whole controller round with the provisioner's
+`GPUSolver` on the card.
+
 Every entry point runs on the CUDA device unless the caller passes
 `device="cpu"`; on CPU tensors each kernel wrapper runs its plain PyTorch
 version instead. The package imports torch and numpy only.

@@ -2,9 +2,8 @@
 (reference: disruption/controller.go:101-183).
 
 `metrics` (a `metrics.Registry`) receives the reference's disruption
-gauges, counters and decision histogram. The port has no ClusterCost yet:
-balanced scoring totals fall back to candidate prices, as the reference's
-do when `cluster_cost` is None.
+gauges, counters and decision histogram; `cluster_cost` (a
+`state.cost.ClusterCost`) the nodepool totals that balanced scoring reads.
 """
 
 from __future__ import annotations
@@ -50,8 +49,6 @@ class _Ctx:
 
 class DisruptionController:
     def __init__(self, store, cluster, provisioner, cloud_provider, clock, options, recorder=None, metrics=None, cluster_cost=None):
-        if cluster_cost is not None:
-            raise NotImplementedError("cluster cost needs state/cost, which is not ported")
         self.store = store
         self.cluster = cluster
         self.provisioner = provisioner

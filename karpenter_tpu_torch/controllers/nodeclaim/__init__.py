@@ -1,1 +1,2 @@
-"""NodeClaim controllers: only the disruption conditions the disruption methods read."""
+"""NodeClaim controllers: lifecycle, garbage collection, consistency, expiration,
+hydration, pod events and the disruption conditions."""

@@ -1,1 +1,3 @@
-"""Operator surface: only the options the disruption controller reads."""
+"""Operator runtime: wiring of store, state, controllers, and providers."""
+
+from .runtime import Environment  # noqa: F401

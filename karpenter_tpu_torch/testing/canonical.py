@@ -9,8 +9,9 @@ process-global counter); per existing node: its name and its sorted pod
 keys; every pod error, key and message. `canonical_node_claims` gives the
 NodeClaims a provisioning pass created in a store the same way,
 `canonical_allocation` a DRA allocator's committed allocations and claim
-metadata, `canonical_command` a disruption `Command` and `canonical_store`
-every object of a store. Only tests and `chip_smoke.py` call this.
+metadata, `canonical_command` a disruption `Command`, `canonical_store`
+every object of a store and `canonical_operator` an operator
+`Environment`'s state. Only tests and `chip_smoke.py` call this.
 """
 
 from __future__ import annotations
@@ -98,29 +99,65 @@ def _conditions(cs) -> tuple:
     return tuple((c.type, c.status, c.reason, c.message, c.last_transition_time) for c in items)
 
 
+def _store_rows(store, kind: str) -> tuple:
+    out = []
+    for o in store.list(kind):
+        m = o.metadata
+        row = (m.namespace, m.name, tuple(sorted(m.labels.items())), tuple(sorted(m.annotations.items())),
+               tuple(m.finalizers), tuple((r.kind, r.name) for r in m.owner_references), m.creation_timestamp,
+               m.deletion_timestamp, repr(o.spec))
+        if kind == "Pod":
+            row += (o.status.phase, o.status.nominated_node_name)
+        else:
+            row += (_conditions(o.status.conditions),)
+        if kind == "NodeClaim":
+            row += (o.status.provider_id, o.status.node_name)
+        out.append(row)
+    return tuple(sorted(out))
+
+
 def canonical_store(store) -> tuple:
     """Every NodePool, NodeClaim, Node and Pod of a store, by kind and key:
     name, labels, annotations, finalizers, owners (kind and name), creation
     and deletion times, the spec as text and the status conditions (for a
     NodeClaim also its provider id and node name; for a Pod its phase).
     Uids and resource versions are left out."""
+    return tuple((kind, _store_rows(store, kind)) for kind in ("NodePool", "NodeClaim", "Node", "Pod"))
+
+
+# counters whose values are wall-clock readings (an event's end-to-end
+# seconds against its SLO) or the port's own (kernel-library loads, where
+# the reference counts JIT traces)
+NOT_COUNTED = frozenset({"karpenter_solver_event_slo_breach_total", "karpenter_solver_recompile_total"})
+
+
+def canonical_counters(registry) -> tuple:
+    """Every counter of a metrics registry, by name and labels, sorted; a
+    `backend` label of "gpu" reads as the reference's "tpu" (the same arm)
+    and `NOT_COUNTED` is left out."""
     out = []
-    for kind in ("NodePool", "NodeClaim", "Node", "Pod"):
-        rows = []
-        for o in store.list(kind):
-            m = o.metadata
-            row = (m.namespace, m.name, tuple(sorted(m.labels.items())), tuple(sorted(m.annotations.items())),
-                   tuple(m.finalizers), tuple((r.kind, r.name) for r in m.owner_references), m.creation_timestamp,
-                   m.deletion_timestamp, repr(o.spec))
-            if kind == "Pod":
-                row += (o.status.phase, o.status.nominated_node_name)
-            else:
-                row += (_conditions(o.status.conditions),)
-            if kind == "NodeClaim":
-                row += (o.status.provider_id, o.status.node_name)
-            rows.append(row)
-        out.append((kind, tuple(sorted(rows))))
-    return tuple(out)
+    with registry._lock:
+        metrics = list(registry._metrics.values())
+    for mt in metrics:
+        if mt.TYPE != "counter" or mt.name in NOT_COUNTED:
+            continue
+        for labels, value in mt.collect():
+            if labels.get("backend") == "gpu":
+                labels = {**labels, "backend": "tpu"}
+            out.append((mt.name, tuple(sorted(labels.items())), value))
+    return tuple(sorted(out))
+
+
+def canonical_operator(env) -> tuple:
+    """An operator `Environment`'s state after a tick: its NodeClaims and
+    Nodes (as `canonical_store` gives them), each pod's namespace, name and
+    node, the event recorder's events and the registry's counters
+    (`canonical_counters`)."""
+    pods = tuple(sorted((p.metadata.namespace, p.metadata.name, p.spec.node_name) for p in env.store.list("Pod")))
+    events = tuple((e.involved_kind, e.involved_name, e.type, e.reason, e.message, e.timestamp)
+                   for e in env.recorder.events)
+    return (_store_rows(env.store, "NodeClaim"), _store_rows(env.store, "Node"), pods, events,
+            canonical_counters(env.registry))
 
 
 def json_form(x):

@@ -555,3 +555,20 @@ def test_sharded_pack_scan_refuses_what_it_cannot_split(cuda_device):
     for n_slots, n_shards in ((10, 3), (64, 33)):
         with pytest.raises(build.KernelArgError, match="do not split"):
             pack_scan_sharded(None, NS(item_req=x), None, None, n_slots=n_slots, n_shards=n_shards)
+
+
+@pytest.mark.gpu
+def test_operator_scenario_on_card(cuda_device):
+    """The seeded operator scenario (`torch_operator_scenario`: provisioning,
+    then consolidation after half the pods leave), the port's arm on the
+    card against the same arm on the CPU: every tick's canonical state,
+    solves and disruption commands equal, and the solver on the card."""
+    from torch_operator_scenario import port_watch, run_phases
+
+    cpu = run_phases(port_watch(device="cpu"))
+    watch = port_watch(device=None)
+    assert watch.env.provisioner.solver.device.type == "cuda"
+    card = run_phases(watch)
+    assert len(card) == len(cpu) == 2
+    for g, w in zip(card, cpu):
+        assert g["records"] == w["records"] and g["state"] == w["state"]

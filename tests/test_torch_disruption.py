@@ -559,19 +559,29 @@ def test_do_not_disrupt_pod_excludes_its_node():
 def test_metrics_and_cluster_cost_are_refused():
     """A metrics registry counts the disruption pass as the reference's does
     (the eligible-nodes gauge, the decisions, the decision histogram's
-    count; exact); a ClusterCost is still refused."""
+    count; exact). A `ClusterCost` is no longer refused (`state/cost.py` is
+    ported): a controller built with one reads the balanced nodepool totals
+    from it as the reference's does (exact)."""
     from karpenter_tpu_torch import metrics as pm
+
+    def balanced_totals(side):
+        cost = side.m("state.cost")
+        cc = cost.ClusterCost(side.store, side.cloud)
+        cost.start_cost_informer(side.store, cc)
+        dc = side.m("controllers.disruption.controller").DisruptionController(
+            side.store, side.cluster, side.prov, side.cloud, side.clock, side.dc.options, cluster_cost=cc)
+        assert dc.ctx.cluster_cost is cc
+        dc.ctx.round_candidates = dc.get_candidates()
+        return {k: (v.total_cost, v.total_disruption_cost) for k, v in dc.ctx.balanced_totals().items()}
 
     pair = Pair(empty_node_env(), metrics=True)
     pair.flip()
+    assert pair.run(balanced_totals)
     pair.reconcile()
     pair.reconcile()
     p = pair.port
     assert p.registry.counter(pm.DISRUPTION_DECISIONS_TOTAL).total() >= 1
     assert p.registry.histogram(pm.DISRUPTION_DECISION_EVAL_DURATION).count(method="Emptiness") >= 1
-    dc_mod = p.m("controllers.disruption.controller")
-    with pytest.raises(NotImplementedError):
-        dc_mod.DisruptionController(p.store, p.cluster, p.prov, p.cloud, p.clock, p.dc.options, cluster_cost=object())
     assert p.dc.options.solver_backend == "gpu" and not p.dc.options.validate()
 
 

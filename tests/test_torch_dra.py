@@ -13,14 +13,15 @@ what each call returned (`recording`): CEL verdicts and errors,
 `device_matches_selectors`, claim resolution, every allocator and tracker
 call with the allocator's or tracker's state after it, `Scheduler.solve`'s
 canonical `Results` with its allocator's state, and the store after each
-KWOK driver or device-allocation controller reconcile. The two records
-must be equal, and the reference's own assertions must hold in the twin.
+KWOK driver or device-allocation controller reconcile, and each operator
+tick's canonical state (`torch_twins.recording`). The two records must be
+equal, and the reference's own assertions must hold in the twin.
 Tolerance: exact.
 
-Two classes of `test_dra.py` need the operator's `Environment`, which the
-port does not have yet (`TestEndToEnd`, `TestDeviceAllocationControllerDepth`;
-ROADMAP Queue 1 item 7). Their flows are wired by hand here instead: the
-KWOK driver, the device-allocation controller and a store, with
+Two classes of `test_dra.py` drive the operator's `Environment`
+(`TestEndToEnd`, `TestDeviceAllocationControllerDepth`); their twins take
+the port's through `torch_twins`'s shims. Their flows are also wired by
+hand: the KWOK driver, the device-allocation controller and a store, with
 `reconcile()` called in turn (`test_controller_flow_matches_reference`).
 `test_carry_over_keeps_dra_objects` holds a reference store with every DRA
 kind, carried over, to the reference's names, uids, resource versions and
@@ -33,24 +34,22 @@ import ast
 import contextlib
 import functools
 import importlib
-import itertools
-import random
 import re
 import sys
 import types
-import uuid
 from enum import Enum
 from pathlib import Path
 
 import pytest
 
+import torch_twins
+
 TESTS = Path(__file__).resolve().parent
 REF, PORT = "karpenter_tpu", "karpenter_tpu_torch"
 
 # the reference's DRA test modules, in import order (later ones import the
-# earlier ones' builders), and the classes left to the operator item
+# earlier ones' builders)
 TWIN_MODULES = ("test_dra", "test_dra_superposition", "test_dra_depth", "test_dra_cel")
-NEEDS_ENVIRONMENT = {"test_dra": ("TestEndToEnd", "TestDeviceAllocationControllerDepth")}
 UID_SEED = 16
 
 
@@ -58,12 +57,11 @@ def reference_cases(name: str) -> list[str]:
     """Every test of a reference module as "Class.method" or "function",
     read from its source (so every worker collects the same list)."""
     tree = ast.parse((TESTS / f"{name}.py").read_text())
-    skip = NEEDS_ENVIRONMENT.get(name, ())
     out = []
     for node in tree.body:
         if isinstance(node, ast.FunctionDef) and node.name.startswith("test_"):
             out.append(node.name)
-        elif isinstance(node, ast.ClassDef) and node.name.startswith("Test") and node.name not in skip:
+        elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
             out += [f"{node.name}.{f.name}" for f in node.body
                     if isinstance(f, ast.FunctionDef) and f.name.startswith("test_")]
     return out
@@ -76,9 +74,7 @@ def _twin_code(name: str, pkg: str):
     for dep in TWIN_MODULES:
         src = re.sub(rf"^from {dep} import", f"from _twin_{pkg}_{dep} import", src, flags=re.M)
     if pkg == PORT:
-        src = src.replace("from karpenter_tpu.operator import Environment", "Environment = None  # operator: item 7")
-        src = re.sub(r"\bkarpenter_tpu\b", PORT, src)
-        src = re.sub(r"^from helpers import", f"from {PORT}.testing.scenarios import", src, flags=re.M)
+        src = torch_twins.port_rewrite(src)
     return compile(src, str(TESTS / f"{name}.py"), "exec")
 
 
@@ -87,6 +83,8 @@ def load_twins(pkg: str, upto: str) -> types.ModuleType:
     `upto` (each executed anew, so the names they import are the ones
     bound now)."""
     mod = None
+    if pkg == PORT:
+        torch_twins.install_shims()
     for name in TWIN_MODULES[:TWIN_MODULES.index(upto) + 1]:
         mod = types.ModuleType(f"_twin_{pkg}_{name}")
         mod.__file__ = str(TESTS / f"{name}.py")
@@ -95,27 +93,8 @@ def load_twins(pkg: str, upto: str) -> types.ModuleType:
     return mod
 
 
-def same_start(pkg: str) -> None:
-    """The module state a twin run starts from."""
-    random.seed(0)
-    for p in (REF, PORT):
-        importlib.import_module(f"{p}.controllers.provisioning.scheduling.nodeclaim")._hostname_seq = itertools.count(1)
-        importlib.import_module(f"{p}.scheduling.dynamicresources.cel")._cache.clear()
-    if pkg == PORT:
-        importlib.import_module(f"{PORT}.testing.scenarios")._seq = itertools.count(1)
-    else:
-        importlib.import_module("helpers")._seq = itertools.count(1)
-
-
-@contextlib.contextmanager
-def seeded_uids(seed: int = UID_SEED):
-    rng = random.Random(seed)
-    real = uuid.uuid4
-    uuid.uuid4 = lambda: uuid.UUID(int=rng.getrandbits(128), version=4)
-    try:
-        yield
-    finally:
-        uuid.uuid4 = real
+same_start = torch_twins.same_start  # the module state a twin run starts from
+seeded_uids = functools.partial(torch_twins.seeded_uids, UID_SEED)
 
 
 # -- plain data -------------------------------------------------------------------
@@ -270,14 +249,15 @@ def run_case(pkg: str, module: str, case: str) -> list:
     """One reference test case run on package `pkg`: the record of its
     calls."""
     same_start(pkg)
-    with seeded_uids(), recording(pkg, CEL_TARGETS if module == "test_dra_cel" else ()) as log:
+    with seeded_uids(), recording(pkg, CEL_TARGETS if module == "test_dra_cel" else ()) as log, \
+            torch_twins.recording(pkg) as ticks:
         mod = load_twins(pkg, module)
         owner, _, fn = case.rpartition(".")
         if owner:
             getattr(getattr(mod, owner)(), fn)()
         else:
             getattr(mod, fn)()
-    return log
+    return log + ticks
 
 
 def assert_twin_case(module: str, case: str) -> None:
@@ -300,8 +280,8 @@ def test_reference_case_matches(module, case):
 
 
 def test_every_case_is_covered():
-    """Each reference DRA test (but the two `Environment` classes) is one
-    twin case here or in `test_torch_dra_cel.py`."""
+    """Each reference DRA test is one twin case here or in
+    `test_torch_dra_cel.py`."""
     import test_dra
     import test_dra_depth
     import test_dra_superposition
@@ -311,7 +291,7 @@ def test_every_case_is_covered():
         for name, obj in vars(mod).items():
             if name.startswith("test_") and callable(obj):
                 collected.append(name)
-            elif name.startswith("Test") and isinstance(obj, type) and name not in NEEDS_ENVIRONMENT.get(mod.__name__, ()):
+            elif name.startswith("Test") and isinstance(obj, type):
                 collected += [f"{name}.{m}" for m in vars(obj) if m.startswith("test_")]
         assert sorted(collected) == sorted(reference_cases(mod.__name__)), mod.__name__
 

@@ -11,7 +11,12 @@ the solves, the pass and the round with a metrics registry, an enabled
 trace recorder and an event recorder —, solves the encoding again on a
 mesh of three CPU shards (`parallel/sharded.py`), and solves a snapshot
 with device claims on the hybrid path (the DRA allocator in the residual)
-and runs the KWOK DRA driver and the device-allocation controller."""
+and runs the KWOK DRA driver and the device-allocation controller; then it
+builds the operator's `Environment(device="cpu")` over its own snapshot's
+nodepool, instance types and pending pods and runs `settle()`: whole
+controller rounds (provision, launch, register, bind, consolidate) with the
+GPU solver's plain versions, every pod bound. `Environment()` raises
+without CUDA."""
 
 from __future__ import annotations
 
@@ -119,14 +124,26 @@ _CHILD = textwrap.dedent(
     snap.store.create(claimed[0])
     DeviceAllocationController(snap.store, snap.cluster, snap.clock).reconcile()
     assert snap.store.list("ResourceClaim")[0].status.allocation["nodeName"] == "n1"
+    from karpenter_tpu_torch.operator import Environment
+    import torch
+    torch.set_num_threads(1)
+    snap = build_snapshot(40, 20)
+    env = Environment(device="cpu", instance_types=snap.instance_types["default-pool"])
+    env.store.create(snap.node_pools[0])
+    for p in snap.pods:
+        env.store.create(p)
+    env.settle()
+    assert env.provisioner.solver.last_backend == "gpu"
+    assert all(p.spec.node_name for p in env.store.list("Pod")) and env.store.count("Node") > 0
     import torch
     torch.cuda.is_available = lambda: False
-    try:
-        GPUSolver()
-    except RuntimeError:
-        pass
-    else:
-        raise SystemExit("GPUSolver() ran without CUDA")
+    for make in (GPUSolver, Environment):
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit(f"{{make.__name__}}() ran without CUDA")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_tpu") and sys.modules[m] is not None)
     assert not leaked, leaked
     print("ISOLATED", len(names))
