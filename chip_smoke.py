@@ -183,6 +183,24 @@ against its plain version. Each tick's wall ms is printed once, split into
 the provisioner, the binder, the NodeClaim lifecycle, the disruption
 controller and the rest.
 
+Then the serving phase (`check_serving`), against
+`fixtures/serving/churn_5000x100.json` (the JAX reference's runs of
+`testing/serving.py`'s scenarios): the headline churn (5000 base pods, 100
+types, 800 arrivals, 600 cancellations and 800 departures a cycle, 32
+steady solves) in a `ChurnHarness` on the card, every solve's mode and the
+placement digest after every bind flush the reference's, each solve's
+launches as its trace says (K1-K3 per full and adding delta solve, K4 per
+removing delta), no kernel-library load in the steady window, the first
+full pack, delta pack and recredit held to their plain versions; after a
+node's revocation `repack_savings("global")` (K5, K6) the reference's; a
+1.5 s concurrent segment with the prestager's worker thread (invariants
+only); four fleet tenants of 1250 pods on a `FleetFrontend` (each
+tenant's modes, digests and report the reference's); a `ShardRouter` of
+two worker processes on the card replaying the tenants' logs to the
+fleet's digests, one worker killed and its tenants re-homed, the kernel
+library built once for all; and `python -m karpenter_tpu_torch` (single
+cluster, then two shards) answering its routes and exiting 0 on SIGTERM.
+
 Then the delta path: every chain in `fixtures/chains/` is driven through
 `GPUSolver().solve_encoded` step by step, the counts set to 0 before each
 step and read after it. Each step must give the reference's mode and
@@ -258,9 +276,9 @@ CUDA graph, each beside an empty kernel's launch timed the same two ways.
 
 Output: a `kernels` JSON line, the card line, then as the last line
 `{"ok": true, "device": {...}}`. Any mismatch or exception exits non-zero.
-`python3 chip_smoke.py --only dra` (or `--only operator`) runs just the DRA
-(or the operator) phase after the build and prints its result in place of
-the `kernels` line.
+`python3 chip_smoke.py --only dra` (or `--only operator`, `--only serving`)
+runs just the DRA (the operator, the serving) phase after the build and
+prints its result in place of the `kernels` line.
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero before printing any result.
 """
@@ -1909,6 +1927,373 @@ def check_operator(dev, card: str, errs: dict) -> dict:
         worker.close()
     expect(state == want["final"], "operator: the last tick's state differs from the JAX reference's")
     return dict(ticks=ticks, launches=totals)
+
+
+# -- the serving phase: churn, the fleet, the shard router, the entry point ------------
+
+SERVING_FIXTURE = FIXTURES / "serving" / "churn_5000x100.json"
+SERVING_CONCURRENT_S = 1.5  # the concurrent segment's wall seconds (worker=True)
+SERVING_SHARDS = 2
+SERVING_TICK_S = 0.5  # the entry point's controller round
+PACK_KERNELS = ("feasibility", "pack_scan", "sparsify")
+
+
+@contextmanager
+def kept_serving_calls(seen: dict):
+    """Keep the first full pack, the first delta pack (`_pack_flat` from a
+    carry), the first recredit (K4) and every K5 and K6 call, in
+    `kept_snapshot_inputs`' and `kept_proposer_inputs`' formats."""
+    import karpenter_tpu_torch.kernels.recredit as k4
+    import karpenter_tpu_torch.models.scheduler_model_grouped as grouped
+
+    real_k4, real_pack = k4.recredit, grouped._pack_flat
+
+    def recredit(state, t, *args):
+        if seen["rc"]:
+            return real_k4(state, t, *args)
+        kept = clone_carry(state)
+        out = real_k4(state, t, *args)
+        seen["rc"].append((kept, t, args, out))
+        return out
+
+    def pack_flat(t, items, nnz_cap, init_state=None):
+        kind = "pack" if init_state is None else "delta"
+        if seen[kind]:
+            return real_pack(t, items, nnz_cap, init_state=init_state)
+        kept = None if init_state is None else clone_carry(init_state)
+        out = real_pack(t, items, nnz_cap, init_state=init_state)
+        seen[kind].append((t, items, nnz_cap, kept, out))
+        return out
+
+    k4.recredit, grouped._pack_flat = recredit, pack_flat
+    try:
+        with kept_proposer_inputs(seen):
+            yield
+    finally:
+        k4.recredit, grouped._pack_flat = real_k4, real_pack
+
+
+def serving_solve_launches(trace, counts: dict) -> None:
+    """A provisioning solve's launches as its trace says: a full solve K1-K3
+    (twice each after the slot-cap retry) and no K4; a delta K1-K3 once
+    each when it adds pods, none otherwise, and K4 at most once, only when
+    it removes pods; nothing else."""
+    a = trace.attribution
+    k = [counts.get(n, 0) for n in PACK_KERNELS]
+    other = {n: c for n, c in counts.items() if n not in PACK_KERNELS + ("recredit",) and c}
+    what = f"serving solve {trace.seq} ({trace.mode}): launches {counts}"
+    expect(not other, what)
+    if trace.mode == "full":
+        expect(k[0] == k[1] == k[2] in (1, 2) and not counts.get("recredit"), what)
+    else:
+        expect(trace.mode == "delta", what)
+        expect(k == [1 if a.get("delta_added") else 0] * 3, what + f", {a.get('delta_added')} pods added")
+        expect(counts.get("recredit", 0) <= (1 if a.get("delta_removed") else 0),
+               what + f", {a.get('delta_removed')} pods removed")
+
+
+def serving_entry(dev, card: str, args: list[str], paths: tuple) -> dict:
+    """`python -m karpenter_tpu_torch` with `args` (`--port 0`; on `dev`,
+    the card by default, named with `--device` when it is not the card) in
+    a subprocess: after two controller rounds each of `paths` must answer
+    200 (`/readyz` polled until it does), then SIGTERM must end it with
+    exit code 0. Returns each path's wall ms and the start-up seconds."""
+    import re
+    import signal
+    import urllib.error
+    import urllib.request
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    cmd = [sys.executable, "-m", "karpenter_tpu_torch", "--port", "0", "--health-probe-port", "0", "--tick-seconds",
+           str(SERVING_TICK_S), *([] if dev.type == "cuda" else ["--device", str(dev)]), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = {}
+    try:
+        port, seen = None, []
+        while port is None:
+            line = proc.stdout.readline()
+            expect(bool(line), f"entry point {args}: ended before its 'up' line: {''.join(seen)[-2000:]}")
+            seen.append(line)
+            m = re.search(r" up: .*http=[^:]*:(\d+)", line)
+            port = int(m.group(1)) if m else None
+            expect(time.perf_counter() - t0 < 300, f"entry point {args}: no 'up' line in 300 s")
+        out["up_s"] = round(time.perf_counter() - t0, 3)
+        expect("solver=gpu" in seen[-1], f"entry point {args}: {seen[-1].strip()}")
+        time.sleep(2 * SERVING_TICK_S + 0.2)
+        for path in paths:
+            deadline = time.perf_counter() + 120
+            while True:
+                t1 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+                        code, body = r.status, r.read().decode()
+                except urllib.error.HTTPError as e:
+                    code, body = e.code, e.read().decode()
+                if code == 200 or path != "/readyz" or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.2)
+            expect(code == 200, f"entry point {args}: {path} answered {code}: {body[:300]}")
+            out[path] = dict(ms=round((time.perf_counter() - t1) * 1e3, 3), bytes=len(body))
+            if path == "/debug/shards":
+                shards = json.loads(body)["shards"]
+                expect(len(shards) == SERVING_SHARDS and all(r["alive"] for r in shards.values()),
+                       f"entry point {args}: /debug/shards {body[:300]}")
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+        expect(proc.returncode == 0, f"entry point {args}: exit code {proc.returncode} on SIGTERM: {rest[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    out["s"] = round(time.perf_counter() - t0, 3)
+    print(f"entry point python -m karpenter_tpu_torch {' '.join(args) or '(single cluster)'}: up in {out['up_s']} s, "
+          + ", ".join(f"{p} 200 in {out[p]['ms']} ms" for p in paths) + f", exit 0 on SIGTERM ({out['s']} s) on {card}")
+    return out
+
+
+def check_serving(dev, card: str, errs: dict) -> dict:
+    """The serving phase (ROADMAP Queue 1 item 8), against
+    `SERVING_FIXTURE` (the JAX reference's runs of `testing/serving.py`'s
+    scenarios on the CPU), with shape bucketing on as serving runs it:
+
+    1. The headline churn (`HEADLINE`: 5000 base pods, 100 types, 800
+       arrivals, 600 cancellations and 800 departures a cycle, a bind flush
+       every 4 solves, 32 steady solves, seed 0, synchronous prestager) in a
+       `ChurnHarness` whose `GPUSolver` is on the card: every solve's mode
+       and the placement digest after every bind flush the reference's, the
+       report's wall-clock-free fields its, no kernel-library load in the
+       steady window; the counts set to 0 before and read after, each
+       solve's launches as its trace says (`serving_solve_launches`), K1-K4
+       launched. The first full pack, delta pack and recredit are run again
+       against their plain versions (the plain half in `PlainWorker`).
+       Then the first node (by name) is revoked and `repack_savings
+       ("global")` must launch K5 and K6, equal the reference's savings and
+       its kept K5 and K6 calls their plain versions. Then the concurrent
+       segment (`SERVING_CONCURRENT_S`, the prestager's worker thread on):
+       triggers coalesced, every store pod tracked, every pending pod
+       placed after the drain.
+    2. The fleet: `FLEET_TENANTS` tenants (1250 base pods each, rates / 40)
+       on a `FleetFrontend` on the card, pumped without the serve thread,
+       each recording its event log: each tenant's modes, digests and
+       report the reference's.
+    3. The shard router: `ShardRouter(n_shards=2, solver="gpu")`, its two
+       workers on the card, the kernels' build directory shared: `run_all`
+       replays each tenant's log to the fleet's final digest; one worker is
+       killed and its tenants re-homed onto the other to the same digests;
+       the library was built once (one line in the build directory's
+       `builds.log`, the first writer's stamp there).
+    4. `python -m karpenter_tpu_torch` on the card, single-cluster and
+       `--fleet-shards 2 --fleet-tenants 4`: its routes, exit 0 on SIGTERM.
+
+    Prints churn events/s, the solves' P50/P99 seconds (the flight record),
+    the delta-hit rate, the end-to-end event latency P50/P99 and its
+    dominant stage (podtrace), the base fleet's provisioning time and the
+    bind flushes' share of it, and each sub-phase's wall time."""
+    import tempfile
+
+    import torch
+
+    from karpenter_tpu_torch import metrics as m
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.obs import trace as trace_mod
+    from karpenter_tpu_torch.serving import ShardRouter
+    from karpenter_tpu_torch.testing import serving as sv
+
+    want = json.loads(SERVING_FIXTURE.read_text())
+    expect(want["headline"]["spec"] == sv.HEADLINE and want["fleet"]["spec"] == sv.FLEET,
+           "serving fixture: another scenario")
+    bucket = os.environ.get("KARPENTER_SOLVER_BUCKET")
+    os.environ["KARPENTER_SOLVER_BUCKET"] = "1"  # the serving default (the fixture's)
+    phases, out = {}, {}
+    worker = PlainWorker(dev)
+    os.makedirs(ROOT / "build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="serving-", dir=str(ROOT / "build"))
+    try:
+        # -- 1. the headline churn ------------------------------------------------------
+        t0 = time.perf_counter()
+        sv.fresh_state()
+        trace_mod._DEFAULT = trace_mod.TraceRecorder()
+        api = sv.port_api(dev)
+        h = api.harness(sv.headline_spec(api)).build()
+        solver = h.env.provisioner.solver
+        expect(type(solver).__name__ == "GPUSolver" and solver.device.type == torch.device(dev).type,
+               f"serving: the harness's solver is {type(solver).__name__} on {getattr(solver, 'device', None)}")
+        per_solve, timers = [], {"base": 0.0, "base_bind": 0.0}
+        real_solve, real_base, real_flush = solver.solve, h.provision_base_fleet, h.bind_flush
+        in_base = [False]
+
+        def solve(snap):
+            before = dict(build.LAUNCHES)
+            res = real_solve(snap)
+            per_solve.append((solver.recorder.last(), {n: c - before[n] for n, c in build.LAUNCHES.items()
+                                                        if c != before[n]}))
+            return res
+
+        def base_fleet():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            in_base[0] = True
+            try:
+                real_base()
+            finally:
+                in_base[0] = False
+                timers["base"] += time.perf_counter() - t1
+
+        def bind_flush():
+            t1 = time.perf_counter()
+            real_flush()
+            if in_base[0]:
+                timers["base_bind"] += time.perf_counter() - t1
+
+        solver.solve, h.provision_base_fleet, h.bind_flush = solve, base_fleet, bind_flush
+        seen = {"pack": [], "delta": [], "rc": [], "k5": [], "k6": []}
+        try:
+            with kept_serving_calls(seen):
+                build.reset_launches()
+                torch.cuda.synchronize()
+                rec = sv.run_recorded(api, h)
+                torch.cuda.synchronize()
+                churn_counts = {n: c for n, c in build.LAUNCHES.items() if c}
+            rep = rec.pop("_report")
+            w = want["headline"]
+            expect(rec["modes"] == w["modes"], f"serving: modes {rec['modes']}, the JAX reference's {w['modes']}")
+            first = next((i for i, (a, b) in enumerate(zip(rec["digests"], w["digests"])) if a != b), None)
+            expect(rec["digests"] == w["digests"], f"serving: bind flush {first}'s placement digest differs from the "
+                   f"JAX reference's ({len(rec['digests'])} flushes, the reference's {len(w['digests'])})")
+            expect(rec["report"] == w["report"], f"serving: report {rec['report']}, the JAX reference's {w['report']}")
+            expect(rep.steady_recompiles == 0, f"serving: the steady window loaded the kernel library: {rep.recompiles}")
+            expect(len(per_solve) == len(rec["modes"]), f"serving: {len(per_solve)} solves traced, {len(rec['modes'])} recorded")
+            for tr, counts in per_solve:
+                serving_solve_launches(tr, counts)
+            expect(all(churn_counts.get(n, 0) > 0 for n in PACK_KERNELS + ("recredit",)),
+                   f"serving: the churn launched {churn_counts}, not each of K1-K4")
+            expect(seen["pack"] and seen["delta"] and seen["rc"], "serving: no full pack, delta pack or recredit kept")
+            jobs = kernel_reruns({"pack": seen["pack"] + seen["delta"], "rc": seen["rc"]}, "serving churn")
+            worker.submit("serving churn", jobs)
+            del jobs
+            phases["churn"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            with kept_serving_calls(seen):
+                build.reset_launches()
+                torch.cuda.synchronize()
+                repack = sv.revoke_and_repack(api, h)
+                torch.cuda.synchronize()
+                repack_counts = {n: c for n, c in build.LAUNCHES.items() if c}
+            expect(repack == w["repack"], f"serving: repack {repack}, the JAX reference's {w['repack']}")
+            expect(repack_counts.get("globalpack", 0) >= 1 and repack_counts.get("score_subsets", 0) >= 1,
+                   f"serving: the global repack launched {repack_counts}")
+            worker.submit("serving repack", kernel_reruns({"k5": seen["k5"], "k6": seen["k6"]}, "serving repack"))
+            phases["repack"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            coalesced0 = h.env.registry.counter(m.SOLVER_CHURN_COALESCED_TOTAL).total()
+            h.loop.prestager.start()
+            cev, csolves = h.run_concurrent(SERVING_CONCURRENT_S)
+            coalesced = h.env.registry.counter(m.SOLVER_CHURN_COALESCED_TOTAL).total() - coalesced0
+            pods = h.env.store.borrow_list("Pod")
+            names = {p.metadata.name for p in pods}
+            expect(cev > 0 and csolves > 0 and coalesced > 0,
+                   f"serving concurrent: {cev} events, {csolves} solves, {coalesced} coalesced triggers")
+            expect(names == set(h._pending) | set(h._bound), "serving concurrent: the store's pods are not the tracked ones")
+            expect(not h._pending and all(p.spec.node_name for p in pods),
+                   f"serving concurrent: {len(h._pending)} pods left pending after the drain")
+            phases["concurrent"] = time.perf_counter() - t1
+        finally:
+            solver.solve = real_solve
+            h.close()
+        out["churn"] = dict(report={k: v for k, v in rep.as_dict().items() if k not in ("recompiles",)},
+                            launches=churn_counts, repack=repack, repack_launches=repack_counts,
+                            base_s=timers["base"], base_bind_s=timers["base_bind"],
+                            concurrent=dict(events=cev, solves=csolves, coalesced=coalesced))
+        print(f"serving churn {sv.HEADLINE['n_base_pods']}x{sv.HEADLINE['n_types']} on {card}: {rep.events} events in "
+              f"{rep.wall_seconds:.3f} s = {rep.events_per_sec:.1f} events/s; solve P50 {rep.p50_solve_seconds:.6f} s, "
+              f"P99 {rep.p99_solve_seconds:.6f} s (flight record, {rep.solves} steady solves); delta-hit "
+              f"{rep.delta_hit_rate}; end-to-end event P50 {rep.e2e_p50_seconds:.6f} s, P99 {rep.e2e_p99_seconds:.6f} s "
+              f"over {rep.e2e_events} events, dominant stage {rep.dominant_stage} (stage P99 {rep.stage_p99_seconds}); "
+              f"base fleet {timers['base']:.3f} s, bind flushes {timers['base_bind']:.3f} s of it "
+              f"({100 * timers['base_bind'] / timers['base']:.1f}%); launches {churn_counts}; modes and "
+              f"{len(rec['digests'])} digests == JAX reference")
+        print(f"serving repack after revoking 1 node on {card}: savings {repack['savings']} $/h == JAX reference, "
+              f"launches {repack_counts} ({phases['repack']:.3f} s); concurrent segment {SERVING_CONCURRENT_S} s "
+              f"(prestager worker on): {cev} events, {csolves} solves, {coalesced:.0f} coalesced triggers, 0 pending")
+
+        # -- 2. the fleet ----------------------------------------------------------------
+        t1 = time.perf_counter()
+        sv.fresh_state()
+        fleet = api.fleet()
+        try:
+            build.reset_launches()
+            tenants = sv.run_fleet(api, fleet, log_dir=tmp)
+            torch.cuda.synchronize()
+            fleet_counts = {n: c for n, c in build.LAUNCHES.items() if c}
+            finals = {tid: api.placement_digest(s.env) for tid, s in fleet.sessions().items()}
+        finally:
+            fleet.close()
+        for tid, r in tenants.items():
+            r.pop("_report")
+            wt = want["fleet"]["tenants"][tid]
+            for key in ("modes", "digests", "report"):
+                expect(r[key] == wt[key], f"serving fleet {tid}: {key} {str(r[key])[:300]}, the JAX reference's "
+                       f"{str(wt[key])[:300]}")
+            expect(finals[tid] == wt["digests"][-1], f"serving fleet {tid}: the final state is not the last flush's")
+        expect(all(fleet_counts.get(n, 0) > 0 for n in PACK_KERNELS), f"serving fleet: launches {fleet_counts}")
+        phases["fleet"] = time.perf_counter() - t1
+        out["fleet"] = dict(launches=fleet_counts, events=sum(r["report"]["events"] for r in tenants.values()))
+        print(f"serving fleet {sv.FLEET_TENANTS} tenants x {sv.FLEET['n_base_pods']} pods on {card}: every tenant's "
+              f"modes, digests and report == JAX reference; launches {fleet_counts} ({phases['fleet']:.3f} s)")
+
+        # -- 3. the shard router -----------------------------------------------------------
+        t1 = time.perf_counter()
+        lib_dir = Path(build.lib()._name).parent
+        router = ShardRouter(n_shards=SERVING_SHARDS, solver="gpu", cache_dir=str(build.BUILD_DIR), device=str(dev))
+        try:
+            expect(router.spawn() == [f"shard-{i}" for i in range(SERVING_SHARDS)], "serving shards: spawn")
+            for tid in finals:
+                router.add_tenant(tid, log_path=os.path.join(tmp, f"{tid}.jsonl"))
+            results = router.run_all()
+            expect(all(r.get("ok") for r in results.values()), f"serving shards: run_all {str(results)[:500]}")
+            digests = {tid: router._tenants[tid]["digest"] for tid in finals}
+            expect(digests == finals, f"serving shards: replayed digests {digests}, the fleet's {finals}")
+            owners = router.tenants()
+            victim = owners[min(owners)]
+            expect(len(set(owners.values())) == SERVING_SHARDS, f"serving shards: the tenants' owners {owners}")
+            router._handle(victim).kill()
+            expect(router.check_shards()[victim] == "quarantined", "serving shards: the killed worker's breaker")
+            rehomed = router.rehome_tenants(victim)
+            orphans = sorted(t for t, s in owners.items() if s == victim)
+            expect(sorted(rehomed) == orphans and all(r["matches"] for r in rehomed.values()),
+                   f"serving shards: re-homed {rehomed}")
+            expect(all(router._tenants[t]["digest"] == finals[t] for t in orphans), "serving shards: re-homed digests")
+        finally:
+            router.close()
+        builds = (lib_dir / "builds.log").read_text().splitlines() if (lib_dir / "builds.log").exists() else []
+        expect(len(builds) == 1, f"serving shards: the kernel library was built {len(builds)} times: {builds}")
+        expect((build.BUILD_DIR / ".karpenter-cache-stamp").exists(), "serving shards: no first writer's stamp")
+        phases["shards"] = time.perf_counter() - t1
+        out["shards"] = dict(owners=owners, rehomed=sorted(rehomed), builds=builds)
+        print(f"serving shards on {card}: {SERVING_SHARDS} workers replayed {len(finals)} tenants to the fleet's "
+              f"digests, {victim} killed and its tenants {orphans} re-homed to the same digests; the kernel library "
+              f"built once ({builds[0]}) ({phases['shards']:.3f} s)")
+
+        # -- 4. the entry point ----------------------------------------------------------
+        t1 = time.perf_counter()
+        out["entry"] = serving_entry(dev, card, [], ("/readyz", "/metrics", "/debug/solves"))
+        out["entry_sharded"] = serving_entry(dev, card, ["--fleet-shards", str(SERVING_SHARDS), "--fleet-tenants", "4"],
+                                             ("/readyz", "/metrics", "/debug/tenants", "/debug/shards"))
+        phases["entry"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        worker.finish(errs)
+        print(f"serving: every kept call == plain on the card (the plain re-runs ended {time.perf_counter() - t1:.1f} s "
+              f"after the entry point)")
+    finally:
+        worker.close()
+        if bucket is None:
+            os.environ.pop("KARPENTER_SOLVER_BUCKET", None)
+        else:
+            os.environ["KARPENTER_SOLVER_BUCKET"] = bucket
+    out["phases_s"] = {k: round(v, 3) for k, v in phases.items()}
+    print("serving sub-phases s: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) + f" on {card}")
+    return out
 
 
 # -- the meshed phase: the slot-sharded pack on a mesh of one card's shards ------------
@@ -4137,9 +4522,11 @@ def run(dev, card: str) -> dict:
     sharded = check_sharded(dev, card, errs)
     t6 = time.perf_counter()
     operator = check_operator(dev, card, errs)
+    t7 = time.perf_counter()
+    serving = check_serving(dev, card, errs)
     print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {t5 - t2:.1f} s, "
           f"consolidation phase {t4 - t3:.1f} s, meshed phase {t6 - t4:.1f} s, "
-          f"operator phase {time.perf_counter() - t6:.1f} s")
+          f"operator phase {t7 - t6:.1f} s, serving phase {time.perf_counter() - t7:.1f} s")
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
           f"{dense['ms']:.4f} ms (K1 + K2, CUDA events), {dense['plain_ms']:.4f} ms plain, "
@@ -4261,7 +4648,9 @@ def run(dev, card: str) -> dict:
                                        "provision": provision["path"], "meshed": sharded["paths"],
                                        **dict(zip(("dra_cold", "dra_delta_1pod", "dra_provision"), dra["paths"])),
                                        "consolidation_reconcile": consolidation["pass_counts"],
-                                       "operator": operator["launches"]},
+                                       "operator": operator["launches"], "serving_churn": serving["churn"]["launches"],
+                                       "serving_repack": serving["churn"]["repack_launches"],
+                                       "serving_fleet": serving["fleet"]["launches"]},
             "proposers_ms": {k: v["ms"] for k, v in proposers.items()}, "perpod_entry_ms": perpod["entry_ms"],
             "snapshot_ms": {k: snapshot[k] for k in ("encode_ms", "delta_encode_ms", "e2e_ms", "pods_per_s")},
             "solve_ms": {**solve["ms"], "decode": solve["decode_ms"], "stages": solve["stages"]},
@@ -4271,7 +4660,7 @@ def run(dev, card: str) -> dict:
             "consolidation_ms": {"decision": consolidation["ms"], "stages": consolidation["stages"],
                                  "reconcile": consolidation["pass_ms"], "reconcile_split": consolidation["pass_split"],
                                  "fleet_build_s": consolidation["build_s"], "probes": consolidation["probes"]},
-            "operator_ticks": operator["ticks"]}
+            "operator_ticks": operator["ticks"], "serving": serving}
 
 
 def run_dra(dev, card: str) -> dict:
@@ -4294,6 +4683,16 @@ def run_operator(dev, card: str) -> dict:
     return {"operator": out, "errs": errs}
 
 
+def run_serving(dev, card: str) -> dict:
+    """The serving phase alone (`--only serving`)."""
+    errs = {"feasibility": 0.0, "pack_scan": 0.0, "sparsify": 0.0, "recredit": 0.0, "globalpack": 0.0,
+            "score_subsets": 0.0}
+    t1 = time.perf_counter()
+    out = check_serving(dev, card, errs)
+    print(f"serving phase {time.perf_counter() - t1:.1f} s")
+    return {"serving": out, "errs": errs}
+
+
 def host_cpu() -> str:
     """The host CPU's model (the host stages' times depend on it): the first
     of /proc/cpuinfo's model fields that is present, else the machine type."""
@@ -4314,7 +4713,7 @@ def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=("dra", "operator"), help="run only this phase (after the build)")
+    ap.add_argument("--only", choices=("dra", "operator", "serving"), help="run only this phase (after the build)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4349,7 +4748,7 @@ def main(argv: list[str]) -> int:
         if line.startswith("== ") or any(w in line for w in ("Compiling entry", "registers", "stack frame", "spill")):
             print("ptxas:", line.strip())
 
-    line = {"dra": run_dra, "operator": run_operator, None: run}[args.only](dev, card)
+    line = {"dra": run_dra, "operator": run_operator, "serving": run_serving, None: run}[args.only](dev, card)
     print(json.dumps(line))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

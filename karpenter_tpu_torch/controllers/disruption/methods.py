@@ -9,8 +9,10 @@ The port keeps the reference's default arms: multi-node consolidation
 proposes with the relaxed LP on the device when the options' solver backend
 is "gpu" (kernels K5 and K6; the masked probes pack with K1-K3), and falls
 back in band to the binary search over the cost-sorted prefix when the LP
-yields no valid command. The annealed and global-repack proposer arms and
-their switches are not ported. Each LP round is flight-recorded on the
+yields no valid command. The annealed arm and both switches are not ported;
+the global-repack arm (`_globalpack_option`, kernels K5 and K6) is there
+for serving's callers (`serving.churn.ChurnHarness.repack_savings`), while
+the controller's own rounds take the LP. Each LP round is flight-recorded on the
 provisioner solver's trace recorder (mode "consolidate", backend "lp") and
 counted into the controller's metrics registry as the reference's is.
 """
@@ -561,6 +563,94 @@ class MultiNodeConsolidation(_ConsolidationBase):
                         if ctx.metrics is not None:
                             ctx.metrics.gauge(m.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).set(
                                 _command_savings_per_hour(cmd), proposer="lp"
+                            )
+                        trace.note(accepted_subset=len(subset))
+                        yield cmd
+            finally:
+                trace.note(
+                    sim_masked=reuse.masked_probes,
+                    sim_scratch=reuse.scratch_probes,
+                    sim_why_scratch=reuse.why_scratch,
+                    sched_seed_rejects=len(reuse.sched_seed.static_rejects) if reuse.sched_seed is not None else 0,
+                )
+
+    def _globalpack_option(self, candidates, deadline: float) -> Command:
+        """Best accepted command from the global-repack ladder (compat
+        surface over `_globalpack_option_iter`, mirrors `_lp_option`)."""
+        it = self._globalpack_option_iter(candidates, deadline)
+        try:
+            for cmd in it:
+                return cmd
+            return Command()
+        finally:
+            it.close()
+
+    def _globalpack_option_iter(self, candidates, deadline: float):
+        """The GLOBAL repack proposer as the same lazy accepted-command
+        ladder as `_lp_option_iter`: one relaxed solve over pending
+        placement + retirement on the provisioner solver's device (K5, K6),
+        then exact simulation per pulled proposal only — the round's
+        ConsolidationSimulator already carries the pending pods in every
+        probe, so a yielded command is exact for BOTH sides of the joint
+        objective. Flight-recorded as one mode="consolidate" SolveTrace with
+        backend "globalpack"; publishes the bounded karpenter_solver_
+        globalpack_* family and rides the proposer="globalpack" enum value.
+        A kernel's or the device's failure fails the round."""
+        import logging
+
+        from ... import metrics as m
+        from ...kernels.build import device_fault
+        from ...obs.trace import default_recorder
+        from ...solver.consolidation import LP_SOLVE_ITERATIONS, propose_subsets_global
+        from ...solver.simulate import ConsolidationSimulator
+
+        ctx = self.ctx
+        solver = ctx.provisioner.solver
+        device = getattr(solver, "device", None)  # None: the CUDA device
+        sync = bool(getattr(solver, "stage_times", False))
+        recorder = getattr(solver, "recorder", None) or default_recorder()
+        n_pods = sum(len(c.reschedulable_pods) for c in candidates)
+        with recorder.flight(n_pods=n_pods, mode="consolidate", backend="globalpack", registry=ctx.metrics) as trace:
+            self.round_trace = trace
+            reuse = ConsolidationSimulator(ctx.provisioner, ctx.cluster, ctx.clock, candidates, trace=trace)
+            try:
+                its = self._candidate_instance_types(candidates)
+                pending = ctx.provisioner.get_pending_pods()
+                try:
+                    proposals, info = propose_subsets_global(candidates, its, pending_pods=pending, device=device,
+                                                             trace=trace, sync=sync)
+                except (ValueError, TypeError, RuntimeError) as e:
+                    if device_fault(e, device or "cuda"):
+                        raise
+                    logging.getLogger("karpenter.disruption").warning(
+                        "global repack failed, falling back to two-phase: %s", e
+                    )
+                    return
+                if ctx.metrics is not None:
+                    ctx.metrics.counter(m.SOLVER_GLOBALPACK_ROUNDS_TOTAL).inc()
+                    ctx.metrics.counter(m.SOLVER_GLOBALPACK_ITERATIONS_TOTAL).inc(LP_SOLVE_ITERATIONS)
+                    ctx.metrics.gauge(m.SOLVER_GLOBALPACK_OBJECTIVE_IMPROVEMENT).set(info["objective_improvement"])
+                    if proposals:
+                        ctx.metrics.counter(m.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).inc(
+                            len(proposals), proposer="globalpack"
+                        )
+                trace.note(proposals=len(proposals))
+                for subset in proposals:
+                    if ctx.clock.now() > deadline:
+                        self._count_timeout()
+                        return
+                    chosen = [candidates[i] for i in subset]
+                    with trace.span("validate"):
+                        cmd = self.compute_consolidation(chosen, reuse=reuse)
+                        accepted = bool(cmd.candidates) and not self._is_pointless_churn(cmd)
+                    if ctx.metrics is not None:
+                        ctx.metrics.counter(m.SOLVER_CONSOLIDATION_VALIDATION_TOTAL).inc(
+                            decision="accept" if accepted else "reject"
+                        )
+                    if accepted:
+                        if ctx.metrics is not None:
+                            ctx.metrics.gauge(m.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).set(
+                                _command_savings_per_hour(cmd), proposer="globalpack"
                             )
                         trace.note(accepted_subset=len(subset))
                         yield cmd

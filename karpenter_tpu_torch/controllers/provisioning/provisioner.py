@@ -8,8 +8,9 @@ the host scheduler or `GPUSolver(device="cpu")` for the plain versions.
 
 `metrics` (a `metrics.Registry`) receives the reference's provisioning
 counters, gauges and histograms; `podtracer` (an `obs.podtrace.PodTracer`)
-stamps dispatch and solve on every traced pod of a batch. The serving
-loop's pre-stager is not part of the port.
+stamps dispatch and solve on every traced pod of a batch. With a serving
+loop's pre-stager installed (`prestager`, a `serving.prestage.
+PendingPrestager`), `get_pending_pods` takes its staged clones.
 """
 
 from __future__ import annotations
@@ -57,6 +58,12 @@ class Provisioner:
         # traced pod in the batch and links the batch summary into the
         # SolveTrace. None = untraced provisioner (direct-wired tests).
         self.podtracer = None
+        # serving-loop double-buffer (serving/prestage.py): when installed,
+        # get_pending_pods consumes pre-staged pod clones (already validated
+        # and signature-stamped, by the worker that overlapped the previous
+        # solve's device pack) instead of cloning inline; None = the
+        # reference clone-per-pass behavior
+        self.prestager = None
         # watch-loss convergence (faultline): the store's Pod loss epoch
         # seen at the last reconcile. A bump means the delivered stream
         # lost events the Cluster mirror never saw — re-converge it from
@@ -159,13 +166,26 @@ class Provisioner:
         from ...kube.clone import fast_deepcopy
 
         vt = VolumeTopology(self.store)
+        prestager = self.prestager
         out = []
         # filter over the borrowed cache view (most pods are bound — cloning
         # the full list per call dominated at reference scale), then clone
-        # only the survivors: the store may mutate them between solves
+        # only the survivors: the store may mutate them between solves. With
+        # a prestager installed (serving loop), the clone+validate work for
+        # unchanged pods was already done — typically overlapped with the
+        # PREVIOUS solve's device pack — and the SAME clone object is reused
+        # while (uid, resourceVersion) holds, which is what lets the encoder
+        # classify consecutive serving snapshots as pod deltas
         for pod in self.store.borrow_list("Pod"):
             if not pod_utils.is_provisionable(pod):
                 continue
+            if prestager is not None:
+                clone = prestager.take(pod)
+                if clone is not None:
+                    # staged pods carry no claim-backed volumes, so the PVC
+                    # validation below is a provable no-op for them
+                    out.append(clone)
+                    continue
             verr = vt.validate_persistent_volume_claims(pod)
             if verr is not None:
                 if self.recorder is not None:

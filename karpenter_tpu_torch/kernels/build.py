@@ -3,13 +3,19 @@
 Each source is compiled by its own nvcc process (all started together) into
 an object file, then the objects are linked into one shared library with a
 plain C interface, loaded with ctypes. The build goes into `build/kernels/`
-at the repository root, named by a hash of the sources and flags, so a
-changed source never loads a stale library. Nothing here runs at import.
+at the repository root (or the directory `set_build_dir` names: the shared
+`KARPENTER_SOLVER_COMPILE_CACHE` of a fleet's processes), named by a hash of
+the sources and flags, so a changed source never loads a stale library.
+Processes that start together build once: each holds an exclusive lock on
+the hash directory's `.build.lock` from its check for the library to the
+library's rename into place, and appends one line to `builds.log` there for
+every build it runs. Nothing here runs at import.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -128,15 +134,33 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def set_build_dir(path) -> None:
+    """Build into (and load from) `path`/<hash> from now on."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
 def build() -> Path:
     """Compile the sources (in parallel) and link the shared library; returns
-    its path. Raises with nvcc's output when a step fails."""
+    its path. Raises with nvcc's output when a step fails. Another process
+    building the same hash meanwhile is waited for, and its library used."""
     nvcc = _nvcc()
     out_dir = BUILD_DIR / _digest()
     lib_path = out_dir / "libkarpenter_kernels.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / ".build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib_path.exists():  # built by the process that held the lock
+                return lib_path
+            return _build_locked(nvcc, out_dir, lib_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked(nvcc: str, out_dir: Path, lib_path: Path) -> Path:
     t0 = time.perf_counter()
     procs = []
     for name in SOURCES:
@@ -161,7 +185,10 @@ def build() -> Path:
     if link.returncode != 0:
         raise KernelError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, lib_path)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=str(lib_path))
+    seconds = time.perf_counter() - t0
+    with open(out_dir / "builds.log", "a") as f:
+        f.write(f"pid={os.getpid()} seconds={seconds:.3f}\n")
+    BUILD_INFO.update(seconds=seconds, log=log, path=str(lib_path))
     return lib_path
 
 

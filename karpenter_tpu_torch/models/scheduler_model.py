@@ -97,6 +97,15 @@ def reset_bucket_highwater() -> None:
     _BUCKET_HW.clear()
 
 
+def bucket_highwater() -> dict[str, int]:
+    """Snapshot of the process-global high-water marks, by axis: the
+    fleet-scoped shape ladder every tenant a FleetFrontend multiplexes pads
+    to. The marks are plain axis SIZES — sharing them across tenants shares
+    kernel launch shapes, never tensor content (the fleet's isolation audit
+    reads this surface)."""
+    return dict(_BUCKET_HW)
+
+
 def _pad_axis(a: np.ndarray, axis: int, target: int, fill=0) -> np.ndarray:
     n = a.shape[axis]
     if n >= target:

@@ -151,6 +151,12 @@ def results_digest(results) -> str:
 # -- snapshot dump / rebuild --------------------------------------------------
 
 
+def plan_digest(subsets) -> str:
+    """Digest of a global-repack proposal list (`global_repack_plan`'s
+    subsets, best-first): candidate-index lists in rank order."""
+    return hashlib.sha256(json.dumps([list(map(int, s)) for s in subsets]).encode()).hexdigest()
+
+
 def dump_snapshot(snap, token_of) -> bytes:
     """Serialize everything a child process needs to re-run this solve from
     scratch. `token_of(obj)` maps pods AND instance types to stable
@@ -416,6 +422,27 @@ def run_dual(solver, timeout: float = 600.0, clear: bool = True) -> dict:
         log.entries.clear()
         log.dropped = 0
     return out
+
+
+def check_globalpack(solver, candidates, instance_types, pending_pods=None, seed: int = 0) -> dict:
+    """In-process dual run of the global-repack proposer: the same plan must
+    come back digest-identical when every dict/set in its inputs is
+    re-inserted in reversed order. Candidates are live state objects (not
+    picklable), so this arm perturbs in place instead of forking."""
+    first, _ = solver.global_repack_plan(candidates, instance_types, pending_pods=pending_pods, seed=seed)
+    memo: dict = {}
+    second, _ = solver.global_repack_plan(
+        perturb(candidates, memo),
+        perturb(instance_types, memo),
+        pending_pods=perturb(pending_pods, memo),
+        seed=seed,
+    )
+    a, b = plan_digest(first), plan_digest(second)
+    if a != b:
+        raise DetCheckError(
+            f"global repack plan diverged under reversed insertion order: {a[:12]} != {b[:12]}"
+        )
+    return {"proposals": len(first), "digest": a}
 
 
 # -- the child replay entry point ---------------------------------------------

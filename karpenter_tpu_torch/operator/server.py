@@ -10,14 +10,11 @@ selects a fleet tenant's private recorder), /debug/events (the podtrace
 event-lifecycle dump: completed EventRecords with the per-stage e2e
 decomposition, SLO budget, and wake-cause split, per tenant — obs/
 podtrace.py; same `?n=`/`?tenant=` filters), /debug/tenants (faultline:
-per-tenant circuit-breaker state across every live FleetFrontend; the port
-has no fleet front-end yet, so it answers an empty tenant map, as the
-reference does in a process without one), and /debug/profile (a py-spy-less stand-in that dumps running thread stacks,
+per-tenant circuit-breaker state, backoff, last error, and backlog across
+every live FleetFrontend — the failure-domain-isolation surface), and
+/debug/profile (a py-spy-less stand-in that dumps running thread stacks,
 the diagnostic the reference's pprof routes serve in e2e debugging —
 karpenter_profiler.go:40-56).
-
-The shard router's aggregation front (`router=`) belongs to serving, which
-the port does not have yet: passing one raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -37,12 +34,15 @@ class OperatorServer:
     GUARDED_FIELDS = {"_httpd": "_lock", "_thread": "_lock"}
 
     def __init__(self, env, port: int = 8080, enable_profiling: bool = False, bind: str = "0.0.0.0", router=None):
-        """`router` (a serving.shard.ShardRouter, the fleet-of-fleets
-        aggregation front) is part of serving, which the port does not have
-        yet: passing one raises."""
-        if router is not None:
-            raise NotImplementedError("OperatorServer(router=...): the shard router is part of serving, not ported yet")
+        """With `router` (a serving.shard.ShardRouter), this server is the
+        fleet-of-fleets AGGREGATION front: /metrics merges every shard's
+        fleet families (bounded `shard` label injected), /debug/tenants
+        merges shard-stamped rows, /debug/solves|events proxy by ?tenant=
+        to the owning shard, /readyz reflects shard breaker health, and
+        /debug/shards exposes the router's per-shard breaker rows. `env`
+        may be None in router mode (the router has no local tenants)."""
         self.env = env
+        self.router = router
         self.port = port
         self.bind = bind  # probes/scrapes come from off-host (operator.go:180-183)
         self.enable_profiling = enable_profiling
@@ -52,6 +52,7 @@ class OperatorServer:
 
     def start(self) -> int:
         env = self.env
+        router = self.router
         enable_profiling = self.enable_profiling
 
         class Handler(BaseHTTPRequestHandler):
@@ -70,8 +71,16 @@ class OperatorServer:
                 if self.path == "/healthz":
                     self._send(200, "ok")
                 elif self.path == "/readyz":
+                    if router is not None:
+                        ready = router.ready()
+                        self._send(200 if ready else 503, "ok" if ready else "shard fleet not healthy")
+                        return
                     ready = env.cluster.synced()
                     self._send(200 if ready else 503, "ok" if ready else "cluster state not synced")
+                elif self.path == "/metrics" and router is not None:
+                    # router mode: the shard-merged exposition (every shard's
+                    # fleet families with the bounded `shard` label injected)
+                    self._send(200, router.merged_metrics(), "text/plain; version=0.0.4")
                 elif self.path == "/metrics":
                     # podtrace quantile gauges publish per SCRAPE (sorting
                     # the stage windows rides this handler, never the
@@ -84,6 +93,26 @@ class OperatorServer:
                     for _label, (_rec, tenant_tracer) in tenant_surfaces().items():
                         tenant_tracer.publish_quantiles()
                     self._send(200, env.registry.expose(), "text/plain; version=0.0.4")
+                elif router is not None and self.path.split("?", 1)[0] in ("/debug/solves", "/debug/events"):
+                    # router mode: proxy the per-tenant dump to the shard
+                    # that serves that tenant (?tenant= is REQUIRED — the
+                    # router has no local recorder to fall back on)
+                    route = self.path.split("?", 1)[0]
+                    qs = parse_qs(urlparse(self.path).query)
+                    tenant = qs["tenant"][0] if "tenant" in qs else None
+                    try:
+                        limit = int(qs["n"][0]) if "n" in qs else None
+                    except ValueError:
+                        self._send(400, "bad ?n= value")
+                        return
+                    if tenant is None:
+                        self._send(400, f"router mode: {route} requires ?tenant=")
+                        return
+                    try:
+                        proxy = router.debug_solves if route == "/debug/solves" else router.debug_events
+                        self._send(200, proxy(tenant, n=limit), "application/json")
+                    except KeyError:
+                        self._send(404, f"unknown tenant {tenant!r}")
                 elif self.path.split("?", 1)[0] == "/debug/solves":
                     # served unconditionally (unlike /debug/profile, which the
                     # reference gates behind --enable-profiling): the trace
@@ -137,11 +166,21 @@ class OperatorServer:
                     body = {"tenants": {label: t.dump(limit=limit) for label, t in sorted(tracers.items())}}
                     self._send(200, json.dumps(body, indent=1), "application/json")
                 elif self.path.split("?", 1)[0] == "/debug/tenants":
-                    # faultline: per-tenant failure-domain state merged
-                    # across every live FleetFrontend in this process; the
-                    # port has none (serving is not ported), so the map is
-                    # empty, as the reference's is without a fleet
-                    self._send(200, json.dumps({"tenants": {}}, indent=1), "application/json")
+                    # faultline: per-tenant failure-domain state — breaker
+                    # state/backoff/last-error, backlog, wakes — merged
+                    # across every live FleetFrontend in this process, or in
+                    # router mode across every SHARD (rows stamped with the
+                    # owning shard id)
+                    if router is not None:
+                        self._send(200, json.dumps({"tenants": router.debug_tenants()}, indent=1), "application/json")
+                        return
+                    from ..serving.fleet import fleet_debug_surfaces
+
+                    self._send(200, json.dumps({"tenants": fleet_debug_surfaces()}, indent=1), "application/json")
+                elif self.path == "/debug/shards" and router is not None:
+                    # shardfleet: per-shard liveness, breaker snapshot, debug
+                    # port, ring index, and seated tenants
+                    self._send(200, json.dumps({"shards": router.debug_shards()}, indent=1), "application/json")
                 elif self.path == "/debug/profile" and enable_profiling:
                     frames = {}
                     for tid, frame in sys._current_frames().items():

@@ -37,6 +37,7 @@ from, as the reference runs its single-device delta over the sharded carry.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -108,15 +109,38 @@ def mesh_device(mesh: Mesh) -> torch.device:
     return mesh.devices[0]
 
 
+def shard_device_slice(devices):
+    """shardfleet device partitioning: with ``KARPENTER_SOLVER_SHARD_DEVICES=
+    "<i>/<n>"`` set (the ShardRouter stamps each worker process with its
+    shard index), keep only contiguous chunk i of the visible devices split
+    into n chunks — each shard's fleet runs on its own device slice instead
+    of N shard processes contending for every chip. Malformed specs and
+    out-of-range indices fall back to all devices; a ≤1-device slice
+    degenerates to the unsharded path exactly like a 1-device host."""
+    spec = os.environ.get("KARPENTER_SOLVER_SHARD_DEVICES", "").strip()
+    if not spec:
+        return devices
+    try:
+        i_s, n_s = spec.split("/", 1)
+        i, n = int(i_s), int(n_s)
+    except ValueError:
+        return devices
+    if n <= 0 or not 0 <= i < n:
+        return devices
+    chunk = -(-len(devices) // n)
+    return devices[i * chunk : (i + 1) * chunk]
+
+
 def default_mesh() -> Mesh | None:
-    """A mesh over the distinct CUDA cards when there is more than one, else
+    """A mesh over the distinct CUDA cards (restricted to this shard's slice
+    under KARPENTER_SOLVER_SHARD_DEVICES) when there is more than one, else
     None (the single-device path), as the reference's default is None on one
     device. `GPUSolver`'s "auto" does not take a mesh over distinct cards
     until their exchange exists (ROADMAP Queue 1 item 9)."""
-    n = torch.cuda.device_count()
-    if n <= 1:
+    devices = shard_device_slice([torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())])
+    if len(devices) <= 1:
         return None
-    return make_mesh([torch.device(f"cuda:{i}") for i in range(n)])
+    return make_mesh(devices)
 
 
 # -- the sharded carry -------------------------------------------------------------

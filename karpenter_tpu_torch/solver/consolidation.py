@@ -524,6 +524,25 @@ def lp_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, stage
     return out, X, scores, feas
 
 
+def propose_subsets_global(candidates, instance_types, pending_pods=None, seed: int = 0, max_proposals: int = 8,
+                           device=None, trace=None, sync: bool = False):
+    """The reference's GLOBAL repack proposer (reference
+    solver/consolidation.py:446): encode the candidates with the pending
+    pods as unconditional class mass, then `propose_problem_global`. Returns
+    (subsets best-first, info = {objective_improvement, rounded}). The
+    reference's spans (`encode_candidates`, `globalpack`, `round`) and its
+    notes land on `trace`; `sync` synchronises the device at every span
+    edge."""
+    info = dict(objective_improvement=0.0, rounded=0)
+    if len(candidates) < 2:
+        return [], info
+    dev = resolve_device(device)
+    stage = Stages(trace, dev, sync)
+    with stage("encode_candidates", n_candidates=len(candidates), n_pending=len(pending_pods or ())):
+        problem = encode_problem(candidates, instance_types, pending_pods=pending_pods)
+    return propose_problem_global(problem, dev, seed=seed, max_proposals=max_proposals, trace=trace, sync=sync)
+
+
 def propose_problem_global(problem: ConsolidationProblem, device=None, *, inits=None, seed: int = 0,
                            max_proposals: int = 8, trace=None, sync: bool = False):
     """The global repack proposer: the pending classes' mass is in the
@@ -584,6 +603,8 @@ def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, s
             # an infeasible (-BIG) base: report the winner's absolute score
             info["objective_improvement"] = float(best - base) if base > -1e37 else float(best)
         info["rounded"] = len(rows) - 1
+        stage.note(globalpack_proposals=len(out), globalpack_rounded=len(rows) - 1,
+                   ladder_scores=[round(sc, 3) for _s, sc in ladder])
     return out, info, X, scores, feas
 
 

@@ -536,6 +536,35 @@ def clear_encode_globals() -> None:
     _ROW_GLOBAL.clear()
 
 
+def encode_shared_stats() -> dict:
+    """The process-global (fleet-scoped) encode caches, for the fleet
+    front-end's cross-tenant isolation audit. What is shared and why it is
+    safe to share:
+
+    - ``sig_intern``: the signature intern table — content-addressed pod
+      SHAPE tuples (requirements/requests/ports/affinity structure). Two
+      tenants submitting equal pod shapes intern to one tuple; no tensor or
+      per-cluster data lives here, so sharing only de-duplicates grouping.
+    - ``row_global``: content-addressed row artifacts. Every key leads with
+      the owning cluster's process-unique ``epoch`` token (`_row_cache_key`),
+      so one tenant's row tensors are unreachable from another tenant's
+      lookups by construction — the audit asserts the epoch discipline.
+    - the bucket high-water marks (models.scheduler_model.bucket_highwater)
+      are plain axis sizes: shared shapes mean shared kernel launch
+      shapes, which is the fleet's warm-start story.
+    """
+    by_epoch: dict = {}
+    for k in _ROW_GLOBAL:
+        by_epoch[k[0]] = by_epoch.get(k[0], 0) + 1
+    return {
+        "sig_intern": len(_SIG_INTERN),
+        "row_global": len(_ROW_GLOBAL),
+        "row_global_epochs": sorted(by_epoch),
+        "row_global_by_epoch": by_epoch,
+        "group_memo": _GROUP_MEMO is not None,
+    }
+
+
 def _intern_sig(sig: tuple) -> tuple:
     if len(_SIG_INTERN) > 200_000:
         _SIG_INTERN.clear()  # bound memory; repopulates as stamps refresh

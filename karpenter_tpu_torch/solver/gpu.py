@@ -59,10 +59,18 @@ found it.
 `solve_encoded(problem)` runs the same pack on an `EncodedProblem` and
 returns the validated placement (`PackResult`) without decoding; it keeps
 its carry as soon as the placement validates.
+
+`global_repack_plan(candidates, instance_types, pending_pods, seed)` is the
+reference's global repack proposal pass (K5, K6) for serving's callers (the
+churn harness's revocation recovery, the fleet's rebalance probe).
+`configure_compile_cache()` is the counterpart of the reference's
+persistent compilation cache: `KARPENTER_SOLVER_COMPILE_CACHE=<dir>` becomes
+the kernels' build directory.
 """
 
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 from dataclasses import dataclass, replace
 
@@ -204,6 +212,46 @@ class _NullTopology:
 
     def add_requirements(self, *a, **k):  # pragma: no cover - not used in decode
         return Requirements()
+
+
+def configure_compile_cache() -> str | None:
+    """Claim ``KARPENTER_SOLVER_COMPILE_CACHE=<dir>`` as the kernels' build
+    directory (`kernels.build.set_build_dir`): returns the dir, or None when
+    unset or unwritable. The counterpart of the reference's persistent
+    compilation cache: with the dir set, a RESTARTED process — or a fresh
+    fleet replica or shard worker on the same volume — loads the built
+    kernel library instead of running nvcc again.
+
+    RACE-SAFE multi-process init (shardfleet): N shard processes point at
+    the same dir concurrently at startup. makedirs is idempotent, and the
+    stamp file is claimed with O_CREAT|O_EXCL so exactly ONE process is the
+    first writer — everyone else adopts the established dir; the build
+    itself runs under a file lock in the dir (`kernels.build.build`), so
+    nvcc runs once however many processes start together. An unwritable dir
+    means no shared cache, never an error."""
+    global _COMPILE_CACHE_DIR
+    from ..kernels import build as kbuild
+
+    path = os.environ.get("KARPENTER_SOLVER_COMPILE_CACHE", "").strip()
+    if not path or _COMPILE_CACHE_DIR == path:
+        return _COMPILE_CACHE_DIR
+    try:
+        os.makedirs(path, exist_ok=True)
+        fd = os.open(os.path.join(path, ".karpenter-cache-stamp"), os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        try:
+            os.write(fd, f"pid={os.getpid()}\n".encode())
+        finally:
+            os.close(fd)
+    except FileExistsError:
+        pass  # another process won the first-writer claim: adopt its dir
+    except OSError:
+        return None  # unwritable cache dir: build in the default dir
+    kbuild.set_build_dir(path)
+    _COMPILE_CACHE_DIR = path
+    return path
+
+
+_COMPILE_CACHE_DIR: str | None = None
 
 
 class DecodeError(RuntimeError):
@@ -748,6 +796,22 @@ class GPUSolver:
             if not (pack.errors or pack.relaxation_required):
                 self._keep_resident(problem, pack)
             return pack
+
+    def global_repack_plan(self, candidates, instance_types, pending_pods=None, seed: int = 0):
+        """One flight-recorded GLOBAL repack proposal pass
+        (solver/consolidation.propose_subsets_global, kernels K5 and K6 on
+        this solver's device): candidate retirement co-optimized with the
+        given pending pods' placement in a single relaxed solve. Returns
+        (subsets best-first, info) — PROPOSALS only; the caller owns exact
+        validation before acting on any subset. The seam serving customers
+        use (churn revocation recovery, fleet rebalance) without
+        constructing a disruption controller (reference solver/tpu.py:601)."""
+        from .consolidation import propose_subsets_global
+
+        with self.recorder.flight(n_pods=len(pending_pods or ()), mode="consolidate", backend="globalpack",
+                                  registry=self.registry) as trace:
+            return propose_subsets_global(candidates, instance_types, pending_pods=pending_pods, seed=seed,
+                                          device=self.device, trace=trace, sync=self.stage_times)
 
     def global_repack_plan_encoded(self, problem, seed: int = 0):
         """One flight-recorded global repack proposal pass on an encoded

@@ -572,3 +572,34 @@ def test_operator_scenario_on_card(cuda_device):
     assert len(card) == len(cpu) == 2
     for g, w in zip(card, cpu):
         assert g["records"] == w["records"] and g["state"] == w["state"]
+
+
+@pytest.mark.gpu
+def test_serving_churn_on_card_matches_cpu(cuda_device):
+    """The small seeded churn of `test_torch_serving.py` (`SMALL`), the
+    port's harness on the card against the same harness on the CPU: every
+    solve's mode, the digest after every bind flush, the report's
+    wall-clock-free fields and the repack after a revocation equal, the
+    solver on the card."""
+    import tempfile
+
+    from karpenter_tpu_torch.testing import serving as sv
+    from test_torch_serving import SMALL
+
+    runs = []
+    for dev in ("cpu", None):
+        sv.fresh_state()
+        api = sv.port_api(dev)
+        h = api.harness(api.ChurnSpec(**SMALL, record_path=tempfile.mktemp(suffix=".jsonl")))
+        try:
+            out = sv.run_recorded(api, h)
+            out.pop("_report")
+            out["repack"] = sv.revoke_and_repack(api, h)
+            out["device"] = h.env.provisioner.solver.device.type
+        finally:
+            h.close()
+        runs.append(out)
+    cpu, card = runs
+    assert (cpu["device"], card["device"]) == ("cpu", "cuda")
+    for key in ("modes", "digests", "report", "repack"):
+        assert card[key] == cpu[key], key

@@ -1,9 +1,9 @@
 """GPUSolver's recovery ladder against the reference's, on the CPU.
 
-`tests/test_faultline.py:150-208` on both solvers: the same
-`serving.faults.FaultInjector` hook (the reference's, used here only as a
-test double that raises on the solve seam) drives `TPUSolver()` and
-`GPUSolver(device="cpu")` through the same faults, and each side recovers
+`tests/test_faultline.py:150-208` on both solvers: each package's own
+`serving.faults.FaultInjector` hook, built from the same rules, drives
+`TPUSolver()` and `GPUSolver(device="cpu")` through the same faults, and
+each side recovers
 as the reference does — a single fault through the quarantined full
 re-encode, a double fault through the host FFD, an unrecoverable fault and
 force mode propagating, the poisoned carry quarantined and the delta path
@@ -19,17 +19,22 @@ never answers for them.
 
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
 from helpers import make_pod
 from karpenter_tpu import metrics as ref_metrics
-from karpenter_tpu.serving.faults import FaultInjected, FaultInjector, FaultRule, FaultSpec
+from karpenter_tpu.serving import faults as ref_faults
+from karpenter_tpu.serving.faults import FaultRule
 from karpenter_tpu.solver.tpu import RECOVERY_STAGES as REF_STAGES
 from karpenter_tpu.solver.tpu import TPUSolver
 from karpenter_tpu_torch import metrics as m
 from karpenter_tpu_torch.kernels import build
 from karpenter_tpu_torch.obs.trace import TraceRecorder
+from karpenter_tpu_torch.serving import faults as port_faults
+from karpenter_tpu_torch.serving.faults import FaultInjected
 from karpenter_tpu_torch.solver import gpu as gpu_mod
 from karpenter_tpu_torch.solver.gpu import RECOVERY_STAGES, GPUSolver
 from karpenter_tpu_torch.testing.carry_over import SnapshotMirror, snapshot_from_reference
@@ -43,14 +48,20 @@ torch.set_num_threads(1)
 
 def _pair(rules, force: bool = False):
     """A reference solver and a port solver, each with its own registry and
-    enabled recorder and its own injector of the same rules."""
+    enabled recorder and its own package's injector of the same rules."""
     from karpenter_tpu.obs.trace import TraceRecorder as RefRecorder
 
     ref = TPUSolver(force=force, registry=ref_metrics.make_registry(), recorder=RefRecorder(enabled=True))
     port = GPUSolver(device="cpu", force=force, registry=m.make_registry(), recorder=TraceRecorder(enabled=True))
-    for s in (ref, port):
-        s.fault_hook = FaultInjector(FaultSpec(rules=tuple(rules))).solver_hook
+    ref.fault_hook = ref_faults.FaultInjector(ref_faults.FaultSpec(rules=tuple(rules))).solver_hook
+    port.fault_hook = port_injector(rules).solver_hook
     return ref, port
+
+
+def port_injector(rules):
+    """The port's injector of the reference's rules."""
+    return port_faults.FaultInjector(port_faults.FaultSpec(
+        rules=tuple(port_faults.FaultRule(**dataclasses.asdict(r)) for r in rules)))
 
 
 def _solve_both(ref, port, ref_snap, port_snap, what: str) -> dict:
@@ -101,7 +112,7 @@ def test_unrecoverable_fault_and_force_escape_the_ladder(force):
     ladder = 1 if force else 0
     ref, port = _pair([FaultRule("solve-exception", at=0, ladder=ladder)], force=force)
     snap = make_snapshot([make_pod(cpu="1")])
-    with pytest.raises(FaultInjected):
+    with pytest.raises(ref_faults.FaultInjected):
         ref.solve(snap)
     with pytest.raises(FaultInjected):
         port.solve(snapshot_from_reference(snap))
@@ -110,7 +121,7 @@ def test_unrecoverable_fault_and_force_escape_the_ladder(force):
 
 def test_recover_false_propagates():
     port = GPUSolver(device="cpu", recover=False)
-    port.fault_hook = FaultInjector(FaultSpec(rules=(FaultRule("solve-exception", at=0, ladder=1),))).solver_hook
+    port.fault_hook = port_injector([FaultRule("solve-exception", at=0, ladder=1)]).solver_hook
     with pytest.raises(FaultInjected):
         port.solve(snapshot_from_reference(make_snapshot([make_pod(cpu="1")])))
 

@@ -16,7 +16,9 @@ builds the operator's `Environment(device="cpu")` over its own snapshot's
 nodepool, instance types and pending pods and runs `settle()`: whole
 controller rounds (provision, launch, register, bind, consolidate) with the
 GPU solver's plain versions, every pod bound. `Environment()` raises
-without CUDA."""
+without CUDA. Serving, the entry point and the test harness import neither
+(their files are listed), and a shard worker replays a churn log with both
+blocked."""
 
 from __future__ import annotations
 
@@ -193,6 +195,65 @@ def test_parallel_imports_nothing_of_jax_or_reference():
     files = sorted((PORT / "parallel").glob("*.py"))
     assert [f.name for f in files] == ["__init__.py", "sharded.py"]
     assert [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN] == []
+
+
+SERVING_FILES = ["__init__.py", "churn.py", "faults.py", "fleet.py", "loop.py", "prestage.py", "shard.py"]
+TESTING_FILES = ["__init__.py", "canonical.py", "carry_over.py", "debug.py", "metrics_poller.py", "monitor.py",
+                 "scenarios.py", "serving.py"]
+
+
+def test_serving_imports_nothing_of_jax_or_reference():
+    """Serving (`serving/`), the entry point (`__main__.py`) and the test
+    harness (`testing/`) stand alone like the rest of the port: no import
+    of jax or of the JAX package, lazy ones included."""
+    files = sorted((PORT / "serving").glob("*.py"))
+    assert [f.name for f in files] == SERVING_FILES
+    testing = sorted((PORT / "testing").glob("*.py"))
+    assert [f.name for f in testing] == TESTING_FILES
+    files += testing + [PORT / "__main__.py"]
+    assert [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN] == []
+
+
+_SHARD_CHILD = textwrap.dedent(
+    """
+    import json, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    sys.modules["karpenter_tpu"] = None
+    sys.path.insert(0, {root!r})
+    import torch
+    torch.set_num_threads(1)
+    from karpenter_tpu_torch.serving import ChurnHarness, ChurnSpec
+    from karpenter_tpu_torch.serving.shard import _ShardWorker, placement_digest
+    log = os.path.join(tempfile.mkdtemp(), "t.jsonl")
+    spec = dict(n_base_pods=40, n_types=6, arrivals=8, cancels=6, departures=8, bind_every=2, iterations=2,
+                warmup_cycles=1, concurrent_seconds=0.0)
+    h = ChurnHarness(ChurnSpec(**spec, record_path=log), device="cpu")
+    h.run()
+    want = placement_digest(h.env)
+    h.close()
+    worker = _ShardWorker("shard-0", "cpu")
+    worker.cmd_add_tenant(dict(tenant="t0", log=log, solver="gpu"))
+    row = worker.cmd_run_all(dict())["tenants"]["t0"]
+    assert row["digest"] == want, (row["digest"], want)
+    assert worker.fleet.session("t0").env.provisioner.solver.device.type == "cpu"
+    worker.close()
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_tpu") and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("WORKER ISOLATED")
+    """
+)
+
+
+def test_shard_worker_runs_without_jax_or_reference():
+    """A shard worker (`serving/shard._ShardWorker`, what `python -m
+    karpenter_tpu_torch.serving.shard` runs) replays a recorded churn log on
+    the CPU with jax and the JAX package blocked, to the recording's
+    digest."""
+    code = _SHARD_CHILD.format(root=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "WORKER ISOLATED" in proc.stdout
 
 
 def test_relative_imports_name_port_modules():

@@ -173,24 +173,73 @@ def test_port_default_backend_is_gpu():
 
 
 def test_server_router_and_tenants():
-    """Serving's parts of the server: a router raises until serving is
-    ported; `/debug/tenants` answers the reference's empty map of a process
-    without a fleet front-end."""
+    """Serving's parts of the server: with a router (a stand-in with the
+    `ShardRouter` surface) `/readyz`, `/metrics`, `/debug/tenants` and
+    `/debug/shards` answer from it and `/debug/solves` proxies by
+    `?tenant=` (400 without one, 404 for an unknown one); without one,
+    `/debug/tenants` answers the reference's empty map of a process without
+    a fleet front-end, and every live `FleetFrontend`'s tenants once one
+    exists."""
+    import urllib.error
     import urllib.request
 
     from karpenter_tpu_torch.operator.server import OperatorServer
+    from karpenter_tpu_torch.serving.fleet import FleetFrontend, reset_tenant_labels
 
-    with pytest.raises(NotImplementedError, match="serving"):
-        OperatorServer(None, router=object())
-    server = OperatorServer(Environment(Options(solver_backend="ffd")), port=0, bind="127.0.0.1")
+    class Router:
+        def ready(self):
+            return False
+
+        def merged_metrics(self):
+            return "karpenter_solver_fleet_shards 2\n"
+
+        def debug_tenants(self):
+            return {"t0": {"shard": "shard-0"}}
+
+        def debug_shards(self):
+            return {"shard-0": {"alive": True}, "shard-1": {"alive": False}}
+
+        def debug_solves(self, tenant, n=None):
+            if tenant != "t0":
+                raise KeyError(tenant)
+            return json.dumps({"solves": [], "n": n})
+
+    def get(port, path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    server = OperatorServer(None, port=0, bind="127.0.0.1", router=Router())
     port = server.start()
     try:
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/tenants", timeout=5) as r:
-            assert r.status == 200 and json.loads(r.read()) == {"tenants": {}}
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/solves?n=1", timeout=5) as r:
-            assert r.status == 200 and len(json.loads(r.read())["solves"]) <= 1
+        assert get(port, "/readyz")[0] == 503
+        assert get(port, "/metrics") == (200, "karpenter_solver_fleet_shards 2\n")
+        assert json.loads(get(port, "/debug/tenants")[1]) == {"tenants": {"t0": {"shard": "shard-0"}}}
+        assert set(json.loads(get(port, "/debug/shards")[1])["shards"]) == {"shard-0", "shard-1"}
+        assert json.loads(get(port, "/debug/solves?tenant=t0&n=2")[1]) == {"solves": [], "n": 2}
+        assert get(port, "/debug/solves")[0] == 400 and get(port, "/debug/solves?tenant=x")[0] == 404
     finally:
         server.stop()
+    server = OperatorServer(Environment(Options(solver_backend="ffd")), port=0, bind="127.0.0.1")
+    port = server.start()
+    reset_tenant_labels()
+    try:
+        assert json.loads(get(port, "/debug/tenants")[1]) == {"tenants": {}}
+        body = json.loads(get(port, "/debug/solves?n=1")[1])
+        assert len(body["solves"]) <= 1
+        assert get(port, "/debug/shards")[0] == 404
+        fleet = FleetFrontend(device="cpu")
+        try:
+            fleet.add_tenant("team-a", options=Options(solver_backend="ffd"))
+            assert set(json.loads(get(port, "/debug/tenants")[1])["tenants"]) == {"team-a"}
+        finally:
+            fleet.close()
+        assert json.loads(get(port, "/debug/tenants")[1]) == {"tenants": {}}
+    finally:
+        server.stop()
+        reset_tenant_labels()
 
 
 def test_carry_over_keeps_operator_objects():

@@ -25,6 +25,24 @@ reference's assertions must hold in the twin (a case the reference skips
 must skip alike). Under the wall clock (`Clock()`) only the assertions are
 compared. Tolerance: exact.
 
+Serving's suites (`serving/`) run the same way. The twin's `ChurnHarness`,
+`FleetFrontend` and `ShardRouter` default their device to the CPU, and its
+`TPUSolver` is `GPUSolver(device="cpu")` under the reference's constructor
+(shim modules again); `from test_churn_loop import` and `from test_fleet
+import` name those suites' own twins, `from test_solver import
+make_snapshot` a builder over the port's classes. Under a `FakeClock`, on
+the test's own thread and outside `ChurnHarness.run_concurrent`, a run also
+records every serving pump that solved (the solver's mode and the store's
+canonical state), every fleet DRR round's served map, the placement digest
+after every `ChurnHarness.bind_flush`, the wall-clock-free fields of every
+`ChurnReport` and every `repack_savings` value (the exact-validated
+command's savings; a global repack plan's raw proposals are not compared:
+on a fleet of identical candidates the relaxed solve's fractional deletions
+tie to the last bits, where K5's plain version and XLA's order them
+differently); always, the digests every shard router's `run_all` and `rehome_tenants`
+returned (their workers replay under a `FakeClock`). A module's autouse
+fixtures run around each case; `tmp_path` is a fresh directory.
+
 Only the port's twin tests import this module; nothing of it is in the
 package.
 """
@@ -40,6 +58,8 @@ import itertools
 import random
 import re
 import sys
+import tempfile
+import threading
 import types
 import uuid
 from pathlib import Path
@@ -55,6 +75,14 @@ UID_SEED = 17
 
 OPERATOR_SHIM = "_twin_port_operator"
 OPTIONS_SHIM = "_twin_port_operator_options"
+SERVING_SHIM = "_twin_port_serving"  # + "_<submodule>" for serving's modules
+SOLVER_SHIM = "_twin_port_solver_tpu"
+TEST_SOLVER_SHIM = "_twin_port_test_solver"
+MODEL_SHIM = "_twin_port_model"
+# reference suites whose helpers other suites import: the port's twin of a
+# suite imports their port twins
+TWIN_DEPS = ("test_churn_loop", "test_fleet")
+SERVING_MODULES = ("churn", "faults", "fleet", "loop", "prestage", "shard")
 
 
 # -- the cases ------------------------------------------------------------------------
@@ -87,12 +115,19 @@ def _functions(name: str) -> dict[str, ast.FunctionDef]:
     return out
 
 
-def reference_cases(name: str, skip_classes: tuple = ()) -> list[str]:
+def reference_cases(name: str, skip_classes: tuple = (), only_classes: tuple | None = None) -> list[str]:
     """Every test of a reference module as "Class.method[param]" or
     "function[param]", read from its source (so every worker collects the
-    same list)."""
+    same list); with `only_classes`, those classes' tests only."""
     return [case + pid for case, fn in _functions(name).items() if case.split(".")[0] not in skip_classes
+            and (only_classes is None or case.split(".")[0] in only_classes)
             for pid, _ in _param_ids(fn)]
+
+
+def is_slow(name: str, case: str) -> bool:
+    """Whether the reference marks the case `slow`."""
+    fn = _functions(name)[case.partition("[")[0]]
+    return any(ast.unparse(d).endswith("mark.slow") for d in fn.decorator_list)
 
 
 # -- the twin modules -----------------------------------------------------------------
@@ -104,13 +139,30 @@ def port_rewrite(src: str) -> str:
     src = src.replace("from karpenter_tpu.operator import", f"from {OPERATOR_SHIM} import")
     src = src.replace('solver_backend="tpu"', 'solver_backend="gpu"')
     src = src.replace('last_backend == "tpu"', 'last_backend == "gpu"')
+    src = src.replace('backend="tpu", tenant=', 'backend="gpu", tenant=')
+    # the compile cache's counterpart (also inside a subprocess's code)
+    src = src.replace("karpenter_tpu.solver.tpu import configure_compile_cache",
+                      f"{PORT}.solver.gpu import configure_compile_cache")
+    src = re.sub(r"^(\s*)from karpenter_tpu\.solver\.tpu import", rf"\1from {SOLVER_SHIM} import", src, flags=re.M)
+    src = re.sub(r"^(\s*)from karpenter_tpu\.serving(?:\.(\w+))? import",
+                 lambda mt: f"{mt[1]}from {SERVING_SHIM}{'_' + mt[2] if mt[2] else ''} import", src, flags=re.M)
+    src = re.sub(r"^(\s*)from karpenter_tpu\.models\.scheduler_model(_grouped)? import (make_tensors|item_pad_targets)$",
+                 rf"\1from {MODEL_SHIM} import \3", src, flags=re.M)
+    src = re.sub(r"^(\s*)from test_solver import make_snapshot", rf"\1from {TEST_SOLVER_SHIM} import make_snapshot",
+                 src, flags=re.M)
+    src = re.sub(rf"^(\s*)from ({'|'.join(TWIN_DEPS)}) import", rf"\1from _twin_{PORT}_\2 import", src, flags=re.M)
     src = re.sub(r"\bkarpenter_tpu\b", PORT, src)
-    return re.sub(r"^from helpers import", f"from {PORT}.testing.scenarios import", src, flags=re.M)
+    return re.sub(r"^(\s*)from helpers import", rf"\1from {PORT}.testing.scenarios import", src, flags=re.M)
+
+
+def _fixtures(src: str) -> str:
+    """Autouse fixtures become functions the twin runs around each case."""
+    return src.replace("@pytest.fixture(autouse=True)\n", "@_twin_autouse\n")
 
 
 @functools.lru_cache(maxsize=None)
 def _twin_code(name: str, pkg: str):
-    src = (TESTS / f"{name}.py").read_text()
+    src = _fixtures((TESTS / f"{name}.py").read_text())
     if pkg == PORT:
         src = port_rewrite(src)
     return compile(src, str(TESTS / f"{name}.py"), "exec")
@@ -136,14 +188,120 @@ def install_shims() -> None:
     op = types.ModuleType(OPERATOR_SHIM)
     op.Environment = Environment
     sys.modules[OPTIONS_SHIM], sys.modules[OPERATOR_SHIM] = opts, op
+    _install_serving_shims()
+
+
+def _install_serving_shims() -> None:
+    """The twin's serving modules (their entry points on the CPU), its
+    `solver.tpu` (the port's solver under the reference's constructor) and
+    its `test_solver.make_snapshot`."""
+    from karpenter_tpu_torch.solver import gpu as port_gpu
+
+    serving = importlib.import_module(f"{PORT}.serving")
+
+    class ChurnHarness(serving.ChurnHarness):
+        def __init__(self, spec=None, device="cpu"):
+            super().__init__(spec, device=device)
+
+    class FleetFrontend(serving.FleetFrontend):
+        def __init__(self, *args, device="cpu", **kwargs):
+            super().__init__(*args, device=device, **kwargs)
+
+    class ShardRouter(serving.ShardRouter):
+        def __init__(self, *args, device="cpu", **kwargs):
+            super().__init__(*args, device=device, **kwargs)
+
+    cpu = {"ChurnHarness": ChurnHarness, "FleetFrontend": FleetFrontend, "ShardRouter": ShardRouter}
+    for sub in ("",) + SERVING_MODULES:
+        real = importlib.import_module(f"{PORT}.serving{'.' + sub if sub else ''}")
+        shim = types.ModuleType(SERVING_SHIM + ("_" + sub if sub else ""))
+        shim.__dict__.update({k: v for k, v in vars(real).items() if not k.startswith("__")})
+        shim.__dict__.update({k: v for k, v in cpu.items() if k in vars(real)})
+        sys.modules[shim.__name__] = shim
+
+    class TPUSolver(port_gpu.GPUSolver):
+        def __init__(self, fallback=None, force=False, registry=None, mesh="auto", hybrid=True, recorder=None,
+                     tenant="", recover=True):
+            super().__init__(device="cpu", force=force, registry=registry, recorder=recorder, tenant=tenant,
+                             recover=recover, mesh=mesh)
+
+    solver = types.ModuleType(SOLVER_SHIM)
+    solver.__dict__.update({k: v for k, v in vars(port_gpu).items() if not k.startswith("__")})
+    solver.TPUSolver = TPUSolver
+    sys.modules[SOLVER_SHIM] = solver
+
+    def make_snapshot(pods, node_pools=None, types=None):
+        from karpenter_tpu_torch.apis import labels as wk
+        from karpenter_tpu_torch.cloudprovider import catalog
+        from karpenter_tpu_torch.kube import Store
+        from karpenter_tpu_torch.solver.snapshot import SolverSnapshot
+        from karpenter_tpu_torch.state import Cluster
+        from karpenter_tpu_torch.state.informer import start_informers
+        from karpenter_tpu_torch.testing.scenarios import make_nodepool
+        from karpenter_tpu_torch.utils.clock import FakeClock
+
+        linux_amd64 = [{"key": wk.ARCH_LABEL_KEY, "operator": "In", "values": ["amd64"]},
+                       {"key": wk.OS_LABEL_KEY, "operator": "In", "values": ["linux"]}]
+
+        store = Store()
+        clock = FakeClock()
+        cluster = Cluster(store, clock)
+        start_informers(store, cluster)
+        node_pools = node_pools or [make_nodepool(requirements=linux_amd64)]
+        for np_ in node_pools:
+            store.create(np_)
+        types = types if types is not None else catalog.construct_instance_types()
+        return SolverSnapshot(store=store, cluster=cluster, node_pools=node_pools,
+                              instance_types={np_.metadata.name: types for np_ in node_pools},
+                              state_nodes=cluster.nodes(), daemonset_pods=[], pods=pods, clock=clock)
+
+    # the reference's pod-axis tensor view for `test_churn_loop`'s pad-target
+    # case: the port packs work items, so its counterpart of "a delta's pad
+    # targets line up with the resident tensors" holds `item_pad_targets`
+    # against the port's own item arrays (res, keys, words and groups from
+    # the items, exist and ports from the rows)
+    class ModelView:
+        def __init__(self, t, items):
+            self.t, self.items = t, items
+            self.pod_req, self.pod_mask, self.member = items.item_req, items.item_mask, items.item_member
+            self.existing_domset, self.row_port_any = t.existing_domset, t.row_port_any
+
+    def view_make_tensors(enc, with_pods=True):
+        from karpenter_tpu_torch.models.scheduler_model import make_tensors
+        from karpenter_tpu_torch.models.scheduler_model_grouped import build_items, make_item_tensors
+        from karpenter_tpu_torch.solver.encoded import from_reference
+
+        problem = from_reference(enc)
+        t = make_tensors(problem, torch.device("cpu"))
+        return ModelView(t, make_item_tensors(build_items(problem)[0], torch.device("cpu")))
+
+    def view_item_pad_targets(view):
+        from karpenter_tpu_torch.models.scheduler_model_grouped import item_pad_targets
+
+        return item_pad_targets(view.t, view.items)
+
+    model = types.ModuleType(MODEL_SHIM)
+    model.make_tensors, model.item_pad_targets = view_make_tensors, view_item_pad_targets
+    sys.modules[MODEL_SHIM] = model
+
+    ts = types.ModuleType(TEST_SOLVER_SHIM)
+    ts.make_snapshot = make_snapshot
+    sys.modules[TEST_SOLVER_SHIM] = ts
 
 
 def load_twin(pkg: str, name: str) -> types.ModuleType:
-    """A fresh twin of reference test module `name` for `pkg`."""
+    """A fresh twin of reference test module `name` for `pkg` (and, for the
+    port, fresh twins of the suites it imports helpers from)."""
     if pkg == PORT:
         install_shims()
+        src = (TESTS / f"{name}.py").read_text()
+        for dep in TWIN_DEPS:
+            if dep != name and re.search(rf"^\s*from {dep} import", src, flags=re.M):
+                load_twin(pkg, dep)
     mod = types.ModuleType(f"_twin_{pkg}_{name}")
     mod.__file__ = str(TESTS / f"{name}.py")
+    mod._TWIN_AUTOUSE = []
+    mod._twin_autouse = lambda fn: mod._TWIN_AUTOUSE.append(fn) or fn
     sys.modules[mod.__name__] = mod
     exec(_twin_code(name, pkg), mod.__dict__)
     return mod
@@ -267,10 +425,133 @@ def recording(pkg: str):
             patch(leader.LeaderElector, attr, elector)
         for attr in ("from_env", "from_args"):
             patch(options.Options, attr, parser)
+        _record_serving(pkg, log, patch)
         yield log
     finally:
         for owner, attr, real in reversed(saved):
             setattr(owner, attr, real)
+
+
+def report_view(rep, spec) -> tuple:
+    """A ChurnReport's wall-clock-free fields (`testing.serving.
+    REPORT_FIELDS`; the prestager's counts only when it stages
+    synchronously, the coalesced count only without the concurrent
+    segment), dicts by key (a prestager worker's fault may fire before or
+    after a watch fault)."""
+    from karpenter_tpu_torch.testing.serving import REPORT_FIELDS
+
+    skip = (("prestage_reused", "prestage_staged") if spec.worker else ()) + \
+        (("coalesced_triggers",) if spec.concurrent_seconds > 0 else ())
+    d = rep.as_dict()
+    return tuple((k, tuple(sorted(d[k].items())) if isinstance(d[k], dict) else d[k])
+                 for k in REPORT_FIELDS if k not in skip)
+
+
+def _record_serving(pkg: str, log: list, patch) -> None:
+    """The serving records (module docstring)."""
+    loop_mod = importlib.import_module(f"{pkg}.serving.loop")
+    churn = importlib.import_module(f"{pkg}.serving.churn")
+    fleet = importlib.import_module(f"{pkg}.serving.fleet")
+    shard = importlib.import_module(f"{pkg}.serving.shard")
+    from karpenter_tpu_torch.testing.canonical import canonical_store
+
+    wall = [0]  # > 0 inside a wall-clock segment (run_concurrent)
+    main = threading.current_thread()
+
+    def fake(clock) -> bool:
+        return type(clock).__name__ == "FakeClock" and not wall[0] and threading.current_thread() is main
+
+    def pump(real):
+        @functools.wraps(real)
+        def recorded(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            prov = self.provisioner
+            if out is not None and fake(prov.clock):
+                log.append(("pump", getattr(prov.solver, "last_solve_mode", ""), canonical_store(prov.store)))
+            return out
+        return recorded
+
+    def fleet_pump(real):
+        @functools.wraps(real)
+        def recorded(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            if all(fake(s.env.clock) for s in self.sessions().values()):
+                log.append(("fleet_pump", tuple(sorted(out.items()))))
+            return out
+        return recorded
+
+    def bind_flush(real):
+        @functools.wraps(real)
+        def recorded(self, *args, **kwargs):
+            real(self, *args, **kwargs)
+            if fake(self.env.clock):
+                log.append(("bind_flush", shard.placement_digest(self.env)))
+        return recorded
+
+    def run(real):
+        @functools.wraps(real)
+        def recorded(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            if fake(self.env.clock):
+                log.append(("report", report_view(out, self.spec)))
+            return out
+        return recorded
+
+    def concurrent(real):
+        @functools.wraps(real)
+        def recorded(self, *args, **kwargs):
+            wall[0] += 1
+            try:
+                return real(self, *args, **kwargs)
+            finally:
+                wall[0] -= 1
+        return recorded
+
+    def repack(real):
+        @functools.wraps(real)
+        def recorded(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            log.append(("repack_savings", args, tuple(sorted(kwargs.items())), round(out, 6)))
+            return out
+        return recorded
+
+    def digests(real):
+        @functools.wraps(real)
+        def recorded(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            log.append((real.__name__, tuple(sorted((t, r.get("digest")) for t, r in self._tenants.items())),
+                        tuple(sorted(out)) if isinstance(out, dict) else out))
+            return out
+        return recorded
+
+    patch(loop_mod.ServingLoop, "pump", pump)
+    patch(fleet.FleetFrontend, "pump", fleet_pump)
+    patch(churn.ChurnHarness, "bind_flush", bind_flush)
+    for attr in ("run", "run_replay"):
+        patch(churn.ChurnHarness, attr, run)
+    patch(churn.ChurnHarness, "run_concurrent", concurrent)
+    patch(churn.ChurnHarness, "repack_savings", repack)
+    patch(shard.ShardRouter, "run_all", digests)
+    patch(shard.ShardRouter, "rehome_tenants", digests)
+
+
+# reference cases that wait their own fixed wall-clock time (5 s) for a
+# fleet serve loop's first solve: in the reference's suite earlier cases have
+# compiled the pack for such shapes, so a twin runs them warmed alike (one
+# solve of the same spec's stack first, before the module state is reset)
+WARM_SERVING = frozenset({("test_podtrace", "TestThreadedFleetPodtrace.test_cross_thread_stamps_under_sanitizer"),
+                          ("test_fleet", "TestThreadedFleetRacecheck.test_serve_loop_under_sanitizer_is_clean")})
+
+
+def warm_serving(pkg: str) -> None:
+    serving = importlib.import_module(f"{pkg}.serving")
+    spec = serving.ChurnSpec(n_base_pods=0, n_types=12, batch_idle_seconds=0.05, concurrent_seconds=0.0)
+    h = serving.ChurnHarness(spec, **({"device": "cpu"} if pkg == PORT else {})).build()
+    try:
+        h.apply_arrivals(50)
+        h.solve(force=True)
+    finally:
+        h.close()
 
 
 # -- one case ------------------------------------------------------------------------
@@ -282,6 +563,8 @@ def run_case(pkg: str, module: str, case: str) -> tuple:
     fn_node = _functions(module)[base]
     params = dict(_param_ids(fn_node))["[" + pid if pid else ""]
     owner, _, fn_name = base.rpartition(".")
+    if (module, base) in WARM_SERVING:
+        warm_serving(pkg)
     same_start(pkg)
     with contextlib.ExitStack() as stack:
         stack.enter_context(seeded_uids())
@@ -289,7 +572,16 @@ def run_case(pkg: str, module: str, case: str) -> tuple:
         mp = stack.enter_context(pytest.MonkeyPatch.context())
         mod = load_twin(pkg, module)
         fn = getattr(getattr(mod, owner)(), fn_name) if owner else getattr(mod, fn_name)
-        args = {**params, **({"monkeypatch": mp} if "monkeypatch" in [a.arg for a in fn_node.args.args] else {})}
+        wanted = [a.arg for a in fn_node.args.args]
+        args = dict(params)
+        if "monkeypatch" in wanted:
+            args["monkeypatch"] = mp
+        if "tmp_path" in wanted:
+            args["tmp_path"] = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="twin-")))
+        for fx in mod._TWIN_AUTOUSE:
+            gen = fx()
+            next(gen)
+            stack.callback(next, gen, None)
         try:
             fn(**args)
         except pytest.skip.Exception as e:
@@ -308,6 +600,13 @@ def assert_twin_case(module: str, case: str) -> None:
 
 def cases_of(modules: tuple) -> list[tuple[str, str]]:
     return [(m, c) for m in modules for c in reference_cases(m)]
+
+
+def params_of(cases: list[tuple[str, str]]) -> list:
+    """pytest parameters for (module, case) pairs: a case the reference
+    marks `slow` stays `slow`."""
+    return [pytest.param(m, c, id=f"{m}::{c}", marks=(pytest.mark.slow,) if is_slow(m, c) else ())
+            for m, c in cases]
 
 
 def assert_every_case_covered(modules: tuple) -> None:
