@@ -16,9 +16,17 @@ controller and runs a whole controller round with the provisioner's
 
 Every entry point runs on the CUDA device unless the caller passes
 `device="cpu"`; on CPU tensors each kernel wrapper runs its plain PyTorch
-version instead. The package imports torch and numpy only.
+version instead. The package imports torch and numpy only; importing the
+package itself imports neither, so its stdlib-only linter
+(`python -m karpenter_tpu_torch.analysis`) runs without them.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

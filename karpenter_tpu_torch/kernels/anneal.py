@@ -185,7 +185,8 @@ def anneal(t, x0, flips, u):
                                build.stream_ptr(dev))
     build.check(rc, "anneal")
     build.LAUNCHES["anneal"] += 1
-    bad = int(flag.item())  # what the pre-pass flagged (waits for the card; the chains exit at once on it)
+    # what the pre-pass flagged (waits for the card; the chains exit at once on it)
+    bad = int(flag.item())  # solverlint: ok(host-sync-in-hot-path): the one 4-byte read per anneal call — a flagged input must raise KernelArgError here, never return chains
     if bad & 1:
         raise build.KernelArgError("anneal: pod_compat must hold only 0 and 1")
     if bad & 2:

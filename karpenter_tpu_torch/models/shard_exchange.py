@@ -125,7 +125,7 @@ def run_shards(fn, n: int) -> list:
             hub.wait_turn(s)
             results[s] = fn(ex)
             ex.finish()
-        except BaseException as e:  # noqa: BLE001  # re-raised in the caller below
+        except BaseException as e:  # noqa: BLE001  # solverlint: ok(swallowed-exception): kept in errors[s] and raised again by run_shards in the caller's thread
             errors[s] = e
             hub.abort()
 

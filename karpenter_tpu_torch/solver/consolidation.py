@@ -497,7 +497,7 @@ def propose_problem_lp(problem: ConsolidationProblem, device=None, *, inits=None
             d0, y0 = _gp_inits(aux, inits, seed, dev)
         with stage("K5 globalpack"):
             d, _scores = lp_repack(t, aux["onehot"], aux["compat_qn"], d0, y0, n_iters=LP_ITERS)
-            d = d.cpu().numpy()
+            d = d.cpu().numpy()  # solverlint: ok(host-sync-in-hot-path): K5's one deliberate download — the rounding ladder runs on host numpy
     return lp_ladder(t, aux, d, n, max_proposals, stage)[0]
 
 
@@ -563,7 +563,7 @@ def propose_problem_global(problem: ConsolidationProblem, device=None, *, inits=
         with stage("K5 globalpack"):
             d, _scores = global_repack(t, aux["onehot"], aux["compat_qn"], aux["pend_mass"], aux["pend_weight"], d0,
                                        y0, n_iters=LP_ITERS)
-            d = d.cpu().numpy()
+            d = d.cpu().numpy()  # solverlint: ok(host-sync-in-hot-path): K5's one deliberate download — the rounding ladder runs on host numpy
     with stage("round"):
         return global_ladder(t, aux, d, n, max_proposals, stage)[:2]
 
@@ -628,8 +628,9 @@ def propose_problem_anneal(problem: ConsolidationProblem, device=None, *, stream
             best_x, best_s = anneal_chains(t, *streams)
         else:
             best_x, best_s = anneal(t, seed, ANNEAL_CHAINS, ANNEAL_STEPS)
-        best_x = best_x.cpu().numpy()
-        best_s = best_s.cpu().numpy()
+        # K7's deliberate downloads — the ladder ranks the chains on host numpy
+        best_x = best_x.cpu().numpy()  # solverlint: ok(host-sync-in-hot-path): K7's chains, downloaded once for the host ladder
+        best_s = best_s.cpu().numpy()  # solverlint: ok(host-sync-in-hot-path): K7's scores, downloaded once for the host ladder
     with stage("ladder"):
         order = np.argsort(-best_s)
         seen = set()
@@ -637,7 +638,7 @@ def propose_problem_anneal(problem: ConsolidationProblem, device=None, *, stream
         for idx in order:
             if best_s[idx] <= 0:
                 continue
-            subset = tuple(i for i in np.nonzero(best_x[idx])[0].tolist() if i < n)
+            subset = tuple(i for i in np.nonzero(best_x[idx])[0].tolist() if i < n)  # solverlint: ok(host-sync-in-hot-path): best_x is the host numpy copy made above; this is numpy's tolist
             if not subset or subset in seen:
                 continue
             seen.add(subset)

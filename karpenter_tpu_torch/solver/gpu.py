@@ -445,7 +445,7 @@ class GPUSolver:
         trace and the per-reason counter."""
         self.last_delta_reject = reason
         self._trace.note(delta_reject=reason)
-        self._count(m.SOLVER_DELTA_REJECT_TOTAL, reason=reason)
+        self._count(m.SOLVER_DELTA_REJECT_TOTAL, reason=reason)  # solverlint: ok(metric-label-cardinality): reason is always a DELTA_REJECT_REASONS literal — enum-bounded at every producer (encode._try_delta_encode and the delta solve's reject sites)
 
     # -- the podtrace seam ---------------------------------------------------------
 
@@ -660,7 +660,7 @@ class GPUSolver:
         if family is None:
             family = _reason_family(reasons[0]) if reasons else "empty"
         self.last_fallback_family = family
-        self._count(m.SOLVER_FALLBACK_TOTAL, reason=family)
+        self._count(m.SOLVER_FALLBACK_TOTAL, reason=family)  # solverlint: ok(metric-label-cardinality): family is a _reason_family() output, "empty", or a caller's literal ("validation"/"relaxation" from _TensorFallback, "recovery" from the ladder) — enum-bounded at every call site
         self._count(m.SOLVER_SOLVE_TOTAL, backend="ffd-fallback")
         # the host solve records its ffd.* phase split into this span
         # through the ambient current_trace()
@@ -995,7 +995,9 @@ class GPUSolver:
                 item_pods += [np.zeros(0, np.int64)] * (W_pad - W_real)
             with self._span("scan"):
                 out = greedy_pack_delta_compressed(state, t, items, n_added)
-            if out["open_count"] == t.n_slots and int(out["leftovers"][:W_real].sum()) > 0:
+            # the compressed pack's outputs are parsed from its one download
+            # (`_pack_flat`): leftovers is host numpy, open_count an int
+            if out["open_count"] == t.n_slots and int(out["leftovers"][:W_real].sum()) > 0:  # solverlint: ok(host-sync-in-hot-path): host numpy, no device read
                 self._note_delta_reject("slot-exhausted")
                 return None
             with self._span("merge"):
@@ -1022,7 +1024,7 @@ class GPUSolver:
             slot_basis=slot_basis,
             slot_zoneset=slot_zoneset,
             leftovers=out["leftovers"],
-            open_count=int(out.get("open_count", state[6])),
+            open_count=int(out.get("open_count", state[6])),  # solverlint: ok(host-sync-in-hot-path): open_count is the parsed host int (the pack's dict always holds it)
             item_info=dict(n_pods=p.n_pods, n_items=W_real, n_added=n_added,
                            n_removed=int(removed.size) if removed is not None else 0, demoted=demoted,
                            row_refresh=row_diff is not None),
@@ -1100,7 +1102,7 @@ class GPUSolver:
         self.last_fallback_reasons = enc.fallback_reasons
         for family in sorted({_reason_family(r) for r in enc.fallback_reasons}):
             self._count(m.SOLVER_HYBRID_RESIDUAL_TOTAL, reason=family)
-        self._count(m.SOLVER_SOLVE_TOTAL, backend=mode)
+        self._count(m.SOLVER_SOLVE_TOTAL, backend=mode)  # solverlint: ok(metric-label-cardinality): mode is "hybrid" or "hybrid-delta", the literals of _hybrid_residual's two callers
         return results
 
     def _mask_encode(self, enc, keep: np.ndarray):
@@ -1231,14 +1233,14 @@ class GPUSolver:
         sig_of = {id(p): int(s) for p, s in zip(enc.pods, np.asarray(enc.sig_of_pod))}
         records: list = []
         for en in tensor_results.existing_nodes:
-            for pod in en.pods:
+            for pod in en.pods:  # solverlint: ok(python-loop-over-pod-axis): gated — reached only when a topology group spans the hybrid seam (early-returns above keep the common case free), and record-building is irreducibly per-pod
                 s = sig_of.get(id(pod))
                 if s is not None and seam_sig[s]:
                     # decode-built ExistingNode requirements are the node's
                     # label view + hostname — exactly what record() needs
                     records.append((pod, en.taints, en.requirements))
         for nc in tensor_results.new_node_claims:
-            for pod in nc.pods:
+            for pod in nc.pods:  # solverlint: ok(python-loop-over-pod-axis): gated — same seam-export bound as the existing-node walk above
                 s = sig_of.get(id(pod))
                 if s is not None and seam_sig[s]:
                     # captured by reference: _adopt_claim adds the in-flight

@@ -18,7 +18,9 @@ controller rounds (provision, launch, register, bind, consolidate) with the
 GPU solver's plain versions, every pod bound. `Environment()` raises
 without CUDA. Serving, the entry point and the test harness import neither
 (their files are listed), and a shard worker replays a churn log with both
-blocked."""
+blocked. The C++ requirement table (`native/`) builds and answers a query
+with both blocked, and the linter (`analysis/`) runs its self-test and a
+scan with torch and numpy blocked too (it is stdlib-only)."""
 
 from __future__ import annotations
 
@@ -258,8 +260,8 @@ def test_shard_worker_runs_without_jax_or_reference():
 
 def test_relative_imports_name_port_modules():
     """Every relative import (lazy ones inside functions too) resolves to a
-    module of the port, or a name in one: a reference module left out of the
-    port (the native tables, the operator, serving) is never reached."""
+    module of the port, or a name in one: a reference module the port does
+    not hold is never reached."""
     import importlib
     import importlib.util
 
@@ -301,3 +303,80 @@ def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
                           env=no_cuda)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+_NATIVE_CHILD = textwrap.dedent(
+    """
+    import sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    sys.modules["karpenter_tpu"] = None
+    sys.path.insert(0, {root!r})
+    from karpenter_tpu_torch import native
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.scheduling.requirements import Requirement, Requirements
+    build.set_build_dir(tempfile.mkdtemp())
+    rows = []
+    for zones in (["a"], ["b"], ["a", "b"]):
+        r = Requirements()
+        r.add(Requirement("zone", "In", zones))
+        rows.append(r)
+    q = Requirements()
+    q.add(Requirement("zone", "In", ["b"]))
+    assert native.ReqTable(rows).filter(q) == bytes([0, 1, 1])
+    assert native.COUNTS == dict(tables=1, filters=1)
+    assert (native.lib_dir() / native.LIB_NAME).exists()
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_tpu") and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NATIVE ISOLATED")
+    """
+)
+
+_ANALYSIS_CHILD = textwrap.dedent(
+    """
+    import sys
+    for blocked in ("jax", "jaxlib", "karpenter_tpu", "torch", "numpy"):
+        sys.modules[blocked] = None
+    sys.path.insert(0, {root!r})
+    from karpenter_tpu_torch.analysis import RULES
+    from karpenter_tpu_torch.analysis.__main__ import main
+    assert len(RULES) == 15
+    assert main(["--self-test"]) == 0
+    assert main([{encode!r}]) == 0
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_tpu", "torch", "numpy")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("ANALYSIS ISOLATED")
+    """
+)
+
+
+def test_native_table_runs_without_jax_or_reference():
+    """The port's C++ requirement table builds (into a fresh build directory)
+    and answers a query with jax and the JAX package blocked."""
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_CHILD.format(root=str(ROOT))], capture_output=True, text=True,
+                          timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NATIVE ISOLATED" in proc.stdout
+
+
+def test_analysis_runs_on_the_standard_library_alone():
+    """The port's linter imports neither jax, the JAX package, torch nor
+    numpy: its self-test and a scan of the port's encoder pass with all of
+    them blocked."""
+    code = _ANALYSIS_CHILD.format(root=str(ROOT), encode=str(PORT / "solver" / "encode.py"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ANALYSIS ISOLATED" in proc.stdout
+
+
+def test_native_and_analysis_import_nothing_of_jax_or_reference():
+    """`native/` and `analysis/` stand alone like the rest of the port: no
+    import of jax or of the JAX package, lazy ones included; the linter
+    imports no torch or numpy either."""
+    native = sorted((PORT / "native").glob("*.py"))
+    analysis = sorted((PORT / "analysis").glob("*.py"))
+    assert [f.name for f in native] == ["__init__.py"]
+    assert [f.name for f in analysis] == ["__init__.py", "__main__.py", "config.py", "core.py", "rules.py"]
+    assert [(f.name, m) for f in native + analysis for m in _imports(f) if m.split(".")[0] in FORBIDDEN] == []
+    assert [(f.name, m) for f in analysis for m in _imports(f) if m.split(".")[0] in ("torch", "numpy")] == []
