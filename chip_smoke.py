@@ -165,25 +165,32 @@ the store (the replacement among them) must equal the reference's, with K5
 and K6 once and K1-K3 once per probe and once for the re-simulation.
 
 Then the meshed phase (`check_sharded`): the slot-sharded K2
-(`pack_scan_sharded.cu`, one cooperative launch, a block per shard, the
-three exchanges through global memory) against the plain multi-shard arm
-on `tests/test_sharded.py`'s zone-spread + anti-affinity snapshot at 3 and
-5 shards (slot axes padded), and against K2 at the headline and both
-existing fleets at 2, 4 and 8 shards and on the caps problems at 3 and 5;
-at 33 and 64 shards (past one warp's lanes: `MESH_WIDE_SIZES`) against K2
-at the headline and both fleets,
-in every output and carry leaf, bit for bit, with K1 per shard
-(`sharded_feasibility`) against K1. Then `GPUSolver(mesh=make_mesh([dev] *
-4)).solve(snap)` over the seeded headline's `SOLVE_STEPS` and the hybrid
-headline's `HYBRID_STEPS`, the counts set to 0 just before each step and
-read just after: the reference's Results, mode and reasons at every step,
-K1 four times and the sharded K2 once on a full pack, the delta steps on
-the single-device path over the gathered carry; and the seeded headline's
-first step on a mesh of 33 shards (K1 33 times). `anneal_sharded` (K7 per
-shard) against K7 on one device over the same keys, `sharded_compat_matrix`
-(K1 per shard) against K1 over the headline's pods. It times the sharded
-K2 at the headline per shard count (2, 4, 8, 33 on a padded slot axis,
-64), K2 in the same run and the plain arm once, and counts the exchanges.
+(`pack_scan_sharded.cu`, a block per shard) in both its forms: the cluster
+form (`pack_scan_cluster`: the shards one thread-block cluster, the three
+exchanges through distributed shared memory) and the grid form
+(`pack_scan_sharded`: one cooperative launch, the exchanges through global
+memory). Both against the plain multi-shard arm on `tests/test_sharded.py`'s
+zone-spread + anti-affinity snapshot at 3 and 5 shards (slot axes padded),
+against K2 at the headline and both existing fleets at 2, 4 and 8 shards
+and on every small fixture and the caps problems at 3 and 5, with the same
+exchange counts; the grid form at 33 and 64 shards (past one warp's lanes:
+`MESH_WIDE_SIZES`, past the largest cluster) against K2 at the headline
+and both fleets; in every output and carry leaf, bit for bit, with K1 per
+shard (`sharded_feasibility`) against K1. The chooser must pick the cluster
+form up to 8 shards and the grid form at 33 and 64. Then
+`GPUSolver(mesh=make_mesh([dev] * 4)).solve(snap)` over the seeded
+headline's `SOLVE_STEPS` and the hybrid headline's `HYBRID_STEPS`, the
+counts set to 0 just before each step and read just after: the
+reference's Results, mode and reasons at every step, K1 four times and the
+cluster form once on a full pack, the delta steps on the single-device
+path over the gathered carry; and the seeded headline's first step on a
+mesh of 33 shards (K1 33 times, the grid form once). `anneal_sharded` (K7
+per shard) against K7 on one device over the same keys,
+`sharded_compat_matrix` (K1 per shard) against K1 over the headline's
+pods. It times both forms at the headline per shard count (2, 4, 8; the
+grid form at 33 on a padded slot axis and 64, the cluster form at the
+largest cluster the card places), K2 in the same run before and after and
+the plain arm once, and counts the exchanges.
 
 Then the operator phase (`check_operator`): the seeded headline's nodepool
 and 100 instance types in the operator's `Environment(Options())` with no
@@ -334,6 +341,7 @@ REPLACES = {
     "feasibility": "karpenter_tpu/models/scheduler_model.py:436",
     "pack_scan": "karpenter_tpu/models/scheduler_model_grouped.py:1028",
     "pack_scan_sharded": "karpenter_tpu/parallel/sharded.py:177",
+    "pack_scan_cluster": "karpenter_tpu/parallel/sharded.py:177",
     "sparsify": "karpenter_tpu/models/scheduler_model_grouped.py:1012",
     "recredit": "karpenter_tpu/models/scheduler_model_grouped.py:1111",
     "globalpack": "karpenter_tpu/models/globalpack.py:97",
@@ -345,6 +353,7 @@ REPLACES = {
     "perpod_pack": "karpenter_tpu/models/scheduler_model.py:508",
 }
 SOURCES = {"feasibility": "feasibility.cu", "pack_scan": "pack_scan.cu", "pack_scan_sharded": "pack_scan_sharded.cu",
+           "pack_scan_cluster": "pack_scan_cluster.cu",
            "sparsify": "sparsify.cu",
            "recredit": "recredit.cu", "globalpack": "globalpack.cu", "score_subsets": "score_subsets.cu",
            "anneal_pack": "anneal.cu", "anneal": "anneal.cu", "perpod_pack": "perpod_pack.cu"}
@@ -2553,25 +2562,29 @@ def expect_same_leaves(got: list, want: list, what: str) -> float:
     return max_abs(*[(a, b) for (_n, a), (_m, b) in zip(got, want)])
 
 
-def mesh_launches(launched: tuple, full: bool, shards: int) -> dict:
+def mesh_launches(launched: tuple, full: bool, shards: int, form: str) -> dict:
     """The launches of a solve step on the meshed solver: a step's full pack
     (K1 -> K2 -> K3, `launched` as on one device) runs K1 once per shard and
-    the sharded K2; its delta packs and recredits are the single-device
-    path's."""
-    need = {k: int(k in launched) for k in ("feasibility", "pack_scan", "pack_scan_sharded", "sparsify", "recredit")}
+    the sharded K2 in `form` ("cluster": `pack_scan_cluster`, "grid":
+    `pack_scan_sharded`); its delta packs and recredits are the
+    single-device path's."""
+    need = {k: int(k in launched)
+            for k in ("feasibility", "pack_scan", "pack_scan_sharded", "pack_scan_cluster", "sparsify", "recredit")}
     if full:
-        need.update(feasibility=shards, pack_scan=0, pack_scan_sharded=1)
+        need.update(feasibility=shards, pack_scan=0, pack_scan_sharded=int(form == "grid"),
+                    pack_scan_cluster=int(form == "cluster"))
     return need
 
 
 def check_mesh_steps(dev, what: str, fixture, steps, launches, full_steps, pods_of, force: bool,
-                     shards: int = MESH_SOLVE_SHARDS) -> list:
+                     shards: int = MESH_SOLVE_SHARDS, form: str = "cluster") -> list:
     """`GPUSolver(mesh=make_mesh([dev] * shards)).solve(snap)` over `steps`
     (the pods of step i from `pods_of(i, pods, solver)`), the
     counts set to 0 just before each step and read just after: each step's
     canonical Results, mode, backend and reasons equal to the reference's
     (`fixture`, which the unmeshed solver also meets), with the launches of
-    `mesh_launches`; no step may fall back to the host (`force`: none may
+    `mesh_launches` (the sharded K2 in `form`, which the full steps' state
+    must name); no step may fall back to the host (`force`: none may
     try)."""
     import random
 
@@ -2601,8 +2614,11 @@ def check_mesh_steps(dev, what: str, fixture, steps, launches, full_steps, pods_
         for key, value in got.items():
             expect(value == want[key], f"{what} {step}: {key} {value!r}, the JAX reference's {want[key]!r}")
         expect(json_form(canonical_results(results)) == want["results"], f"{what} {step}: Results differ")
-        need = {k: v for k, v in mesh_launches(launched, step in full_steps, shards).items() if v}
+        need = {k: v for k, v in mesh_launches(launched, step in full_steps, shards, form).items() if v}
         expect(counts == need, f"{what} {step}: launches {counts}, not {need}")
+        if step in full_steps:
+            ran = solver._resident["state"].exchange
+            expect(ran == form, f"{what} {step}: the sharded K2 ran in the {ran} form, not the {form} form")
         paths.append(counts)
         print(f"meshed {what} {step} ({len(snap.pods)} pods, {shards} shards): mode "
               f"{solver.last_solve_mode}, {len(results.new_node_claims)} claims, Results == JAX reference; "
@@ -2610,34 +2626,76 @@ def check_mesh_steps(dev, what: str, fixture, steps, launches, full_steps, pods_
     return paths
 
 
-def sharded_row(sharded: dict, errs: dict) -> dict:
-    """The sharded K2's entry of the `kernels` line: at MESH_SOLVE_SHARDS
-    shards, with its time per shard count and its exchanges per solve."""
-    row = kernel_row(sharded["row"], {"pack_scan_sharded": sharded["launches"]}, errs)
-    row.update(shards=MESH_SOLVE_SHARDS, ms_per_shards=sharded["ms_per_shards"], k2_same_run_ms=sharded["k2_ms"],
-               exchanges=sharded["exchanges"])
-    return row
+def sharded_rows(sharded: dict, errs: dict) -> list:
+    """The sharded K2's entries of the `kernels` line, one per form: the
+    cluster form at MESH_SOLVE_SHARDS shards, the grid form at
+    MESH_SOLVE_SHARDS too (its launches from the meshed solve at 33), each
+    with its time per shard count and its exchanges per solve."""
+    rows = []
+    for form, name in (("cluster", "pack_scan_cluster"), ("grid", "pack_scan_sharded")):
+        r = sharded[form]
+        row = kernel_row(r["row"], {name: r["launches"]}, errs)
+        row.update(shards=MESH_SOLVE_SHARDS, ms_per_shards=r["ms_per_shards"], k2_same_run_ms=sharded["k2_ms"],
+                   exchanges=r["exchanges"], us_per_exchange=r["us_per_exchange"])
+        if form == "cluster":
+            row.update(largest_cluster=sharded["largest"], fleets_ms=sharded["fleets_ms"])
+        rows.append(row)
+    return rows
+
+
+def sharded_forms(t, items, compat, key, S: int) -> dict:
+    """Each form of the sharded K2 on the padded `t` at S shards: form ->
+    (takes, leftovers, shards' carries, barrier); the cluster form only
+    where the card places it."""
+    from karpenter_tpu_torch.kernels import pack_scan as kps
+
+    out = {"grid": kps.pack_scan_sharded_grid(t, items, compat, key, n_slots=t.n_slots, n_shards=S)}
+    if kps.exchange_form(S, kps.largest_cluster(t, items, n_slots=t.n_slots, n_shards=S)) == "cluster":
+        out["cluster"] = kps.pack_scan_sharded_cluster(t, items, compat, key, n_slots=t.n_slots, n_shards=S)
+    return out
+
+
+def expect_forms_equal(forms: dict, want: list, S: int, what: str, errs: dict) -> dict:
+    """Each form's takes, leftovers and gathered carry against `want`
+    (K2's), bit for bit; returns form -> exchanges."""
+    from karpenter_tpu_torch.kernels import pack_scan as kps
+    from karpenter_tpu_torch.parallel import sharded as sh
+
+    n_x = {}
+    for form, (takes, left, shards, barrier) in forms.items():
+        state = sh.ShardedState(sh.make_mesh([takes.device] * S), shards, barrier, form)
+        got = [("takes", takes), ("leftovers", left)] + list(zip(STATE_LEAVES, carry_leaves(state.gather_state())))
+        name = kps.FORMS[form]
+        errs[name] = max(errs[name], expect_same_leaves(got, want, f"{what} {form} form S={S}"))
+        n_x[form] = int(barrier) // S
+    expect(len(set(n_x.values())) == 1, f"{what} S={S}: the forms' exchange counts differ: {n_x}")
+    return n_x
 
 
 def check_sharded(dev, card: str, errs: dict) -> dict:
-    """The meshed phase. The slot-sharded K2 (`pack_scan_sharded`) against
-    the plain multi-shard arm on `mesh_small_snapshot` at `MESH_PLAIN_SIZES`
-    shards, against K2 at the headline and both existing fleets at
-    `MESH_SIZES` (takes, leftovers, every shard's carry), and K1 per shard
-    (`sharded_feasibility`) against K1, bit for bit. Then the meshed solve
+    """The meshed phase. The slot-sharded K2 in both forms (the cluster
+    form, `pack_scan_cluster`, and the grid form, `pack_scan_sharded`)
+    against the plain multi-shard arm on `mesh_small_snapshot` at
+    `MESH_PLAIN_SIZES` shards, against K2 at the headline and both existing
+    fleets at `MESH_SIZES` (takes, leftovers, every shard's carry), and K1
+    per shard (`sharded_feasibility`) against K1, bit for bit; the form the
+    chooser picks at each S is the cluster form there. Then the meshed solve
     over the seeded headline's `SOLVE_STEPS` and the hybrid headline's
-    `HYBRID_STEPS` (`check_mesh_steps`), `anneal_sharded` against K7 on one
-    device over the same keys and `sharded_compat_matrix` against K1 over
-    the headline's pods. At `MESH_WIDE_SIZES` (33, 64) shards it also holds
-    the sharded K2 to K2 at the headline and both fleets, and runs the
-    seeded headline's first solve step on a mesh of 33. Then it times the sharded K2 per shard count at
-    the headline (CUDA events, median; 33 on a padded slot axis), K2 in the
-    same run, and the plain arm."""
+    `HYBRID_STEPS` (`check_mesh_steps`, the cluster form), `anneal_sharded`
+    against K7 on one device over the same keys and `sharded_compat_matrix`
+    against K1 over the headline's pods. At `MESH_WIDE_SIZES` (33, 64)
+    shards it holds the grid form (the chooser's pick there) to K2 at the
+    headline and both fleets, and runs the seeded headline's first solve
+    step on a mesh of 33. Then it times both forms per shard count at the
+    headline (CUDA events, median; 33 on a padded slot axis; the cluster
+    form also at the largest cluster the card places), K2 in the same run
+    before and after, and the plain arm once."""
     import torch
 
     from karpenter_tpu_torch.kernels.anneal import anneal
     from karpenter_tpu_torch.kernels.feasibility import compat_and_key, feasibility, feasibility_plain
-    from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_sharded
+    from karpenter_tpu_torch.kernels import pack_scan as kps
+    from karpenter_tpu_torch.kernels.pack_scan import pack_scan
     from karpenter_tpu_torch.kernels import build
     from karpenter_tpu_torch.models.scheduler_model import make_tensors, reset_bucket_highwater
     from karpenter_tpu_torch.models.scheduler_model_grouped import build_items, initial_state, make_item_tensors
@@ -2654,7 +2712,6 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
     arrays, _pods = build_items(problem)
     items = make_item_tensors(arrays, dev)
     t0 = make_tensors(problem, dev)
-    err = 0.0
     for S in MESH_PLAIN_SIZES:
         what = f"sharded K2 small S={S}"
         mesh = sh.make_mesh([dev] * S)
@@ -2663,36 +2720,54 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
         compat_p, key_p = feasibility_plain(t, items)
         torch.cuda.synchronize()
         expect(torch.equal(compat, compat_p) and same_bits(key, key_p), f"{what}: K1 per shard differs from plain")
-        *out, barrier = pack_scan_sharded(t, items, compat, key, n_slots=t.n_slots, n_shards=S)
-        got = sharded_leaves(*out)
-        plain = sharded_leaves(*pack_scan_sharded_plain(t, items, compat_p, key_p, n_slots=t.n_slots, n_shards=S)[:3])
+        *_out, chosen = kps.pack_scan_sharded(t, items, compat, key, n_slots=t.n_slots, n_shards=S)
+        expect(chosen == "cluster", f"{what}: the chooser picked the {chosen} form")
+        forms = sharded_forms(t, items, compat, key, S)
+        plain_out = pack_scan_sharded_plain(t, items, compat_p, key_p, n_slots=t.n_slots, n_shards=S)
+        plain = sharded_leaves(*plain_out[:3])
         torch.cuda.synchronize()
-        err = max(err, expect_same_leaves(got, plain, what))
-        print(f"{what} (N {t0.n_slots} -> {t.n_slots}, W {items.item_req.shape[0]}): == plain multi-shard arm, "
-              f"{int(barrier) // S} exchanges, leftovers {int(got[1][1].sum())}")
-    errs["pack_scan_sharded"] = err
+        n_x = {}
+        for form, out in forms.items():
+            name = kps.FORMS[form]
+            errs[name] = max(errs[name], expect_same_leaves(sharded_leaves(*out[:3]), plain, f"{what} {form} form"))
+            n_x[form] = int(out[3]) // S
+        expect(n_x.get("cluster") == n_x["grid"], f"{what}: exchanges {n_x}")
+        print(f"{what} (N {t0.n_slots} -> {t.n_slots}, W {items.item_req.shape[0]}): the chooser picks the {chosen} "
+              f"form; cluster and grid forms == plain multi-shard arm, exchanges {n_x} (plain arm "
+              f"{int(plain_out[3]) // S}), leftovers {int(plain_out[1].sum())}")
 
-    exchanges = {}
+    exchanges = {"cluster": {}, "grid": {}}
+    largest = {}
     for name in (HEADLINE, FLEET, FLEET_BIG):
         _p, _r, t0, items, _nnz = prepare(name, dev)
         compat, key = feasibility(t0, items)
+        picked = {}
         for S in MESH_SIZES + MESH_WIDE_SIZES:
-            what = f"sharded K2 {name} S={S}"
+            what = f"sharded K2 {name}"
             mesh = sh.make_mesh([dev] * S)
             t = sh.pad_slots_for_mesh(t0, mesh)
             c_s, k_s = sh.sharded_feasibility(t, items, mesh)
             takes, left, state = sh.pack_scan_sharded(t, items, c_s, k_s, mesh)
-            n_x = state.exchanges
+            picked[S] = state.exchange
+            expect(state.exchange == ("grid" if S in MESH_WIDE_SIZES else "cluster"),
+                   f"{what} S={S}: the chooser picked the {state.exchange} form")
             takes1, left1, one = pack_scan(t, items, compat, key, n_slots=t.n_slots)
             torch.cuda.synchronize()
-            expect(torch.equal(c_s, compat) and same_bits(k_s, key), f"{what}: K1 per shard differs from K1")
-            got = [("takes", takes), ("leftovers", left)] + list(zip(STATE_LEAVES, carry_leaves(state.gather_state())))
+            expect(torch.equal(c_s, compat) and same_bits(k_s, key), f"{what} S={S}: K1 per shard differs from K1")
             want = [("takes", takes1), ("leftovers", left1)] + list(zip(STATE_LEAVES, carry_leaves(one)))
-            expect_same_leaves(got, want, what)
-            exchanges[(name, S)] = n_x
-        print(f"sharded K2 == K2 at {name} (N {t0.n_slots}, W {items.item_req.shape[0]}, open "
-              f"{int(one[6])}) for S in {MESH_SIZES + MESH_WIDE_SIZES}: exchanges "
-              + ", ".join(f"S={S} {exchanges[(name, S)]}" for S in MESH_SIZES + MESH_WIDE_SIZES))
+            forms = {state.exchange: (takes, left, state.shards, state.barrier)}
+            if S in MESH_SIZES:
+                forms["grid"] = kps.pack_scan_sharded_grid(t, items, compat, key, n_slots=t.n_slots, n_shards=S)
+            for form, n in expect_forms_equal(forms, want, S, what, errs).items():
+                exchanges[form][(name, S)] = n
+            if name == HEADLINE:
+                largest[S] = kps.largest_cluster(t, items, n_slots=t.n_slots, n_shards=S)
+        print(f"sharded K2 == K2 at {name} (N {t0.n_slots}, W {items.item_req.shape[0]}, open {int(one[6])}): "
+              + ", ".join(f"S={S} picks {picked[S]}, exchanges " + "/".join(
+                  f"{f} {exchanges[f][(name, S)]}" for f in ("cluster", "grid") if (name, S) in exchanges[f])
+                  for S in MESH_SIZES + MESH_WIDE_SIZES))
+    print(f"largest cluster the card places at {HEADLINE}'s shape: "
+          + ", ".join(f"S={S} {v}" for S, v in largest.items()))
 
     # every small fixture (the host-affinity probe among them), and one
     # whose items request nothing: a fitting open slot then holds 2^30 pods,
@@ -2705,18 +2780,18 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
             variants.append((" zero requests", replace(items0, item_req=torch.zeros_like(items0.item_req))))
         for label, items in variants:
             compat, key = feasibility(t0, items)
+            n_x = {}
             for S in MESH_PLAIN_SIZES:
                 mesh = sh.make_mesh([dev] * S)
                 t = sh.pad_slots_for_mesh(t0, mesh)
-                takes, left, state = sh.pack_scan_sharded(t, items, compat, key, mesh)
-                n_x = state.exchanges
                 takes1, left1, one = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+                forms = sharded_forms(t, items, compat, key, S)
+                expect("cluster" in forms, f"sharded K2 {name}{label} S={S}: no cluster form")
                 torch.cuda.synchronize()
-                got = [("takes", takes), ("leftovers", left)] + list(zip(STATE_LEAVES, carry_leaves(state.gather_state())))
                 want = [("takes", takes1), ("leftovers", left1)] + list(zip(STATE_LEAVES, carry_leaves(one)))
-                expect_same_leaves(got, want, f"sharded K2 {name}{label} S={S}")
-            print(f"sharded K2 == K2 at {name}{label} (N {t0.n_slots}) for S in {MESH_PLAIN_SIZES}: {n_x} exchanges "
-                  f"at S={S}, {place_calls(t0, items)} place() calls")
+                n_x[S] = expect_forms_equal(forms, want, S, f"sharded K2 {name}{label}", errs)["grid"]
+            print(f"sharded K2 (cluster and grid forms) == K2 at {name}{label} (N {t0.n_slots}) for S in "
+                  f"{MESH_PLAIN_SIZES}: exchanges {n_x}, {place_calls(t0, items)} place() calls")
 
     # past the axis caps (bit sets of several words, tables in the global
     # spill): the other builds of the kernel, on padded slot axes
@@ -2730,14 +2805,14 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
         for S in MESH_PLAIN_SIZES:
             mesh = sh.make_mesh([dev] * S)
             t = sh.pad_slots_for_mesh(t0, mesh)
-            takes, left, state = sh.pack_scan_sharded(t, items, compat, key, mesh)
             takes1, left1, one = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+            forms = sharded_forms(t, items, compat, key, S)
+            expect("cluster" in forms, f"sharded K2 {name} S={S}: no cluster form")
             torch.cuda.synchronize()
-            got = [("takes", takes), ("leftovers", left)] + list(zip(STATE_LEAVES, carry_leaves(state.gather_state())))
             want = [("takes", takes1), ("leftovers", left1)] + list(zip(STATE_LEAVES, carry_leaves(one)))
-            expect_same_leaves(got, want, f"sharded K2 {name} S={S}")
-        print(f"sharded K2 == K2 at {name} (N {t0.n_slots}, D {t0.counts_dom_init.shape[1]}, G "
-              f"{t0.counts_dom_init.shape[0]}, R {items.item_req.shape[1]}) for S in {MESH_PLAIN_SIZES}")
+            expect_forms_equal(forms, want, S, f"sharded K2 {name}", errs)
+        print(f"sharded K2 (cluster and grid forms) == K2 at {name} (N {t0.n_slots}, D {t0.counts_dom_init.shape[1]}, "
+              f"G {t0.counts_dom_init.shape[0]}, R {items.item_req.shape[1]}) for S in {MESH_PLAIN_SIZES}")
 
     snap, added, one_pod = seeded_snapshot()
     base = list(snap.pods)
@@ -2750,7 +2825,7 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
     solve_paths = check_mesh_steps(dev, "solve", SOLVE_FIXTURE, SOLVE_STEPS, SOLVE_LAUNCHES, ("step 0",), solve_step,
                                    force=True)
     wide_paths = check_mesh_steps(dev, "solve", SOLVE_FIXTURE, SOLVE_STEPS[:1], SOLVE_LAUNCHES[:1], ("step 0",),
-                                  solve_step, force=True, shards=MESH_WIDE_SIZES[0])
+                                  solve_step, force=True, shards=MESH_WIDE_SIZES[0], form="grid")
     hsnap, _added, hone = seeded_snapshot(fallback_frac=HYBRID_FALLBACK_FRAC)
     hpods = [list(hsnap.pods)]
 
@@ -2786,15 +2861,36 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
     print(f"anneal_sharded ({MESH_SOLVE_SHARDS} shards, 64 chains x 512 steps, {CONS_ANNEAL}) == K7 on one device, "
           f"launches {anneal_counts}; sharded_compat_matrix ({hp.n_pods} pods) == K1")
 
-    # times at the headline: the sharded K2 per shard count, K2 in the same run, the plain arm
+    # times at the headline: both forms per shard count (the cluster form
+    # also at the largest cluster the card places, if that is past
+    # MESH_SIZES), K2 in the same run before and after, the plain arm
     problem, _ref, t0, items, _nnz = prepare(HEADLINE, dev)
     compat, key = feasibility(t0, items)
     N = t0.n_slots
-    k2_ms = cuda_ms(lambda: pack_scan(t0, items, compat, key, n_slots=N), 3)
+    k2_ms = [cuda_ms(lambda: pack_scan(t0, items, compat, key, n_slots=N), 3)]
+    top = max(largest[S] for S in MESH_SIZES)
+    cluster_sizes = MESH_SIZES + ((top,) if top not in MESH_SIZES else ())
     padded = {S: sh.pad_slots_for_mesh(t0, sh.make_mesh([dev] * S)) for S in MESH_SIZES + MESH_WIDE_SIZES}
-    ms = {S: cuda_ms(lambda S=S: pack_scan_sharded(padded[S], items, compat, key, n_slots=padded[S].n_slots,
-                                                   n_shards=S), 3)
-          for S in MESH_SIZES + MESH_WIDE_SIZES}
+    padded.update({S: sh.pad_slots_for_mesh(t0, sh.make_mesh([dev] * S)) for S in cluster_sizes})
+    wrappers = {"grid": kps.pack_scan_sharded_grid, "cluster": kps.pack_scan_sharded_cluster}
+    ms = {"grid": {}, "cluster": {}}
+    for S in sorted(set(MESH_SIZES + MESH_WIDE_SIZES + cluster_sizes)):
+        tS = padded[S]
+        for form in ("grid", "cluster"):
+            if S in (cluster_sizes if form == "cluster" else MESH_SIZES + MESH_WIDE_SIZES):
+                ms[form][S] = cuda_ms(lambda f=wrappers[form], tS=tS, S=S: f(tS, items, compat, key,
+                                                                               n_slots=tS.n_slots, n_shards=S), 3)
+    for S in cluster_sizes:
+        if S not in MESH_SIZES:
+            tS = padded[S]
+            out = sharded_forms(tS, items, compat, key, S)
+            expect("cluster" in out, f"the cluster form does not place at its largest size S={S}")
+            takes1, left1, one = pack_scan(tS, items, compat, key, n_slots=tS.n_slots)
+            torch.cuda.synchronize()
+            want = [("takes", takes1), ("leftovers", left1)] + list(zip(STATE_LEAVES, carry_leaves(one)))
+            for form, n in expect_forms_equal(out, want, S, f"sharded K2 {HEADLINE}", errs).items():
+                exchanges[form][(HEADLINE, S)] = n
+    k2_ms.append(cuda_ms(lambda: pack_scan(t0, items, compat, key, n_slots=N), 3))
     S = MESH_SOLVE_SHARDS
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2802,26 +2898,60 @@ def check_sharded(dev, card: str, errs: dict) -> dict:
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
-    takes, left, _shards, _barrier = pack_scan_sharded(t0, items, compat, key, n_slots=N, n_shards=S)
-    torch.cuda.synchronize()
-    expect(torch.equal(takes, takes_p) and torch.equal(left, left_p), "sharded K2 at the headline differs from plain")
+    for form, f in wrappers.items():
+        takes, left, _shards, _barrier = f(t0, items, compat, key, n_slots=N, n_shards=S)
+        torch.cuda.synchronize()
+        expect(torch.equal(takes, takes_p) and torch.equal(left, left_p),
+               f"sharded K2 ({form} form) at the headline differs from plain")
     n_bytes, ops = k2_cost(t0, items, compat, key, initial_state(t0, N), takes, left)
     R = items.item_req.shape[1]
     nw = 1  # words of a domain mask at the headline (D = 5)
-    x_bytes = {s_: exchanges[(HEADLINE, s_)] * s_ * (1 + s_) * 4 * max(2, nw) + exchanges[(HEADLINE, s_)] * s_ * 8
+    xs = exchanges["grid"]
+    # the grid form's exchanges through L2: each shard writes its part and
+    # reads all S, per exchange; the cluster form's stay in shared memory
+    x_bytes = {s_: xs[(HEADLINE, s_)] * s_ * (1 + s_) * 4 * max(2, nw) + xs[(HEADLINE, s_)] * s_ * 8
                for s_ in MESH_SIZES + MESH_WIDE_SIZES}
     calls = place_calls(t0, items)
-    print(f"time sharded K2 at {HEADLINE} (CUDA events, median of 5 x 3): " + ", ".join(
-        f"S={s_} {ms[s_]:.4f} ms (N {padded[s_].n_slots}, {exchanges[(HEADLINE, s_)]} exchanges, "
-        f"{ms[s_] * 1e3 / exchanges[(HEADLINE, s_)]:.2f} us per exchange at most, {x_bytes[s_]} exchange bytes)"
-        for s_ in MESH_SIZES + MESH_WIDE_SIZES)
-        + f"; K2 in the same run {k2_ms:.4f} ms ({calls} place() calls, {k2_ms * 1e3 / calls:.2f} us each); the plain "
-        f"multi-shard arm at S={S} {plain_ms:.1f} ms (one call) on {card} (R={R}, {time.perf_counter() - t1:.1f} s phase)")
-    row = dict(name="pack_scan_sharded", ms=ms[S], plain_ms=plain_ms, library_ms=None,
-               bytes=n_bytes + x_bytes[S], ops=ops)
-    return dict(row=row, ms_per_shards={str(s_): ms[s_] for s_ in MESH_SIZES + MESH_WIDE_SIZES}, k2_ms=k2_ms,
-                exchanges={f"{n}/{s_}": v for (n, s_), v in exchanges.items()},
-                launches=solve_paths[0].get("pack_scan_sharded", 0),
+    k2_med = statistics.median(k2_ms)
+    per_x = {f: {s_: (ms[f][s_] - k2_med) * 1e3 / exchanges[f][(HEADLINE, s_)] for s_ in ms[f]} for f in ms}
+    for form in ("cluster", "grid"):
+        print(f"time sharded K2, {form} form, at {HEADLINE} (CUDA events, median of 5 x 3): " + ", ".join(
+            f"S={s_} {ms[form][s_]:.4f} ms (N {padded[s_].n_slots}, {exchanges[form][(HEADLINE, s_)]} exchanges, "
+            f"{per_x[form][s_]:.3f} us per exchange beyond K2)" for s_ in sorted(ms[form]))
+            + f" on {card}")
+    print(f"time K2 at {HEADLINE} in the same run, before / after: {k2_ms[0]:.4f} / {k2_ms[1]:.4f} ms ({calls} "
+          f"place() calls, {k2_med * 1e3 / calls:.2f} us each); the plain multi-shard arm at S={S} {plain_ms:.1f} ms "
+          f"(one call) on {card} (R={R}, {time.perf_counter() - t1:.1f} s phase)")
+    # both fleets: hundreds of open slots per shard, where the split shortens
+    # each shard's slot loops
+    fleets = {}
+    for name in (FLEET, FLEET_BIG):
+        _p, _r, tf, itf, _nnz = prepare(name, dev)
+        cf, kf = feasibility(tf, itf)
+        row = {"K2": cuda_ms(lambda: pack_scan(tf, itf, cf, kf, n_slots=tf.n_slots), 3)}
+        for S_ in MESH_SIZES:
+            tS = sh.pad_slots_for_mesh(tf, sh.make_mesh([dev] * S_))
+            for form in ("cluster", "grid"):
+                row[f"{form} S={S_}"] = cuda_ms(lambda f=wrappers[form], tS=tS, S_=S_: f(
+                    tS, itf, cf, kf, n_slots=tS.n_slots, n_shards=S_), 3)
+        fleets[name] = row
+        print(f"time at {name} (N {tf.n_slots}, CUDA events, median of 5 x 3): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()) + f" on {card}")
+    fastest = min(ms["cluster"], key=ms["cluster"].get)
+    print(f"the cluster form {'beats' if ms['cluster'][fastest] < k2_med else 'does not beat'} K2 at {HEADLINE}: "
+          f"fastest at S={fastest} {ms['cluster'][fastest]:.4f} ms against K2 {k2_med:.4f} ms; at S={S} "
+          f"{ms['cluster'][S]:.4f} ms against the grid form's {ms['grid'][S]:.4f} ms")
+
+    def form_out(form: str, launches: int, extra_bytes: int) -> dict:
+        row = dict(name=kps.FORMS[form], ms=ms[form][S], plain_ms=plain_ms, library_ms=None,
+                   bytes=n_bytes + extra_bytes, ops=ops)
+        return dict(row=row, launches=launches, ms_per_shards={str(s_): v for s_, v in ms[form].items()},
+                    exchanges={f"{n}/{s_}": v for (n, s_), v in exchanges[form].items()},
+                    us_per_exchange={str(s_): v for s_, v in per_x[form].items()})
+
+    return dict(cluster=form_out("cluster", solve_paths[0].get("pack_scan_cluster", 0), 0),
+                grid=form_out("grid", wide_paths[0].get("pack_scan_sharded", 0), x_bytes[S]),
+                k2_ms=k2_med, largest={str(s_): v for s_, v in largest.items()}, fleets_ms=fleets,
                 paths={"solve": solve_paths, "solve_33": wide_paths, "hybrid": hybrid_paths, "anneal": anneal_counts})
 
 
@@ -4686,8 +4816,8 @@ def run(dev, card: str) -> dict:
 
     names = sorted(p.stem for p in FIXTURES.glob("*.npz"))
     expect(HEADLINE in names and HEADLINE_AFF in names, "headline fixtures missing")
-    errs = {"feasibility": 0.0, "pack_scan": 0.0, "pack_scan_sharded": 0.0, "sparsify": 0.0, "recredit": 0.0,
-            "globalpack": 0.0, "score_subsets": 0.0, "anneal_pack": 0.0, "anneal": 0.0, "perpod_pack": 0.0}
+    errs = {"feasibility": 0.0, "pack_scan": 0.0, "pack_scan_sharded": 0.0, "pack_scan_cluster": 0.0, "sparsify": 0.0,
+            "recredit": 0.0, "globalpack": 0.0, "score_subsets": 0.0, "anneal_pack": 0.0, "anneal": 0.0, "perpod_pack": 0.0}
     for name in names:
         t1 = time.perf_counter()
         info = check_kernels(name, dev)
@@ -4826,7 +4956,7 @@ def run(dev, card: str) -> dict:
     rows += time_consolidation(dev, cons_launches, errs)
     rows.append(kernel_row(perpod["perpod_pack"], perpod_runs[HEADLINE], errs))
     rows[-1].update(fleet_ms=perpod["perpod_pack"]["fleet_ms"], fleet_big_ms=perpod["perpod_pack"]["fleet_big_ms"])
-    rows.append(sharded_row(sharded, errs))
+    rows += sharded_rows(sharded, errs)
     for r in rows:
         print(f"time {r['name']}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}"
@@ -4944,6 +5074,7 @@ def main(argv: list[str]) -> int:
     from karpenter_tpu_torch.kernels import build
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi unavailable"
@@ -4967,6 +5098,7 @@ def main(argv: list[str]) -> int:
 
     line = {"dra": run_dra, "wide": run_wide, "operator": run_operator, "serving": run_serving,
             None: run}[args.only](dev, card)
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s (the kernels' build included)")
     print(json.dumps(line))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

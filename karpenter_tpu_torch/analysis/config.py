@@ -78,6 +78,8 @@ class Config:
         "sharded_compat_matrix",
         "pack_scan",
         "pack_scan_sharded",
+        "pack_scan_sharded_grid",
+        "pack_scan_sharded_cluster",
         "flat_outputs",
         "recredit",
         "globalpack",

@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("feasibility.cu", "pack_scan.cu", "pack_scan_sharded.cu", "sparsify.cu", "recredit.cu", "globalpack.cu", "score_subsets.cu",
+SOURCES = ("feasibility.cu", "pack_scan.cu", "pack_scan_sharded.cu", "pack_scan_cluster.cu", "sparsify.cu", "recredit.cu", "globalpack.cu", "score_subsets.cu",
            "anneal.cu", "perpod_pack.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # no --use_fast_math: the pack floors f32 quotients and needs IEEE division;
@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel launches per wrapper, counted where each wrapper launches its kernel
-LAUNCHES = {"feasibility": 0, "pack_scan": 0, "pack_scan_sharded": 0, "sparsify": 0, "recredit": 0, "globalpack": 0, "score_subsets": 0,
+LAUNCHES = {"feasibility": 0, "pack_scan": 0, "pack_scan_sharded": 0, "pack_scan_cluster": 0, "sparsify": 0, "recredit": 0, "globalpack": 0, "score_subsets": 0,
             "anneal_pack": 0, "anneal": 0, "perpod_pack": 0}
 
 # builds and loads of the kernel library in this process (nvcc run or the
@@ -218,6 +218,12 @@ def lib() -> ctypes.CDLL:
             handle.kt_pack_scan_sharded.restype = ci
             handle.kt_pack_scan_sharded_scratch.argtypes = [vp]
             handle.kt_pack_scan_sharded_scratch.restype = ctypes.c_longlong
+            handle.kt_pack_scan_cluster.argtypes = [vp, vp, vp]
+            handle.kt_pack_scan_cluster.restype = ci
+            handle.kt_pack_scan_cluster_scratch.argtypes = [vp]
+            handle.kt_pack_scan_cluster_scratch.restype = ctypes.c_longlong
+            handle.kt_pack_scan_cluster_max.argtypes = [vp]
+            handle.kt_pack_scan_cluster_max.restype = ci
             handle.kt_sparsify.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 3
             handle.kt_sparsify.restype = ci
             handle.kt_recredit.argtypes = [vp] * 10 + [ci] * 5 + [vp] * 4

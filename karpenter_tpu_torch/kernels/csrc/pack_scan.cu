@@ -81,7 +81,7 @@ __global__ void __launch_bounds__(NT, 1) pack_scan_kernel(PackArgs a) {
 extern "C" int kt_pack_scan(const long long* ptrs, const int* dims, void* stream) {
   PackArgs a;
   fill_args(a, ptrs, dims);
-  const Layout L = layout_of_args(a, 1, BlockExchange::kStaticExtra);
+  const Layout L = layout_of_args<BlockExchange>(a, 1);
   // one word per bit set with the tables in shared memory (the common case)
   // has its own build of the same code
   const void* kern = !L.fits    ? (const void*)pack_scan_kernel<0, false>
@@ -109,5 +109,5 @@ extern "C" long long kt_pack_scan_scratch(const int* dims) {
   PackArgs a;
   const long long none[38] = {0};
   fill_args(a, none, dims);
-  return (long long)scratch_of(layout_of_args(a, 1, BlockExchange::kStaticExtra), a.W, a.N, a.Nrows, a.Q, a.D, 1).words;
+  return (long long)scratch_of(layout_of_args<BlockExchange>(a, 1), a.W, a.N, a.Nrows, a.Q, a.D, 1).words;
 }

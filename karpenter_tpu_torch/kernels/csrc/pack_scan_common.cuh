@@ -6,7 +6,11 @@
 // `BlockExchange` (below) keeps every slot in one block and compiles to K2
 // as it was; a sharded policy gives each block the slots [base(), end()) of
 // its shard and joins the shards' parts at the three slot-axis reductions
-// (`X::gprefix`, `X::gsum`, `X::gany`). See `pack_scan.cu` for the design.
+// (`X::gprefix`, `X::gsum`, `X::gany`). A policy also says how many words of
+// dynamic shared memory it adds (`X::x_words`), what the scan blocks do
+// before they read the item data (`X::wait_items`) and after the scan
+// (`X::finish`). See `pack_scan.cu` for the design and
+// `pack_scan_sharded.cu` for the sharded policies.
 
 #pragma once
 
@@ -126,7 +130,8 @@ struct Smem {
 // global spill, behind the same pointers (the scan then reads each item's
 // data where the item blocks wrote it); then the row tile and the slot tile
 // take what room is left (the first `rt` rows and `tile` slots; the rest
-// stay in global memory).
+// stay in global memory). A policy's own region (`x_words`, the cluster
+// exchange's parts) is always in shared memory, right after the item region.
 struct Layout {
   int tile, rt, nch, nrw, nb, nw;
   bool fits;  // the constants, exchange totals and item buffers are in shared memory
@@ -135,11 +140,11 @@ struct Layout {
   // offsets inside the consts region
   size_t keymask, rank_bits, reg_bits, gkind, gskew, rdcap, dcls, t0i, wv, wf, wf_ok, t0m, pubm, xblk;
   // offsets in shared memory (or in the spill) of each region
-  size_t consts, xtot, item, rows, slots, spill_w, bytes;
+  size_t consts, xtot, item, xpart, rows, slots, spill_w, bytes;
 };
 
 __host__ __device__ inline Layout layout_of(int N, int Nrows, int R, int Q, int D, int G, int Kd, int nw,
-                                            int n_existing, int n_loc, int static_extra) {
+                                            int n_existing, int n_loc, int static_extra, int x_words) {
   Layout L;
   L.nw = nw;
   L.nch = (n_loc + NT - 1) / NT;
@@ -167,7 +172,7 @@ __host__ __device__ inline Layout layout_of(int N, int Nrows, int R, int Q, int 
                   (((size_t)L.nb + 3) & ~(size_t)3));
   // the constants, exchange totals and item data first (all three or none),
   // then the two tiles
-  long long room = ((long long)SMEM_LIMIT - (long long)sizeof(Smem) - static_extra) / 4;
+  long long room = ((long long)SMEM_LIMIT - (long long)sizeof(Smem) - static_extra) / 4 - x_words;
   L.fits = (long long)(L.consts_w + L.xtot_w + L.item_w) <= room;
   if (L.fits) room -= L.consts_w + L.xtot_w + L.item_w;
   const long long per_row = 1 + 3LL * nw + (L.fits ? 4 : 0);  // rank, port masks, rowinfo and rowkey x 2
@@ -183,6 +188,7 @@ __host__ __device__ inline Layout layout_of(int N, int Nrows, int R, int Q, int 
   size_t s = 0, g = 0;
   size_t& o2 = L.fits ? s : g;  // where the constants and exchange totals go
   L.item = s; s += L.fits ? L.item_w : 0;
+  L.xpart = s; s += x_words;
   L.consts = o2; o2 += L.consts_w;
   L.xtot = o2; o2 += L.xtot_w;
   L.rows = s; s += (size_t)L.rt * per_row;
@@ -237,8 +243,8 @@ struct Ctx {
   static constexpr bool kSharded = SH;
   int nw_rt, tile, rt, nch, nrw, nb, N;
   int lo, hi, shard, nshard, xw;  // SH only
-  unsigned* xbar;                 // SH only: the shard blocks' barrier counter
-  uint32_t* xparts;               // SH only: two buffers of nshard parts of xw words
+  unsigned* xbar;                 // SH only: the shard blocks' exchange counter
+  uint32_t* xparts;               // SH only: the parts (global scratch or the block's shared memory; see the policy)
   int* cz;                        // counts_zone (the shard's own copy when SH)
   __device__ __forceinline__ int nw() const { return NW > 0 ? NW : nw_rt; }
   __device__ __forceinline__ int base() const { return SH ? lo : 0; }
@@ -1231,36 +1237,58 @@ __host__ __device__ inline size_t r4(size_t n) { return (n + 3) & ~(size_t)3; }
 struct BlockExchange {
   static constexpr bool kSharded = false;
   static constexpr int kStaticExtra = 0;  // static shared memory the policy adds
+  // words of dynamic shared memory the policy adds (bit-set words, scan blocks)
+  static __host__ __device__ __forceinline__ int x_words(int, int) { return 0; }
+  // before the scan reads the item data (after the item blocks' count)
+  template <class C>
+  static __device__ __forceinline__ void wait_items(const C&) {}
+  // the scan blocks' last step
+  template <class C>
+  static __device__ __forceinline__ void finish(const C&) {}
 };
 
-// The kernel's body: blocks [0, nscan) scan (one block, or one per shard of
-// the slot axis under a sharded policy X), the other blocks build the items'
-// data first.
+// A sharded policy's static shared state: the shard block's exchange count
+// and the reduced values.
+struct XShared {
+  unsigned ep;
+  unsigned v[4];
+};
+
+// The kernel's body: logical blocks [0, nscan) scan (one block, or one per
+// shard of the slot axis under a sharded policy X), the others build the
+// items' data first. A launch's block b is logical block first + b: a
+// launch of the scan blocks and item blocks together has first = 0; a launch
+// of the item blocks alone has first = nscan, and a launch of the scan
+// blocks alone (grid nscan) then finds no item block to wait for.
 template <int NW, bool FITS, class X>
-__device__ __forceinline__ void pack_scan_body(const PackArgs& a, int nscan) {
+__device__ __forceinline__ void pack_scan_body(const PackArgs& a, int nscan, int first = 0) {
   __shared__ Smem s;
   extern __shared__ __align__(16) uint32_t dyn[];
   const int tid = threadIdx.x, warp = tid >> 5;
+  const int blk = first + (int)blockIdx.x;           // the logical block
+  const int n_item = first + (int)gridDim.x - nscan;  // item blocks of this launch
   const int N = a.N, D = a.D, G = a.G, R = a.R, Q = a.Q, Nr = a.Nrows, W = a.W;
-  const Layout L = layout_of(N, Nr, R, Q, D, G, a.Kd, a.nw, a.n_existing, N / nscan, X::kStaticExtra);
+  const Layout L =
+      layout_of(N, Nr, R, Q, D, G, a.Kd, a.nw, a.n_existing, N / nscan, X::kStaticExtra,
+                X::x_words(a.nw, nscan));
   const Scratch S = scratch_of(L, W, N, Nr, Q, D, nscan);
   uint32_t* scratch = (uint32_t*)a.scratch;
-  uint32_t* spill = scratch + S.spill + (size_t)blockIdx.x * L.spill_w;
+  uint32_t* spill = scratch + S.spill + (size_t)blk * L.spill_w;
   Ctx<NW, FITS, X::kSharded> k;
   k.nw_rt = a.nw;
   const int nw = k.nw();
   k.cz = a.counts_zone;
   if constexpr (X::kSharded) {
-    // shard blockIdx.x: slots [lo, hi), its own counts_zone and open count
+    // shard blk: slots [lo, hi), its own counts_zone and open count
     const int n_loc = N / nscan;
-    k.shard = blockIdx.x;
+    k.shard = blk;
     k.nshard = nscan;
-    k.lo = blockIdx.x * n_loc;
+    k.lo = blk * n_loc;
     k.hi = k.lo + n_loc;
     k.xw = xw_of(nw);
     k.xbar = scratch + S.xbar;
-    k.xparts = scratch + S.xparts;
-    if ((int)blockIdx.x < nscan) k.cz = a.counts_zone + (size_t)blockIdx.x * G * D;
+    k.xparts = X::x_words(nw, nscan) > 0 ? dyn + L.xpart : scratch + S.xparts;
+    if (blk < nscan) k.cz = a.counts_zone + (size_t)blk * G * D;
   }
   k.tile = L.tile;
   k.rt = L.rt;
@@ -1367,10 +1395,10 @@ __device__ __forceinline__ void pack_scan_body(const PackArgs& a, int nscan) {
   // carry, for all items, one warp per item (`item_prologue`), and count
   // themselves done; blocks 0..nscan-1 run the scan
   unsigned* done = scratch + S.done;
-  if ((int)blockIdx.x >= nscan) {
+  if (blk >= nscan) {
     __syncthreads();  // the constants
-    const int stride = (gridDim.x - nscan) * NWARP;
-    for (int i = (blockIdx.x - nscan) * NWARP + warp; i < W; i += stride)
+    const int stride = n_item * NWARP;
+    for (int i = (blk - nscan) * NWARP + warp; i < W; i += stride)
       item_prologue(k, a, i, k.g_recs + (size_t)i * L.rl.words, k.g_opencap + (size_t)i * Q * D);
     __threadfence();
     __syncthreads();
@@ -1400,10 +1428,12 @@ __device__ __forceinline__ void pack_scan_body(const PackArgs& a, int nscan) {
   __syncthreads();
 
   // wait for the item blocks (co-resident: the launch is cooperative); a
-  // block that never ran would trap here instead of hanging the card
+  // block that never ran would trap here instead of hanging the card. A
+  // launch without item blocks waits as its policy says.
+  X::wait_items(k);
   if (tid == 0) {
     const long long t0 = clock64();
-    while (atomicAdd(done, 0u) < gridDim.x - nscan) {
+    while (atomicAdd(done, 0u) < (unsigned)n_item) {
       __nanosleep(256);
       if (clock64() - t0 > (1LL << 34)) __trap();
     }
@@ -1674,6 +1704,7 @@ __device__ __forceinline__ void pack_scan_body(const PackArgs& a, int nscan) {
     for (int x = 0; x < a.P2; ++x) a.slot_pspec[(size_t)j * a.P2 + x] = (sm_at(k, PS, j, x >> 5) >> (x & 31)) & 1u;
   }
   if (tid == 0) a.open_count[X::kSharded ? k.shard : 0] = oc;
+  X::finish(k);
 }
 
 static void fill_args(PackArgs& a, const long long* ptrs, const int* dims) {
@@ -1696,8 +1727,10 @@ static void fill_args(PackArgs& a, const long long* ptrs, const int* dims) {
   a.nw = max(1, max(max(words_of(a.D), words_of(a.Kd)), max(max(words_of(a.P1), words_of(a.P2)), words_of(a.Q))));
 }
 
-// the layout of a launch with n_scan scan blocks (each N / n_scan slots) whose
-// policy adds static_extra bytes of static shared memory
-static Layout layout_of_args(const PackArgs& a, int n_scan, int static_extra) {
-  return layout_of(a.N, a.Nrows, a.R, a.Q, a.D, a.G, a.Kd, a.nw, a.n_existing, a.N / n_scan, static_extra);
+// the layout of a launch with n_scan scan blocks (each N / n_scan slots)
+// under policy X
+template <class X>
+static Layout layout_of_args(const PackArgs& a, int n_scan) {
+  return layout_of(a.N, a.Nrows, a.R, a.Q, a.D, a.G, a.Kd, a.nw, a.n_existing, a.N / n_scan, X::kStaticExtra,
+                   X::x_words(a.nw, n_scan));
 }

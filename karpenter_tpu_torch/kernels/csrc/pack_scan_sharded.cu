@@ -1,5 +1,6 @@
 // K2's slot-sharded form: the grouped pack scan with the slot axis split into
-// S shards, one scan block per shard, in one cooperative launch.
+// S shards, one scan block per shard, in one of two forms that share K2's
+// code and differ only in how the shards exchange.
 //
 // Replaces: karpenter_tpu/parallel/sharded.py `_sharded_pack_state_fn`
 // (:177), the shard_map'd `_pack_body(axis="batch")` (models/
@@ -7,39 +8,100 @@
 // the mesh) that `greedy_pack_grouped_sharded_state` (:264) runs.
 //
 // Design: the code of K2 (`pack_scan_common.cuh`) under a sharded policy.
-// Blocks 0..S-1 are the shards: shard s owns slots [s N/S, (s + 1) N/S),
-// keeps their state in its own shared memory behind K2's accessors (the
-// first `tile` of them) and scans every item; the other blocks build the
-// items' data first, as in K2. Everything but the slot axis is replicated:
-// each shard block holds the constants, the row tile and the item buffers,
-// and its own copy of counts_zone and open_count, and makes every decision
-// that reads only them (the best row, the fresh-slot count, the water-fills)
-// itself, the same in every shard. The slot-axis reductions of a `place()`
-// call and of the zone and affinity branches are exchanges among the shard
-// blocks through global memory:
+// Scan block s is shard s: it owns slots [s N/S, (s + 1) N/S), keeps their
+// state in its own shared memory behind K2's accessors (the first `tile` of
+// them; `layout_of` sizes the tile from N/S, so a shard's slot tile shrinks
+// with S, while the row tile and the item buffers do not) and scans every
+// item; item blocks build the items' data first, as in K2. Everything but
+// the slot axis is replicated: each shard block holds the constants, the row
+// tile and the item buffers, and its own copy of counts_zone and open_count,
+// and makes every decision that reads only them (the best row, the
+// fresh-slot count, the water-fills) itself, the same in every shard. The
+// slot-axis reductions of a `place()` call and of the zone and affinity
+// branches are exchanges among the shards:
 // - `gprefix`: each shard's capacity total and largest capacity; a shard's
 //   prefix starts at the earlier shards' total (int32 wraparound in
 //   unsigned arithmetic, as the reference's int32 sums);
 // - `gsum`: each shard's take total, where K2's closed form does not hold;
 // - `gany`: the OR over the shards of nw domain words.
-// An exchange: warp 0 of each shard writes its part into buffer e & 1 of
-// the scratch (a fast shard writes exchange e + 2's part only after every
+// In both forms an exchange is: warp 0 of each shard writes its part into
+// buffer e & 1 (a fast shard writes exchange e + 2's part only after every
 // shard has passed exchange e + 1, so after every shard read exchange e's),
-// arrives at the shard blocks' barrier (a counter every shard adds one to
-// with release order at device scope; exchange e ends when it reaches
-// (e + 1) S, read with acquire order), reads all S parts from L2 (lane l
-// the parts of shards l, l + 32, ..., so any S) and reduces them (the
-// prefix over the shards before this one; the int32 sums wrap, so their
-// order does not change them); a block barrier hands the result to the
-// block. The wait is bounded and traps (~2^34 cycles), as K2's does. A shard
-// whose slots are all past the open count still joins every exchange with
-// zeros: every branch reaches the same exchanges in every shard. The
-// cooperative launch keeps every shard block resident at once.
+// the shards synchronise with release / acquire order, warp 0 reads all S
+// parts (lane l the parts of shards l, l + 32, ..., so any S) and reduces
+// them (the prefix over the shards before this one; the int32 sums wrap, so
+// their order does not change them), and a block barrier hands the result to
+// the block. A shard whose slots are all past the open count still joins
+// every exchange with zeros: every branch reaches the same exchanges in
+// every shard. Each shard counts its exchanges into scratch word 1, which
+// the wrapper returns (S per exchange in both forms).
 //
-// What bounds it on an H100: as K2, the sequential chain of items, now with
-// the exchanges' round trips through L2 on it (~3 per place() call). On one
-// card the shards are virtual: this form carries the multi-card layout and
-// proves its exchange; it is not faster than K2.
+// `ClusterExchange` (`kt_pack_scan_cluster`, in `pack_scan_cluster.cu`: a
+// source of its own, so that the two forms' nvcc processes run side by side;
+// one file with both was the build's longest by far): the S shard blocks are
+// the CTAs of one thread-block cluster (CTA rank s is shard s). The parts live
+// in each shard's own shared memory (the layout's `xpart` region, two
+// buffers); the shards synchronise with the cluster barrier
+// (`barrier.cluster.arrive.release` / `barrier.cluster.wait.acquire`, every
+// thread of every shard) and warp 0 reads the peers' parts through distributed
+// shared memory (`mapa` + `ld.shared::cluster`). The cluster barrier and not a
+// per-shard mbarrier: every thread of the block reaches each exchange anyway
+// and a block barrier follows it, so letting every thread take part costs the
+// block little, and the hardware barrier replaces the L2 counter, its spin and
+// its fences outright. It cannot time out (the grid form's wait traps): a
+// divergence between the shards' exchange sequences would hang instead; no
+// input has shown one in the grid form. A cluster only guarantees that its own
+// CTAs are co-scheduled, so the item blocks are a launch of their own just
+// before, on the same stream (the same kernel, its blocks taking logical
+// indices S..), and the cluster launch is a programmatic dependent launch: the
+// item blocks let it start at once (`griddepcontrol.launch_dependents`), it
+// loads its constants and slot tile meanwhile and waits for them to finish
+// (`griddepcontrol.wait`) before it reads an item; it never spins on a block
+// whose residency nothing guarantees. After its last exchange each shard
+// passes one more cluster barrier, so no CTA exits while a peer may still read
+// its shared memory. A shard block takes up to SMEM_LIMIT and one block per SM
+// (`__launch_bounds__(NT, 1)`), so a cluster of S needs S SMs of one GPC:
+// `kt_pack_scan_cluster_max` asks `cudaOccupancyMaxActiveClusters` for the
+// largest size up to 16 (past 8 with
+// `cudaFuncAttributeNonPortableClusterSizeAllowed`) that places at the
+// launch's shared memory, and the wrapper takes this form where S is at most
+// that (`kernels/pack_scan.exchange_form`).
+//
+// `GridExchange` (`kt_pack_scan_sharded`), any S: one cooperative launch,
+// blocks 0..S-1 the shards and the rest the item blocks (the launch keeps
+// them all resident). The parts go through global memory (L2); the shards
+// synchronise on a counter every shard adds one to with release order at
+// device scope (exchange e ends when it reaches (e + 1) S, read with acquire
+// order); the wait is bounded and traps (~2^34 cycles), as K2's does. It is
+// the form past the largest cluster (33 and 64 shards) and the template for
+// an exchange across cards.
+//
+// What bounds it on an H100: as K2, the sequential chain of items, with the
+// exchanges on it (~1 per place() call): a round trip through L2 and a spin
+// each in the grid form, a cluster barrier and a distributed-shared-memory
+// load each in the cluster form. On one card the shards are virtual; the
+// slot loops of a shard run over N/S slots.
+//
+// What the card showed (H100 80GB HBM3, 700 W):
+// - Placement: `cudaOccupancyMaxActiveClusters` places 16 shard blocks
+//   (the non-portable maximum) at the headline's shape for every S from 1
+//   to 33, 3 and 5 among them: a shard block's shared memory never
+//   stopped a cluster; one block per SM (222-255 registers a thread).
+// - Co-residency: the item blocks' own launch with the cluster launch as
+//   its programmatic dependent; a cooperative launch with cluster
+//   dimensions was not tried.
+// - Parity: both forms equal K2 and the plain multi-shard arm bit for bit
+//   and count the same exchanges (680 at the headline).
+// - Time: at the headline (45 open slots, so a shard's slot loops shrink
+//   nothing) an exchange costs ~1.1 us beyond K2 in the cluster form and
+//   ~2.4 us in the grid form, and neither beats K2; with 1201 / 3801 open
+//   slots the split shortens every slot loop and the cluster form beats K2
+//   (PERF.md §6 row 12).
+// - The other exchange tried: each shard's warp 0 pushing its part into
+//   every shard's inbox (`st.async` completing bytes on the receiver's
+//   mbarrier) and waiting on its own mbarrier, so that every read is local.
+//   Bit-equal too, but no faster beyond the run-to-run spread, so the
+//   simpler barrier stays.
 
 #include <cuda/atomic>
 
@@ -50,12 +112,16 @@
 
 struct GridExchange {
   static constexpr bool kSharded = true;
-  // the shard block's exchange count and the reduced values (static shared)
-  struct Shared {
-    unsigned ep;
-    unsigned v[4];
-  };
+  using Shared = XShared;
   static constexpr int kStaticExtra = sizeof(Shared);
+  // the parts are in the global scratch
+  static __host__ __device__ __forceinline__ int x_words(int, int) { return 0; }
+  // the item blocks are in the same launch: the scan waits on their count
+  template <class C>
+  static __device__ __forceinline__ void wait_items(const C&) {}
+  // the barrier counter counted every arrival
+  template <class C>
+  static __device__ __forceinline__ void finish(const C&) {}
 
   static __device__ __forceinline__ Shared& shared() {
     __shared__ Shared g;
@@ -171,11 +237,21 @@ struct GridExchange {
   }
 };
 
+// -- kernel and entry points ------------------------------------------------------------
+
 template <int NW, bool FITS>
 __global__ void __launch_bounds__(NT, 1) pack_scan_sharded_kernel(PackArgs a, int nshard) {
   if (threadIdx.x == 0) GridExchange::shared().ep = 0;
   // (the body's first barrier orders this before any exchange)
   pack_scan_body<NW, FITS, GridExchange>(a, nshard);
+}
+
+// the build for layout L (one word per bit set with the tables in shared
+// memory, the common case, has its own)
+static const void* sharded_kernel(const Layout& L, int nw) {
+  return !L.fits  ? (const void*)pack_scan_sharded_kernel<0, false>
+         : nw == 1 ? (const void*)pack_scan_sharded_kernel<1, true>
+                   : (const void*)pack_scan_sharded_kernel<0, true>;
 }
 
 // ptrs: as kt_pack_scan's, with counts_zone [S, G, D] and open_count [S] (one
@@ -187,10 +263,8 @@ extern "C" int kt_pack_scan_sharded(const long long* ptrs, const int* dims, void
   fill_args(a, ptrs, dims);
   const int S = dims[13];
   if (S < 1 || a.N % S != 0) return (int)cudaErrorInvalidValue;
-  const Layout L = layout_of_args(a, S, GridExchange::kStaticExtra);
-  const void* kern = !L.fits    ? (const void*)pack_scan_sharded_kernel<0, false>
-                     : a.nw == 1 ? (const void*)pack_scan_sharded_kernel<1, true>
-                                 : (const void*)pack_scan_sharded_kernel<0, true>;
+  const Layout L = layout_of_args<GridExchange>(a, S);
+  const void* kern = sharded_kernel(L, a.nw);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
@@ -207,13 +281,12 @@ extern "C" int kt_pack_scan_sharded(const long long* ptrs, const int* dims, void
   return (int)cudaGetLastError();
 }
 
-// int32 words of scratch the sharded kernel needs (same dims as kt_pack_scan_sharded)
+// int32 words of scratch the grid form needs (same dims as kt_pack_scan_sharded)
 extern "C" long long kt_pack_scan_sharded_scratch(const int* dims) {
   PackArgs a;
   const long long none[38] = {0};
   fill_args(a, none, dims);
   const int S = dims[13];
   if (S < 1 || a.N % S != 0) return 0;
-  return (long long)scratch_of(layout_of_args(a, S, GridExchange::kStaticExtra), a.W, a.N, a.Nrows, a.Q, a.D, S)
-      .words;
+  return (long long)scratch_of(layout_of_args<GridExchange>(a, S), a.W, a.N, a.Nrows, a.Q, a.D, S).words;
 }

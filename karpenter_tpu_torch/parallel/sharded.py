@@ -19,8 +19,12 @@ holds, so it comes out the same in each. The cross-slot reductions are int32
 sums and prefix sums, so the result is bit for bit the single-device pack's.
 
 - On CUDA the scan is kernel K2's slot-sharded form (`kernels/pack_scan.
-  pack_scan_sharded`, `csrc/pack_scan_sharded.cu`): one cooperative launch,
-  a block per shard, the exchanges through global memory.
+  pack_scan_sharded`, `csrc/pack_scan_sharded.cu`), a block per shard, in
+  the form the shape picks (`kernels/pack_scan.exchange_form`): the shards
+  as one thread-block cluster exchanging through distributed shared memory
+  where the card places a cluster of that many, else one cooperative launch
+  exchanging through global memory (33 and 64 shards). The state names the
+  form that ran (`ShardedState.exchange`).
 - On the CPU it is the plain multi-shard arm (`models/shard_exchange.
   pack_scan_sharded_plain`): one thread per shard; at each exchange a shard
   gives its part and waits until every shard has given its own, then
@@ -152,11 +156,13 @@ class ShardedState:
     layout over the shard's slots (counts_zone and open_count are the same
     in every shard), each on its mesh device. `barrier` (0-d int32, on the
     device) counts the shards' arrivals at the scan's exchanges, S per
-    exchange."""
+    exchange. `exchange` is the form that ran: "cluster" or "grid" on
+    CUDA, "plain" on the CPU."""
 
     mesh: Mesh
     shards: tuple
     barrier: torch.Tensor
+    exchange: str
 
     @property
     def exchanges(self) -> int:
@@ -226,8 +232,8 @@ def pack_scan_sharded(t: SchedulerTensors, items: ItemTensors, compat, key, mesh
     from ..kernels.pack_scan import pack_scan_sharded as k2s
 
     mesh_device(mesh)
-    takes, leftovers, shards, barrier = k2s(t, items, compat, key, n_slots=t.n_slots, n_shards=mesh.size)
-    return takes, leftovers, ShardedState(mesh, shards, barrier)
+    takes, leftovers, shards, barrier, form = k2s(t, items, compat, key, n_slots=t.n_slots, n_shards=mesh.size)
+    return takes, leftovers, ShardedState(mesh, shards, barrier, form)
 
 
 def greedy_pack_grouped_sharded_state(t: SchedulerTensors, items: ItemTensors, mesh: Mesh):

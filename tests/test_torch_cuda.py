@@ -72,8 +72,9 @@ def test_gpusolver_on_card_matches_reference(cuda_device):
     problem, ref = load_npz(FIXTURE_DIR / "small_spread_anti_ports.npz")
     build.reset_launches()
     res = GPUSolver().solve_encoded(problem)
-    assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "pack_scan_sharded": 0, "sparsify": 1, "recredit": 0,
-                              "globalpack": 0, "score_subsets": 0, "anneal_pack": 0, "anneal": 0, "perpod_pack": 0}
+    assert build.LAUNCHES == {"feasibility": 1, "pack_scan": 1, "pack_scan_sharded": 0, "pack_scan_cluster": 0,
+                              "sparsify": 1, "recredit": 0, "globalpack": 0, "score_subsets": 0, "anneal_pack": 0,
+                              "anneal": 0, "perpod_pack": 0}
     assert res.errors == []
     np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
 
@@ -468,16 +469,25 @@ def test_feasibility_random_edges_equal_plain_on_card(cuda_device, seed):
     assert torch.equal(compat, compat_p) and torch.equal(key.view(torch.int32), key_p.view(torch.int32))
 
 
+# (form, shard count) of the slot-sharded K2 held to K2 and the plain arm:
+# the cluster form up to the card's largest placeable cluster ("largest",
+# asked of the card in the test), the grid form past it (33 and 64 are past
+# one warp's lanes: the exchange reduces in strides of 32)
+SHARDED_CASES = (("cluster", 2), ("cluster", 3), ("cluster", 4), ("cluster", 5), ("cluster", 8),
+                 ("cluster", "largest"), ("grid", "largest + 1"), ("grid", 33), ("grid", 64))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", SMALL)
-@pytest.mark.parametrize("n_shards", (3, 8, 33, 64))
-def test_sharded_pack_scan_equals_k2_and_plain_on_card(cuda_device, name, n_shards):
-    """The slot-sharded K2 against K2 (gathered carry) and against the plain
-    multi-shard arm (every shard's carry), on a slot axis padded to the
-    shard count; 33 and 64 shards are past one warp's lanes (the exchange
-    reduces in strides of 32)."""
+@pytest.mark.parametrize("form, n_shards", SHARDED_CASES)
+def test_sharded_pack_scan_equals_k2_and_plain_on_card(cuda_device, name, form, n_shards):
+    """Each form of the slot-sharded K2 against K2 (gathered carry) and
+    against the plain multi-shard arm (every shard's carry), bit for bit, on
+    a slot axis padded to the shard count; the chooser picks the form for
+    the shape, and both forms and the plain arm count the same exchanges."""
+    from karpenter_tpu_torch.kernels import build
     from karpenter_tpu_torch.kernels.feasibility import feasibility
-    from karpenter_tpu_torch.kernels.pack_scan import pack_scan, pack_scan_sharded
+    from karpenter_tpu_torch.kernels import pack_scan as kps
     from karpenter_tpu_torch.models import scheduler_model_grouped as tsg
     from karpenter_tpu_torch.models.shard_exchange import pack_scan_sharded_plain
     from karpenter_tpu_torch.parallel import sharded as sh
@@ -485,35 +495,62 @@ def test_sharded_pack_scan_equals_k2_and_plain_on_card(cuda_device, name, n_shar
     problem, ref = load_npz(FIXTURE_DIR / f"{name}.npz")
     arrays, _pods = tsg.build_items(problem)
     items = tsg.make_item_tensors(arrays, cuda_device)
-    mesh = sh.make_mesh([cuda_device] * n_shards)
-    t = sh.pad_slots_for_mesh(tsm.make_tensors(problem, cuda_device, n_slots=int(ref["ref_n_slots"])), mesh)
+    t0 = tsm.make_tensors(problem, cuda_device, n_slots=int(ref["ref_n_slots"]))
+
+    def padded(S):
+        return sh.pad_slots_for_mesh(t0, sh.make_mesh([cuda_device] * S))
+
+    if isinstance(n_shards, str):
+        # the largest cluster that places at the shape of a 16-shard split
+        largest = kps.largest_cluster(t0, items, n_slots=padded(16).n_slots, n_shards=16)
+        largest = largest if largest == 16 else kps.largest_cluster(t0, items, n_slots=padded(largest).n_slots,
+                                                                   n_shards=largest)
+        assert largest >= 8, f"the card places clusters of only {largest} shard blocks"
+        n_shards = largest if n_shards == "largest" else largest + 1
+    t = padded(n_shards)
     compat, key = feasibility(t, items)
-    takes, left, shards, barrier = pack_scan_sharded(t, items, compat, key, n_slots=t.n_slots, n_shards=n_shards)
-    takes_p, left_p, shards_p, _barrier_p = pack_scan_sharded_plain(t, items, compat, key, n_slots=t.n_slots,
-                                                                    n_shards=n_shards)
-    takes_1, left_1, one = pack_scan(t, items, compat, key, n_slots=t.n_slots)
+    build.reset_launches()
+    takes, left, shards, barrier, chosen = kps.pack_scan_sharded(t, items, compat, key, n_slots=t.n_slots,
+                                                                 n_shards=n_shards)
+    assert chosen == form and build.LAUNCHES[kps.FORMS[form]] == 1
+    other = "grid" if form == "cluster" else "cluster"
+    assert build.LAUNCHES[kps.FORMS[other]] == 0
+    takes_p, left_p, shards_p, barrier_p = pack_scan_sharded_plain(t, items, compat, key, n_slots=t.n_slots,
+                                                                   n_shards=n_shards)
+    takes_1, left_1, one = kps.pack_scan(t, items, compat, key, n_slots=t.n_slots)
     assert torch.equal(takes, takes_p) and torch.equal(left, left_p)
     assert torch.equal(takes, takes_1) and torch.equal(left, left_1)
     for s, s_p in zip(shards, shards_p):
         for a, b in zip(list(s[:7]) + list(s[7]), list(s_p[:7]) + list(s_p[7])):
             assert torch.equal(a, b)
-    assert int(barrier) % n_shards == 0 and int(barrier) > 0
-    whole = sh.ShardedState(mesh, shards, barrier).gather_state()
+    # the plain arm exchanges at every take total, the kernels only where
+    # K2's closed form fails: the kernels' two forms count the same
+    assert int(barrier) % n_shards == 0 and 0 < int(barrier) <= int(barrier_p)
+    if form == "cluster":
+        grid = kps.pack_scan_sharded_grid(t, items, compat, key, n_slots=t.n_slots, n_shards=n_shards)
+        assert int(grid[3]) == int(barrier)
+        assert torch.equal(grid[0], takes) and torch.equal(grid[1], left)
+    whole = sh.ShardedState(sh.make_mesh([cuda_device] * n_shards), shards, barrier, chosen).gather_state()
     for a, b in zip(list(whole[:7]) + list(whole[7]), list(one[:7]) + list(one[7])):
         assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
 def test_meshed_solver_on_card_matches_unmeshed(cuda_device):
+    """A full solve on a mesh of four shards of the card: K1 once per shard
+    and the slot-sharded K2 once, in its cluster form."""
     from karpenter_tpu_torch.kernels import build
-    from karpenter_tpu_torch.parallel.sharded import make_mesh
+    from karpenter_tpu_torch.parallel.sharded import ShardedState, make_mesh
     from karpenter_tpu_torch.solver.gpu import GPUSolver
 
     problem, ref = load_npz(FIXTURE_DIR / "small_spread_anti_ports.npz")
     build.reset_launches()
-    res = GPUSolver(mesh=make_mesh([cuda_device] * 4)).solve_encoded(problem)
-    assert build.LAUNCHES["pack_scan_sharded"] == 1 and build.LAUNCHES["feasibility"] == 4
-    assert build.LAUNCHES["pack_scan"] == 0
+    solver = GPUSolver(mesh=make_mesh([cuda_device] * 4))
+    res = solver.solve_encoded(problem)
+    assert build.LAUNCHES["pack_scan_cluster"] == 1 and build.LAUNCHES["feasibility"] == 4
+    assert build.LAUNCHES["pack_scan"] == 0 and build.LAUNCHES["pack_scan_sharded"] == 0
+    state = solver._resident["state"]
+    assert isinstance(state, ShardedState) and state.exchange == "cluster"
     assert res.errors == []
     np.testing.assert_array_equal(res.assignment, ref["ref_assignment"])
 
@@ -521,15 +558,16 @@ def test_meshed_solver_on_card_matches_unmeshed(cuda_device):
 @pytest.mark.gpu
 def test_wide_mesh_solve_on_card_matches_reference(cuda_device):
     """`GPUSolver(mesh=make_mesh([cuda] * 33))` on the seeded headline: the
-    reference's Results, K1 once per shard and the slot-sharded K2 once
-    (`chip_smoke.check_mesh_steps`)."""
+    reference's Results, K1 once per shard and the slot-sharded K2 once, in
+    its grid form (`chip_smoke.check_mesh_steps`)."""
     import chip_smoke
 
     snap, _added, _one = chip_smoke.seeded_snapshot()
     paths = chip_smoke.check_mesh_steps(cuda_device, "solve", chip_smoke.SOLVE_FIXTURE, chip_smoke.SOLVE_STEPS[:1],
                                         chip_smoke.SOLVE_LAUNCHES[:1], ("step 0",), lambda i, _p, _s: snap,
-                                        force=True, shards=33)
+                                        force=True, shards=33, form="grid")
     assert paths[0]["pack_scan_sharded"] == 1 and paths[0]["feasibility"] == 33
+    assert "pack_scan_cluster" not in paths[0]
 
 
 @pytest.mark.gpu

@@ -277,6 +277,8 @@ def _wrapper_calls():
         "pack_scan": lambda: pack_scan.pack_scan(None, NS(item_req=x), None, None, n_slots=2),
         "pack_scan_sharded": lambda: pack_scan.pack_scan_sharded(None, NS(item_req=x), None, None, n_slots=2,
                                                                  n_shards=2),
+        "pack_scan_cluster": lambda: pack_scan.pack_scan_sharded_cluster(None, NS(item_req=x), None, None,
+                                                                         n_slots=2, n_shards=2),
         "sparsify": lambda: sparsify.flat_outputs(x, None, None, None, None, 4),
         "recredit": lambda: recredit.recredit(None, None, x, None, None, None),
         "globalpack": lambda: globalpack.globalpack(None, None, None, None, None, x, None, 1),
