@@ -164,6 +164,26 @@ its from-scratch re-simulation), the disrupted taints and the NodeClaims in
 the store (the replacement among them) must equal the reference's, with K5
 and K6 once and K1-K3 once per probe and once for the re-simulation.
 
+Then the consolidation arms' phase (`check_consolidate_arms`): the
+bench's consolidation fleet at `ARMS_NODES` (128) nodes, every node
+budget-eligible, so the annealed search's 100-candidate window is full and
+K7 runs at Np = 128. For each `KARPENTER_CONSOLIDATE_LP` arm ("1", the
+relaxed LP; "0", the binary search alone; "anneal", the annealed search) a
+fresh fleet and one `DisruptionController.reconcile(force=True)` through
+the exact Validator, the counts set to 0 just before and read just after:
+the commands it starts, the disrupted taints, the NodeClaims and the clock
+must equal the JAX reference's (`fixtures/consolidation/fleet_128_arms.json`,
+written by `tests/test_torch_switches.py --write`), with K5 and K6 once on
+"1", none of K5-K7 on "0", and K7's pre-pass and chains once each and no K5
+or K6 on "anneal"; K7's inputs in that pass are kept and K7 is held to its
+plain version on them, bit for bit. Each arm's pass is timed again on a
+fresh fleet, with every arm warm. Then the "1" arm again, and the seeded headline's
+`SOLVE_STEPS`, with the host switches at the reference's exact arms
+(`EXACT_ARMS`: the unbatched FFD, the legacy encode, the decode without
+its memo, the round without its shared scheduler seed): the same commands
+and Results as the default arms'. `python3 chip_smoke.py --only arms` runs
+just this phase after the build.
+
 Then the meshed phase (`check_sharded`): the slot-sharded K2
 (`pack_scan_sharded.cu`, a block per shard) in both its forms: the cluster
 form (`pack_scan_cluster`: the shards one thread-block cluster, the three
@@ -3019,15 +3039,17 @@ def check_proposer_inputs(seen: dict, what: str, errs: dict) -> None:
     plain_reruns(kernel_reruns({k: seen[k] for k in ("k5", "k6")}, what), what, errs)
 
 
-def consolidation_side(dev):
-    """The 5000-node fleet wired directly: (fleet, provisioner, controller)."""
+def consolidation_side(dev, n: int = CONS_FLEET_NODES):
+    """The bench's consolidation fleet of `n` nodes, its provisioner
+    (`GPUSolver` on `dev`) and disruption controller (`Options()`: the "gpu"
+    backend) wired directly: (fleet, provisioner, controller)."""
     from karpenter_tpu_torch.controllers.disruption.controller import DisruptionController
     from karpenter_tpu_torch.controllers.provisioning.provisioner import Provisioner
     from karpenter_tpu_torch.operator.options import Options
     from karpenter_tpu_torch.solver.gpu import GPUSolver
     from karpenter_tpu_torch.testing.scenarios import build_consolidation_fleet
 
-    fleet = build_consolidation_fleet(CONS_FLEET_NODES)
+    fleet = build_consolidation_fleet(n)
     prov = Provisioner(fleet.store, fleet.cluster, fleet.cloud_provider, fleet.clock,
                        solver=GPUSolver(dev, stage_times=True))
     dc = DisruptionController(fleet.store, fleet.cluster, prov, fleet.cloud_provider, fleet.clock, Options())
@@ -3226,6 +3248,207 @@ def check_round_trace(dev, card: str, prov, ctx, decision_round, want: dict, com
     breakdown = {k: v * 1e3 for k, v in tr.phase_totals.items()}
     print(f"{what}: trace spans {top}, counters {got} == JAX reference; {len(sims)} probe traces (mode sim); "
           "breakdown from the spans, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()) + f" on {card}")
+
+
+# -- the consolidation arms: KARPENTER_CONSOLIDATE_LP =1, =0 and =anneal ----------
+ARMS_FIXTURE = FIXTURES / "consolidation" / "fleet_128_arms.json"
+ARMS_NODES = 128  # every node budget-eligible: the anneal arm's 100-candidate window is full (K7 at Np = 128)
+ARMS = ("1", "0", "anneal")
+# K5-K7's launches in each arm's pass (the probes' K1-K3 and K4 vary with the probes)
+ARMS_LAUNCHES = {"1": dict(globalpack=1, score_subsets=1, anneal_pack=0, anneal=0),
+                 "0": dict(globalpack=0, score_subsets=0, anneal_pack=0, anneal=0),
+                 "anneal": dict(globalpack=0, score_subsets=0, anneal_pack=1, anneal=1)}
+# the reference's exact arms of the host switches: the same Results as the defaults'
+EXACT_ARMS = {"KARPENTER_FFD_BATCH": "0", "KARPENTER_ENCODE_COLUMNAR": "0", "KARPENTER_SOLVER_FASTDECODE": "0",
+              "KARPENTER_SIM_SHARED_SCHED": "0"}
+
+
+@contextmanager
+def switched(env: dict):
+    """The environment variables of `env` set while it lasts, then as they
+    were."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def arms_side(dev, n: int = ARMS_NODES):
+    """`consolidation_side` at `n` nodes, as the namespace `arm_pass` reads."""
+    import types
+
+    fleet, prov, dc = consolidation_side(dev, n)
+    return types.SimpleNamespace(store=fleet.store, clock=fleet.clock, prov=prov, dc=dc)
+
+
+def arm_pass(side, arm: str, env: dict | None = None, reset=None) -> dict:
+    """One `DisruptionController.reconcile(force=True)` over `side` with
+    `KARPENTER_CONSOLIDATE_LP=arm` (and `env`), from `random`'s
+    `CONS_ROUND_SEED` and `reset()` (by default the port's encoder globals
+    and bucket high-water marks cleared): the commands it started, the
+    disrupted taints, the NodeClaims in the store, how far the clock moved.
+    Duck-typed: the fixture's writer runs it over the reference's side."""
+    import random
+
+    from karpenter_tpu_torch.testing.canonical import canonical_command, canonical_node_claims, json_form
+
+    if reset is None:
+        from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+        from karpenter_tpu_torch.solver.encode import clear_encode_globals
+
+        def reset():
+            clear_encode_globals()
+            reset_bucket_highwater()
+
+    with switched({"KARPENTER_CONSOLIDATE_LP": arm, **(env or {})}):
+        random.seed(CONS_ROUND_SEED)
+        reset()
+        t0 = side.clock.now()
+        side.dc.reconcile(force=True)
+    items = side.dc.queue._items
+    tainted = sorted(n.metadata.name for n in side.store.list("Node")
+                     if any(t.key.endswith("disrupted") for t in n.spec.taints))
+    return dict(commands=[json_form(canonical_command(it.command)) for it in items], tainted=tainted,
+                claims=json_form(canonical_node_claims(side.store)), waited=side.clock.now() - t0)
+
+
+@contextmanager
+def kept_anneal_inputs(seen: list):
+    """Keep the inputs and outputs of every K7 call (`kernels.anneal.anneal`:
+    the pre-pass and the chains) in `seen`."""
+    import karpenter_tpu_torch.kernels.anneal as k7
+
+    real = k7.anneal
+
+    def anneal(t, x0, flips, u):
+        out = real(t, x0, flips, u)
+        seen.append(((t, x0, flips, u), out))
+        return out
+
+    k7.anneal = anneal
+    try:
+        yield
+    finally:
+        k7.anneal = real
+
+
+def check_consolidate_arms(dev, card: str, errs: dict) -> dict:
+    """The consolidation arms' phase (module docstring): one disruption pass
+    per `KARPENTER_CONSOLIDATE_LP` arm over a fresh `ARMS_NODES`-node fleet,
+    the counts set to 0 just before and read just after, each equal to the
+    JAX reference's (`ARMS_FIXTURE`); K7's inputs on the anneal arm kept
+    and the kernel held to its plain version on them; each arm's pass timed
+    again on a fresh fleet; the LP arm and the seeded headline's solve steps
+    again with the host switches at the reference's exact arms."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch.kernels import build
+    from karpenter_tpu_torch.kernels.anneal import anneal as k7_launch
+    from karpenter_tpu_torch.kernels.anneal import anneal_plain, anneal_prepass, anneal_prepass_plain
+    from karpenter_tpu_torch.models.scheduler_model import reset_bucket_highwater
+    from karpenter_tpu_torch.solver.gpu import GPUSolver
+    from karpenter_tpu_torch.testing.canonical import canonical_results, json_form
+
+    want = json.loads(ARMS_FIXTURE.read_text())
+    expect(want["nodes"] == ARMS_NODES and want["seed"] == CONS_ROUND_SEED, "the arms fixture's fleet differs")
+    out: dict = {}
+    for arm in ARMS:
+        what = f"consolidation pass, KARPENTER_CONSOLIDATE_LP={arm} ({ARMS_NODES} nodes)"
+        side = arms_side(dev)
+        seen: list = []
+        with kept_anneal_inputs(seen):
+            build.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = arm_pass(side, arm)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            counts = dict(build.LAUNCHES)
+        for key in ("commands", "tainted", "claims", "waited"):
+            expect(got[key] == want["arms"][arm][key], f"{what}: {key} differ from the JAX reference's")
+        need = ARMS_LAUNCHES[arm]
+        expect({k: counts[k] for k in need} == need and counts["pack_scan"] >= 1,
+               f"{what}: launches {counts}, K5-K7 not {need}")
+        if arm == "anneal":
+            expect(len(seen) == 1, f"{what}: {len(seen)} K7 calls")
+            (t, x0, flips, u), (bx, bs) = seen[0]
+            expect(t.node_price.shape[0] == 128, f"{what}: K7 at Np = {t.node_price.shape[0]}, not 128")
+            bx_p, bs_p = anneal_plain(t, x0, flips, u)
+            got_pre, want_pre = anneal_prepass(t, flips), anneal_prepass_plain(t, flips)
+            torch.cuda.synchronize()
+            errs["anneal"] = max(errs["anneal"], max_abs((bx, bx_p), (bs, bs_p)))
+            errs["anneal_pack"] = max(errs["anneal_pack"], max_abs(*zip(got_pre[:3], want_pre)))
+            expect(torch.equal(bx, bx_p) and torch.equal(bs, bs_p), f"{what}: K7 differs from plain on its inputs")
+            expect(all(torch.equal(a, b) for a, b in zip(got_pre[:3], want_pre)) and int(got_pre[3].item()) == 0,
+                   f"{what}: K7's pre-pass differs from plain on its inputs")
+            bound, by = bound_of(*k7_cost(t, *flips.shape))
+            k7 = dict(ms=cuda_ms(lambda: k7_launch(t, x0, flips, u), 5, rounds=3),
+                      plain_ms=cuda_ms(lambda: anneal_plain(t, x0, flips, u), 1, rounds=2), bound_ms=bound,
+                      bound_by=by, pack_ms=cuda_ms(lambda: anneal_prepass(t, flips), 20))
+            print(f"time anneal on the pass's tensors (Np = {t.node_price.shape[0]}, C = {flips.shape[0]} chains x "
+                  f"{flips.shape[1]} steps, Tp = {t.row_price.shape[0]}): {k7['ms']:.4f} ms kernel (pre-pass and "
+                  f"chains), {k7['plain_ms']:.4f} ms plain, bound {bound:.5f} ms ({by}); the pre-pass alone "
+                  f"{k7['pack_ms']:.4f} ms on {card}")
+        cmd = got["commands"][0] if got["commands"] else None
+        out[arm] = dict(launches={k: v for k, v in counts.items() if v}, ms=ms,
+                        command_size=len(cmd[1]) if cmd else 0, **({"k7": k7} if arm == "anneal" else {}))
+        print(f"{what}: started {len(got['commands'])} command of {out[arm]['command_size']} candidates, "
+              f"{len(got['tainted'])} nodes tainted, {len(got['claims'])} NodeClaims, == JAX reference; launches "
+              f"{out[arm]['launches']}" + ("; K7 and its pre-pass on the round's tensors == plain" if arm == "anneal"
+                                           else "") + f"; {ms:.3f} ms (the first pass) on {card}")
+    # the first passes above are each arm's first in the process (the first
+    # arm's the process's first encode and probes): time each arm again on
+    # a fresh fleet, with every arm warm
+    for arm in ARMS:
+        side = arms_side(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        again = arm_pass(side, arm)
+        torch.cuda.synchronize()
+        out[arm]["warm_ms"] = (time.perf_counter() - t1) * 1e3
+        expect(again == want["arms"][arm], f"a second KARPENTER_CONSOLIDATE_LP={arm} pass differs from the JAX "
+               "reference's")
+        print(f"time disruption pass (DisruptionController.reconcile(force=True), KARPENTER_CONSOLIDATE_LP={arm}, "
+              f"{ARMS_NODES} nodes, a fresh fleet, every arm warm): {out[arm]['warm_ms']:.3f} ms on {card}")
+
+    what = f"consolidation pass, KARPENTER_CONSOLIDATE_LP=1 with {EXACT_ARMS} ({ARMS_NODES} nodes)"
+    got = arm_pass(arms_side(dev), "1", EXACT_ARMS)
+    for key in ("commands", "tainted", "claims", "waited"):
+        expect(got[key] == want["arms"]["1"][key], f"{what}: {key} differ from the JAX reference's")
+    print(f"{what}: == the default arms' (the JAX reference's)")
+
+    stored = json.loads(SOLVE_FIXTURE.read_text())
+    snap, added, one = seeded_snapshot()
+    pods_of = solve_step_pods(list(snap.pods), added, one)
+    reset_bucket_highwater()
+    modes = []
+    with switched(EXACT_ARMS):
+        solver = GPUSolver(dev, force=True)
+        for step, pods, ref in zip(SOLVE_STEPS, pods_of, stored["steps"]):
+            snap.pods = pods
+            random.seed(0)
+            results = solver.solve(snap)
+            backend = {"gpu": "tpu"}.get(solver.last_backend, solver.last_backend)
+            got = dict(mode=solver.last_solve_mode, backend=backend, reject=solver.last_delta_reject,
+                       reasons=list(solver.last_fallback_reasons))
+            for key, value in got.items():
+                expect(value == ref[key], f"solve {step} with {EXACT_ARMS}: {key} {value!r}, the default's "
+                       f"{ref[key]!r}")
+            expect(json_form(canonical_results(results)) == ref["results"],
+                   f"solve {step} with {EXACT_ARMS}: Results differ from the default arms'")
+            expect(solver._decode_memo is None, f"solve {step} with {EXACT_ARMS}: the decode memo was saved")
+            modes.append(solver.last_solve_mode)
+    print(f"seeded headline solve steps {list(SOLVE_STEPS)} with {EXACT_ARMS}: modes {modes}, Results == the "
+          "default arms' (the JAX reference's)")
+    return out
 
 
 def k1_cost(t, items, compat, key) -> tuple[int, int]:
@@ -3591,18 +3814,9 @@ def check_dense_pack(dev) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-@contextmanager
 def chain_env(ref):
     """The environment a chain was made under (its `env` entries)."""
-    saved = dict(os.environ)
-    for entry in ref["env"]:
-        key, value = str(entry).split("=", 1)
-        os.environ[key] = value
-    try:
-        yield
-    finally:
-        os.environ.clear()
-        os.environ.update(saved)
+    return switched(dict(str(entry).split("=", 1) for entry in ref["env"]))
 
 
 def expect_carry(got, ref, prefix: str, what: str) -> None:
@@ -4103,8 +4317,10 @@ def k7_cost(t, C, S) -> tuple[int, int]:
     return n_in + C * Np + 4 * C, C * (S + 1) * (Np * (4 * R + 8) + T * 3 * R)
 
 
-def time_consolidation(dev, launches: dict, errs: dict) -> list:
-    """The `kernels` rows of K5-K7 at the 5000-node shapes (CUDA events)."""
+def time_consolidation(dev, launches: dict, errs: dict, arms_k7: dict | None = None) -> list:
+    """The `kernels` rows of K5-K7 at the 5000-node shapes (CUDA events);
+    K7's row also carries its times on the anneal pass's tensors
+    (`arms_k7`, from `check_consolidate_arms`)."""
     import numpy as np
     import torch
 
@@ -4173,6 +4389,9 @@ def time_consolidation(dev, launches: dict, errs: dict) -> list:
     out[1].update(graph_ms=rows[1]["graph_ms"])
     out[-1].update(np8192_ms=k7_8192["ms"], np8192_plain_ms=k7_8192["plain_ms"], np8192_bound_ms=bound8,
                    np8192_pack_ms=k7_8192["pack_ms"])
+    if arms_k7 is not None:
+        out[-1].update(np128_pass_ms=arms_k7["ms"], np128_pass_plain_ms=arms_k7["plain_ms"],
+                       np128_pass_bound_ms=arms_k7["bound_ms"], np128_pass_pack_ms=arms_k7["pack_ms"])
     return out
 
 
@@ -4847,6 +5066,9 @@ def run(dev, card: str) -> dict:
     print(f"DRA phase {time.perf_counter() - t5:.1f} s")
     t3 = time.perf_counter()
     consolidation = check_consolidation(dev, card, errs, runs=3)
+    t9 = time.perf_counter()
+    arms = check_consolidate_arms(dev, card, errs)
+    print(f"consolidation arms phase {time.perf_counter() - t9:.1f} s")
     t4 = time.perf_counter()
     sharded = check_sharded(dev, card, errs)
     t6 = time.perf_counter()
@@ -4854,7 +5076,7 @@ def run(dev, card: str) -> dict:
     t7 = time.perf_counter()
     serving = check_serving(dev, card, errs)
     print(f"hybrid phase {t2 - t1:.1f} s, provisioner phase {t8 - t2:.1f} s, "
-          f"consolidation phase {t4 - t3:.1f} s, meshed phase {t6 - t4:.1f} s, "
+          f"consolidation phase {t9 - t3:.1f} s, meshed phase {t6 - t4:.1f} s, "
           f"operator phase {t7 - t6:.1f} s, serving phase {time.perf_counter() - t7:.1f} s")
     dense = check_dense_pack(dev)
     print(f"dense pack {HEADLINE} == plain == JAX takes: launches {dense['launches']}; "
@@ -4915,6 +5137,7 @@ def run(dev, card: str) -> dict:
     check_proposer_kernels(dev, errs)
     cons_runs = drive_proposers(dev)
     cons_runs["fleet_5000_round"] = consolidation["round_counts"]
+    cons_runs.update({f"fleet_{ARMS_NODES}_pass_lp_{arm}": arms[arm]["launches"] for arm in ARMS})
     caps = check_caps(dev, errs)
     cons_launches = {k: sum(c.get(k, 0) for c in cons_runs.values()) for k in build.LAUNCHES}
     proposers = time_proposers(dev)
@@ -4953,7 +5176,7 @@ def run(dev, card: str) -> dict:
           f"{FLEET_BIG} {k2['fleet_big_us_per_place']:.2f} us ({k2['fleet_big_place_calls']} calls, "
           f"{k2['fleet_big_ms']:.4f} ms)")
     rows.append(time_recredit(churn, delta_launches, errs))
-    rows += time_consolidation(dev, cons_launches, errs)
+    rows += time_consolidation(dev, cons_launches, errs, arms["anneal"]["k7"])
     rows.append(kernel_row(perpod["perpod_pack"], perpod_runs[HEADLINE], errs))
     rows[-1].update(fleet_ms=perpod["perpod_pack"]["fleet_ms"], fleet_big_ms=perpod["perpod_pack"]["fleet_big_ms"])
     rows += sharded_rows(sharded, errs)
@@ -4978,6 +5201,7 @@ def run(dev, card: str) -> dict:
                                        "wide": dict(zip(("cold", "resubmit", "delta_1pod"), wide["paths"])),
                                        **dict(zip(("dra_cold", "dra_delta_1pod", "dra_provision"), dra["paths"])),
                                        "consolidation_reconcile": consolidation["pass_counts"],
+                                       "consolidate_arms": {arm: v["launches"] for arm, v in arms.items()},
                                        "operator": operator["launches"], "serving_churn": serving["churn"]["launches"],
                                        "serving_repack": serving["churn"]["repack_launches"],
                                        "serving_fleet": serving["fleet"]["launches"]},
@@ -4992,7 +5216,8 @@ def run(dev, card: str) -> dict:
             "wide_ms": {"cold": wide["ms"], "stages": wide["stages"], "ffd": wide["ffd_ms"], "ffd_runs": wide["ffd_runs"]},
             "consolidation_ms": {"decision": consolidation["ms"], "stages": consolidation["stages"],
                                  "reconcile": consolidation["pass_ms"], "reconcile_split": consolidation["pass_split"],
-                                 "fleet_build_s": consolidation["build_s"], "probes": consolidation["probes"]},
+                                 "fleet_build_s": consolidation["build_s"], "probes": consolidation["probes"],
+                                 "arms": {arm: {k: v[k] for k in v if k != "launches"} for arm, v in arms.items()}},
             "operator_ticks": operator["ticks"], "serving": serving}
 
 
@@ -5035,6 +5260,15 @@ def run_serving(dev, card: str) -> dict:
     return {"serving": out, "errs": errs}
 
 
+def run_arms(dev, card: str) -> dict:
+    """The consolidation arms' phase alone (`--only arms`)."""
+    errs = {"anneal_pack": 0.0, "anneal": 0.0}
+    t1 = time.perf_counter()
+    out = check_consolidate_arms(dev, card, errs)
+    print(f"consolidation arms phase {time.perf_counter() - t1:.1f} s")
+    return {"arms": out, "errs": errs}
+
+
 def host_cpu() -> str:
     """The host CPU's model (the host stages' times depend on it): the first
     of /proc/cpuinfo's model fields that is present, else the machine type."""
@@ -5055,7 +5289,8 @@ def main(argv: list[str]) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=("dra", "wide", "operator", "serving"), help="run only this phase (after the build)")
+    ap.add_argument("--only", choices=("dra", "wide", "operator", "serving", "arms"),
+                    help="run only this phase (after the build)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -5096,7 +5331,7 @@ def main(argv: list[str]) -> int:
     native.build()  # the residual FFD's C++ requirement table (a host kernel, g++)
     print(f"requirement table build: {time.perf_counter() - t0:.1f} s ({native.lib_dir()})")
 
-    line = {"dra": run_dra, "wide": run_wide, "operator": run_operator, "serving": run_serving,
+    line = {"dra": run_dra, "wide": run_wide, "operator": run_operator, "serving": run_serving, "arms": run_arms,
             None: run}[args.only](dev, card)
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s (the kernels' build included)")
     print(json.dumps(line))

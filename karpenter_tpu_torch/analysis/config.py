@@ -273,17 +273,23 @@ class Config:
     # solve-path modules must name one of these reviewed KARPENTER_* knobs —
     # an unregistered env probe can silently fork behavior between shard
     # workers (env-dependent-branch)
-    # (the port keeps only the reference's default arm of its other
-    # switches, so only the knobs the port still reads are registered)
     env_knobs: tuple[str, ...] = (
         "KARPENTER_SOLVER_TYPECHECK",
         "KARPENTER_SOLVER_RACECHECK",
         "KARPENTER_SOLVER_DETCHECK",
         "KARPENTER_SOLVER_COMPILE_CACHE",
+        "KARPENTER_SOLVER_MESH",
         "KARPENTER_SOLVER_SHARD_DEVICES",
         "KARPENTER_SOLVER_BUCKET",
         "KARPENTER_SOLVER_MULTIGROUP",
         "KARPENTER_SOLVER_GLOBALPACK",
+        "KARPENTER_ENCODE_COLUMNAR",
+        # decode-delta escape hatch (gpu._decode re-materializes every slot
+        # when off) and the consolidation round's shared-scheduler hatch
+        # (simulate.ConsolidationSimulator skips the SchedulerRoundSeed carry
+        # when off) — both are exact-reference toggles, placement-identical
+        "KARPENTER_SOLVER_FASTDECODE",
+        "KARPENTER_SIM_SHARED_SCHED",
     )
     # direct override for tests/self-test; when None the registry file is
     # parsed on first use

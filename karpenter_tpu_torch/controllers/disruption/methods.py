@@ -5,19 +5,26 @@ Reference: disruption/{emptiness,drift,consolidation,multinodeconsolidation,
 singlenodeconsolidation}.go. Each method computes Commands from candidates
 under budget constraints; the controller executes the first non-empty one.
 
-The port keeps the reference's default arms: multi-node consolidation
-proposes with the relaxed LP on the device when the options' solver backend
-is "gpu" (kernels K5 and K6; the masked probes pack with K1-K3), and falls
-back in band to the binary search over the cost-sorted prefix when the LP
-yields no valid command. The annealed arm and both switches are not ported;
-the global-repack arm (`_globalpack_option`, kernels K5 and K6) is there
-for serving's callers (`serving.churn.ChurnHarness.repack_savings`), while
-the controller's own rounds take the LP. Each LP round is flight-recorded on the
-provisioner solver's trace recorder (mode "consolidate", backend "lp") and
-counted into the controller's metrics registry as the reference's is.
+Multi-node consolidation reads the reference's switches at each round.
+With the options' solver backend "gpu" (the port's default),
+`KARPENTER_CONSOLIDATE_LP` picks the device proposer: "1" (the default) the
+relaxed LP (kernels K5 and K6), "anneal" the annealed subset search over the
+100-candidate window (kernel K7's pre-pass and chains), "0", "false" or
+"off" none; `KARPENTER_SOLVER_GLOBALPACK=1` tries the global repack (K5 and
+K6) first under either proposer. The masked probes pack with K1-K3. The
+binary search over the cost-sorted prefix is the in-band fallback when the
+device proposer yields no valid command, and the only path with the "ffd"
+backend or the switch off. A kernel's failure fails the round in every arm.
+The global-repack ladder also serves `serving.churn.ChurnHarness.
+repack_savings`. Each LP or global round is flight-recorded on the
+provisioner solver's trace recorder (mode "consolidate", backend "lp" or
+"globalpack") and counted into the controller's metrics registry as the
+reference's is.
 """
 
 from __future__ import annotations
+
+import os
 
 from ...apis import labels as wk
 from ...apis.nodeclaim import COND_CONSOLIDATABLE, COND_DRIFTED
@@ -27,6 +34,9 @@ from .helpers import all_non_pending_scheduled, simulate_scheduling
 from .types import REASON_DRIFTED, REASON_EMPTY, REASON_UNDERUTILIZED, Command
 
 MULTI_NODE_CONSOLIDATION_CANDIDATE_CAP = 100  # multinodeconsolidation.go:35
+# the spellings of the switches' off and on values
+SWITCH_OFF = ("0", "false", "off")
+SWITCH_ON = ("1", "true", "on")
 # compute caps on the deterministic clock: one slow pool must not starve the
 # 10s rounds forever (multinodeconsolidation.go:35, singlenodeconsolidation.go:33)
 MULTI_NODE_CONSOLIDATION_TIMEOUT_SECONDS = 60.0
@@ -36,6 +46,12 @@ SINGLE_NODE_CONSOLIDATION_TIMEOUT_SECONDS = 180.0
 # ladder when validation rejects (each attempt pays the full 15s wait, so the
 # cap also bounds wall-clock alongside the shared deadline)
 MULTI_NODE_VALIDATION_ATTEMPTS = 3
+
+
+def _switch(name: str, default: str) -> str:
+    """A switch's value as the reference reads it, at each round: stripped,
+    lower case."""
+    return os.environ.get(name, default).strip().lower()
 
 
 class Emptiness:
@@ -377,15 +393,30 @@ class SingleNodeConsolidation(_ConsolidationBase):
 
 
 class MultiNodeConsolidation(_ConsolidationBase):
-    """Multi-node consolidation. With the "gpu" solver backend the relaxed-LP
+    """Multi-node consolidation. DEFAULT ("gpu" backend): the relaxed-LP
     repack proposes candidate subsets on the device over the FULL eligible
     fleet (`solver/consolidation.propose_subsets_lp`), each exact-validated
     through the scheduling simulation, served per round as masked
     sub-encodes of one base encode (`solver/simulate.ConsolidationSimulator`).
-    The reference's binary search over the cost-sorted prefix
-    (multinodeconsolidation.go:52-191) is the in-band fallback whenever the
-    device proposer produces no valid command, and the only path with the
-    "ffd" backend.
+    Escape hatches: `KARPENTER_CONSOLIDATE_LP=0` runs only the reference's
+    binary search over the cost-sorted prefix
+    (multinodeconsolidation.go:52-191), `KARPENTER_CONSOLIDATE_LP=anneal`
+    the annealed subset search (`_annealed_option`); the binary search also
+    remains the in-band fallback whenever the device proposer produces no
+    valid command, and is the only path with the "ffd" backend. Opt-in
+    global repack (`KARPENTER_SOLVER_GLOBALPACK=1`): the global proposer
+    runs first, and the two-phase ladder when it yields no valid command.
+
+    When a device proposer fails, the binary search answers only for a
+    refusal of the input, never for a broken kernel or device; the arms
+    tell the two apart in two ways. The LP and global arms catch the
+    reference's ValueError, TypeError and RuntimeError around the whole
+    proposer, whose host stages (encode, rounding, ladder) interleave with
+    K5 and K6, and re-raise what `kernels.build.device_fault` names a kernel
+    or device fault. The anneal arm departs from the reference, which
+    catches the same three around `propose_subsets`: it catches them around
+    the encoder alone, which runs before K7, so every error from K7's build,
+    launch or ladder propagates and no message test is needed.
 
     Each LP round is one `SolveTrace` (mode "consolidate", backend "lp") on
     the provisioner solver's recorder: the reference's spans
@@ -424,8 +455,8 @@ class MultiNodeConsolidation(_ConsolidationBase):
             if allowed.get(pool, 0) > 0:
                 filtered.append(c)
                 allowed[pool] -= 1
-        # the binary search pays a full simulation per probe, so it windows
-        # over a 100-candidate prefix (multinodeconsolidation.go:35); the LP
+        # the binary search and the annealed search window over a
+        # 100-candidate prefix (multinodeconsolidation.go:35); the LP
         # proposer's device solve scales past the whole fleet and sees every
         # budget-eligible candidate
         filtered_bs = filtered[:MULTI_NODE_CONSOLIDATION_CANDIDATE_CAP]
@@ -434,19 +465,34 @@ class MultiNodeConsolidation(_ConsolidationBase):
         # ONE 1-minute budget covers the whole multi-node compute — the
         # device search and the binary-search fallback share it
         deadline = self.ctx.clock.now() + MULTI_NODE_CONSOLIDATION_TIMEOUT_SECONDS
-        # the device proposer hands back a LAZY ranked ladder — `producer`
+        # the device proposers hand back a LAZY ranked ladder — `producer`
         # holds the suspended continuation so a 15s-validation failure can
         # pull the next accepted proposal instead of abandoning the round
         cmd = Command()
         producer = None
+        lp_mode = _switch("KARPENTER_CONSOLIDATE_LP", "1")
+        gp_mode = _switch("KARPENTER_SOLVER_GLOBALPACK", "0")
         try:
-            if getattr(self.ctx.options, "solver_backend", "ffd") == "gpu":
-                producer = self._lp_option_iter(filtered, deadline)
-                cmd = next(producer, Command())
-                if not (cmd.candidates and self._passes_balanced(cmd)):
-                    cmd = Command()
-                    producer.close()
-                    producer = None
+            if getattr(self.ctx.options, "solver_backend", "ffd") == "gpu" and lp_mode not in SWITCH_OFF:
+                if gp_mode in SWITCH_ON:
+                    producer = self._globalpack_option_iter(filtered, deadline)
+                    cmd = next(producer, Command())
+                    if not (cmd.candidates and self._passes_balanced(cmd)):
+                        cmd = Command()
+                        producer.close()
+                        producer = None
+                if not cmd.candidates:
+                    if lp_mode == "anneal":
+                        cmd = self._annealed_option(filtered_bs, deadline)
+                        if not (cmd.candidates and self._passes_balanced(cmd)):
+                            cmd = Command()
+                    else:
+                        producer = self._lp_option_iter(filtered, deadline)
+                        cmd = next(producer, Command())
+                        if not (cmd.candidates and self._passes_balanced(cmd)):
+                            cmd = Command()
+                            producer.close()
+                            producer = None
             if not cmd.candidates:
                 if self.ctx.clock.now() > deadline:
                     # the device stage consumed the whole budget — don't
@@ -479,6 +525,44 @@ class MultiNodeConsolidation(_ConsolidationBase):
         finally:
             if producer is not None:
                 producer.close()
+
+    def _annealed_option(self, candidates, deadline: float) -> Command:
+        """The annealed subset search (`KARPENTER_CONSOLIDATE_LP=anneal`,
+        kernel K7 on the provisioner solver's device) + host exact
+        validation, under the shared 1-minute compute budget. It is
+        `solver.consolidation.propose_subsets` split at the encoder, so that
+        only the encoder's refusal falls back (the class docstring gives the
+        arms' failure policies)."""
+        import logging
+
+        from ... import metrics as m
+        from ...solver.consolidation import encode_problem, propose_problem_anneal
+
+        device = getattr(self.ctx.provisioner.solver, "device", None)  # None: the CUDA device
+        its = self._candidate_instance_types(candidates)
+        try:
+            problem = encode_problem(candidates, its)
+        except (ValueError, TypeError, RuntimeError) as e:
+            logging.getLogger("karpenter.disruption").warning("annealed consolidation search failed, falling back: %s", e)
+            return Command()
+        proposals = propose_problem_anneal(problem, device)
+        if self.ctx.metrics is not None and proposals:
+            self.ctx.metrics.counter(m.SOLVER_CONSOLIDATION_PROPOSALS_TOTAL).inc(len(proposals), proposer="anneal")
+        for subset in proposals:
+            if self.ctx.clock.now() > deadline:
+                self._count_timeout()
+                return Command()
+            chosen = [candidates[i] for i in subset]
+            cmd = self.compute_consolidation(chosen)
+            if cmd.candidates:
+                if self._is_pointless_churn(cmd):
+                    continue
+                if self.ctx.metrics is not None:
+                    self.ctx.metrics.gauge(m.SOLVER_CONSOLIDATION_SAVINGS_PER_HOUR).set(
+                        _command_savings_per_hour(cmd), proposer="anneal"
+                    )
+                return cmd
+        return Command()
 
     def _candidate_instance_types(self, candidates) -> list:
         pools = {c.node_pool.metadata.name: c.node_pool for c in candidates}

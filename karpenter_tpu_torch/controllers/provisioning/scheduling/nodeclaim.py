@@ -29,7 +29,8 @@ _hostname_seq = itertools.count(1)
 
 # native requirements-intersection tables, one per NodeClaimTemplate per solve
 # (weak-keyed so solves don't leak tables; a table that fails to build raises
-# native.NativeBuildError — karpenter_tpu_torch/native)
+# native.NativeBuildError; KARPENTER_DISABLE_NATIVE keeps every template on
+# the Python algebra — karpenter_tpu_torch/native)
 import weakref
 
 _native_tables: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -42,10 +43,10 @@ NATIVE_MIN_TABLE_ROWS = 200
 
 
 def _native_table_for(template):
-    from ....native import ReqTable, UnsupportedRequirements
+    from ....native import ReqTable, UnsupportedRequirements, disabled
 
     its = template.instance_type_options
-    if len(its) < NATIVE_MIN_TABLE_ROWS:
+    if len(its) < NATIVE_MIN_TABLE_ROWS or disabled():
         return None
     cached = _native_tables.get(template)
     if cached is None:

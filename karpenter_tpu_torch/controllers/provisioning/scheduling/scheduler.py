@@ -10,6 +10,7 @@ validated against it and plugs in through the same Solver interface.
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -25,6 +26,12 @@ from .preferences import Preferences
 from .queue import Queue
 from .topology import Topology
 from .volumetopology import VolumeTopology
+
+
+def _ffd_batch_enabled() -> bool:
+    """KARPENTER_FFD_BATCH (default "1"), read at each Scheduler built
+    without `ffd_batch`: exactly "0" is the reference's unbatched FFD."""
+    return os.environ.get("KARPENTER_FFD_BATCH", "1") != "0"
 
 
 @dataclass
@@ -123,6 +130,7 @@ class Scheduler:
         reserved_offering_mode: str = "fallback",
         collect_zone_metrics: bool = True,
         registry=None,
+        ffd_batch: bool | None = None,
         round_seed: "SchedulerRoundSeed | None" = None,
     ):
         self.store = store
@@ -134,11 +142,13 @@ class Scheduler:
         self.deleting_node_names = deleting_node_names or set()
         self.timeout_seconds = timeout_seconds
         self.registry = registry
-        # signature-batched FFD: per-solve fit memo + placement cursors +
-        # PodData template cache + incremental claim ordering
-        # consolidation-round carry (SchedulerRoundSeed): probe-invariant
-        # layers shared across this round's scheduler builds
-        self._round_seed = round_seed
+        # KARPENTER_FFD_BATCH=1 (default): signature-batched FFD — per-solve
+        # fit memo + placement cursors + PodData template cache + incremental
+        # claim ordering. =0 is the exact-reference escape hatch; placements
+        # are bit-identical either way (tests/test_ffd_batch.py).
+        if ffd_batch is None:
+            ffd_batch = _ffd_batch_enabled()
+        self.batch_enabled = ffd_batch
         # fit memo: (pod signature, id(node|claim|template)) ->
         #   ("reject", err)          permanent monotone rejection
         #   ("pass", version, base)  static prefix passed at that state version
@@ -151,6 +161,9 @@ class Scheduler:
         # per-signature scan cursor over the (fixed-order) existing-node list:
         # every node before the cursor holds a permanent rejection for the sig
         self._existing_cursor: dict = {}
+        # consolidation-round carry (SchedulerRoundSeed): probe-invariant
+        # layers shared across this round's scheduler builds
+        self._round_seed = round_seed if self.batch_enabled else None
         # signature -> shared PodData template (volume/port/DRA-free pods)
         self._pod_data_templates: dict = {} if self._round_seed is None else self._round_seed.pod_data_templates
         # pod uid -> signature tuple (None = pod bypasses the batched path)
@@ -338,10 +351,12 @@ class Scheduler:
                         self._zone_by_sig[sig] = zone
                 pods_by_zone[zone] = pods_by_zone.get(zone, 0) + 1
 
-        # establish the fewest-pods-first invariant once; every later add
-        # repositions exactly one claim, so the reference's per-_add resort
-        # reduces to an O(shift) bubble
-        self.new_node_claims.sort(key=lambda m: len(m.pods))
+        if self.batch_enabled:
+            # establish the fewest-pods-first invariant once (adopted in-flight
+            # claims from a hybrid residual arrive unsorted); every later add
+            # repositions exactly one claim, so the reference's per-_add resort
+            # reduces to an O(shift) bubble
+            self.new_node_claims.sort(key=lambda m: len(m.pods))
 
         q = Queue(pods, self.cached_pod_data)
         start = self.clock.now()
@@ -438,14 +453,15 @@ class Scheduler:
         return pod_signature(pod)
 
     def _update_cached_pod_data(self, pod) -> None:
-        sig = self._cacheable_sig(pod)
-        self._sig_by_uid[pod.metadata.uid] = sig
-        if sig is not None:
-            data = self._pod_data_templates.get(sig)
-            if data is None:
-                data = self._pod_data_templates[sig] = self._build_pod_data(pod)
-            self.cached_pod_data[pod.metadata.uid] = data
-            return
+        if self.batch_enabled:
+            sig = self._cacheable_sig(pod)
+            self._sig_by_uid[pod.metadata.uid] = sig
+            if sig is not None:
+                data = self._pod_data_templates.get(sig)
+                if data is None:
+                    data = self._pod_data_templates[sig] = self._build_pod_data(pod)
+                self.cached_pod_data[pod.metadata.uid] = data
+                return
         self.cached_pod_data[pod.metadata.uid] = self._build_pod_data(pod)
 
     def _build_pod_data(self, pod) -> PodData:
@@ -500,8 +516,10 @@ class Scheduler:
         self.phase_seconds["existing"] += t1 - t0
         if err is None:
             return None
-        # inflight claims stay sorted fewest-pods-first (scheduler.go:598),
-        # maintained incrementally by the bubbles below
+        if not self.batch_enabled:
+            # inflight claims sorted fewest-pods-first (scheduler.go:598); the
+            # batched path maintains this invariant incrementally instead
+            self.new_node_claims.sort(key=lambda m: len(m.pods))
         err = self._add_to_inflight_node(pod)
         t2 = time.perf_counter()
         self.phase_seconds["inflight"] += t2 - t1
@@ -516,7 +534,7 @@ class Scheduler:
     def _add_to_existing_node(self, pod) -> str | None:
         pod_data = self.cached_pod_data[pod.metadata.uid]
         is_pending = not pod.spec.node_name
-        sig = self._sig_by_uid.get(pod.metadata.uid)
+        sig = self._sig_by_uid.get(pod.metadata.uid) if self.batch_enabled else None
         nodes = self.existing_nodes
         landed = None
         # placement cursor: every node before it permanently rejected this
@@ -582,7 +600,7 @@ class Scheduler:
         # dict lookup and everything else resumes exactly where the last
         # identical pod left its verdicts
         pod_data = self.cached_pod_data[pod.metadata.uid]
-        sig = self._sig_by_uid.get(pod.metadata.uid)
+        sig = self._sig_by_uid.get(pod.metadata.uid) if self.batch_enabled else None
         claims = self.new_node_claims
         for i in range(len(claims)):
             nc = claims[i]
@@ -618,13 +636,14 @@ class Scheduler:
                     self._memo_put(key, ("reject", err))
             if err is None:
                 nc.add(pod, pod_data, reqs, its)
-                self._bubble_claim_right(i)
+                if self.batch_enabled:
+                    self._bubble_claim_right(i)
                 return None
         return "failed scheduling pod to inflight nodes"
 
     def _add_to_new_node_claim(self, pod) -> str | None:
         pod_data = self.cached_pod_data[pod.metadata.uid]
-        sig = self._sig_by_uid.get(pod.metadata.uid)
+        sig = self._sig_by_uid.get(pod.metadata.uid) if self.batch_enabled else None
         errs = []
         for t in self.templates:
             its = t.instance_type_options
@@ -677,7 +696,8 @@ class Scheduler:
                 continue
             nc.add(pod, pod_data, reqs, rem_its)
             self.new_node_claims.append(nc)
-            self._bubble_claim_left()
+            if self.batch_enabled:
+                self._bubble_claim_left()
             if remaining is not None:
                 self.remaining_resources[t.nodepool_name] = _subtract_max(remaining, nc.instance_type_options)
             return None

@@ -8,17 +8,21 @@ query" in one C call. It stays on the host: each query is one pod's
 requirements against a few hundred rows, issued from inside the FFD loop.
 
 The shared library is compiled with `g++` at first use into
-`<build dir>/native/<hash>/` (the build dir is `kernels.build.BUILD_DIR`:
-`build/kernels/` at the repository root, or the shared directory
-`kernels.build.set_build_dir` names for a fleet's processes), named by a hash
-of the source and flags. Processes that start together build once: each
+`<cache>/<hash>/`, named by a hash of the source and flags. The cache is
+the directory `KARPENTER_NATIVE_CACHE` names, else `<build dir>/native` (the
+build dir is `kernels.build.BUILD_DIR`: `build/kernels/` at the repository
+root, or the shared directory `kernels.build.set_build_dir` names for a
+fleet's processes). Processes that start together build once: each
 holds an exclusive lock on the hash directory's `.build.lock` from its check
 for the library to the library's rename into place. A failed build or load
 raises `NativeBuildError`, a `kernels.build.KernelError`, so the solver's
 recovery ladder lets it through and the Python algebra never answers in its
 place; `UnsupportedRequirements` (a value or bound beyond int64) keeps a
 template or a query on the Python algebra, which is the semantics, not a
-failure. Nothing here runs at import.
+failure. `KARPENTER_DISABLE_NATIVE` (any non-empty value, read at each
+call) is the explicit opt-out: no template builds a table, the FFD answers
+with the Python algebra, and `load_error()` says so. Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ COUNTS = {"tables": 0, "filters": 0}
 
 NO_BOUND = -(2**63)
 
+DISABLED = "disabled via KARPENTER_DISABLE_NATIVE"
+
 _lock = threading.Lock()
 _lib = None
 _load_error: str | None = None
@@ -55,6 +61,12 @@ class NativeBuildError(KernelError):
     """The C++ requirement table failed to build or load: a template that
     needs the table raises it rather than falling back to the Python
     algebra."""
+
+
+def disabled() -> bool:
+    """Whether KARPENTER_DISABLE_NATIVE turns the table off (any non-empty
+    value, as the reference reads it)."""
+    return bool(os.environ.get("KARPENTER_DISABLE_NATIVE"))  # solverlint: ok(env-dependent-branch): the reference's opt-out of a host table whose answers equal the Python algebra's — placements do not fork
 
 
 def reset_counts() -> None:
@@ -69,10 +81,13 @@ def _digest() -> str:
 
 
 def lib_dir() -> Path:
-    """Where the library of the current source is built and loaded from."""
+    """Where the library of the current source is built and loaded from:
+    under `KARPENTER_NATIVE_CACHE` when it is set, else under the kernels'
+    build directory."""
     from ..kernels import build as kbuild
 
-    return kbuild.BUILD_DIR / "native" / _digest()
+    cache = os.environ.get("KARPENTER_NATIVE_CACHE")  # solverlint: ok(env-dependent-branch): where the library is built, never a solve input
+    return (Path(cache) if cache else kbuild.BUILD_DIR / "native") / _digest()
 
 
 def build() -> Path:
@@ -110,9 +125,12 @@ def build() -> Path:
 
 def _load():
     """The loaded library (built on first call); a failure is kept and
-    raised again on every later call."""
+    raised again on every later call. Under `KARPENTER_DISABLE_NATIVE` it
+    raises `NativeBuildError(DISABLED)` and keeps nothing."""
     global _lib, _load_error
     with _lock:
+        if disabled():
+            raise NativeBuildError(DISABLED)
         if _lib is not None:
             return _lib
         if _load_error is not None:
@@ -154,7 +172,10 @@ def available() -> bool:
 
 
 def load_error() -> str | None:
-    """Why the library did not build or load, None when it did."""
+    """Why the library did not build or load, None when it did; `DISABLED`
+    under `KARPENTER_DISABLE_NATIVE`."""
+    if disabled():
+        return DISABLED
     available()
     return _load_error
 

@@ -135,12 +135,25 @@ def shard_device_slice(devices):
     return devices[i * chunk : (i + 1) * chunk]
 
 
+# KARPENTER_SOLVER_MESH's spellings that force the unsharded path
+MESH_OFF = ("0", "off", "false", "none", "disable", "disabled")
+
+
+def _mesh_enabled() -> bool:
+    """KARPENTER_SOLVER_MESH (default "auto"), read at each call: one of
+    `MESH_OFF` forces the unsharded path, as the reference's does."""
+    return os.environ.get("KARPENTER_SOLVER_MESH", "auto").strip().lower() not in MESH_OFF
+
+
 def default_mesh() -> Mesh | None:
     """A mesh over the distinct CUDA cards (restricted to this shard's slice
     under KARPENTER_SOLVER_SHARD_DEVICES) when there is more than one, else
     None (the single-device path), as the reference's default is None on one
-    device. `GPUSolver`'s "auto" does not take a mesh over distinct cards
-    until their exchange exists (ROADMAP Queue 1 item 9)."""
+    device; None whenever ``KARPENTER_SOLVER_MESH`` is off (0, off, false,
+    none, disable, disabled). `GPUSolver`'s "auto" does not take a mesh over
+    distinct cards until their exchange exists (ROADMAP Queue 1 item 9)."""
+    if not _mesh_enabled():
+        return None
     devices = shard_device_slice([torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())])
     if len(devices) <= 1:
         return None

@@ -19,7 +19,8 @@ mirror the reference step for step on a problem:
   the empty-set base row, eighths prefixes, and ranking by improvement over
   the base.
 * `propose_problem_anneal`: the annealed subset search (kernel K7) over the
-  dense compatibility matrix.
+  dense compatibility matrix. `propose_subsets(candidates,
+  instance_types)` is the reference's entry: the encoder, then this.
 
 Without explicit inits (or streams) each draws the reference's own for its
 seed (`utils.prng`, bit for bit `jax.random`'s). Every proposal is a
@@ -606,6 +607,19 @@ def global_ladder(t, aux: dict, d: np.ndarray, n: int, max_proposals: int = 8, s
         stage.note(globalpack_proposals=len(out), globalpack_rounded=len(rows) - 1,
                    ladder_scores=[round(sc, 3) for _s, sc in ladder])
     return out, info, X, scores, feas
+
+
+def propose_subsets(candidates, instance_types, seed: int = 0, max_proposals: int = 8,
+                    device=None) -> list[list[int]]:
+    """The reference's annealed proposer (reference solver/consolidation.py
+    :321, the `KARPENTER_CONSOLIDATE_LP=anneal` arm): encode the candidates,
+    then `propose_problem_anneal` with the reference's draws for `seed` (K7's
+    pre-pass and chains, one launch each). Returns candidate index subsets
+    best-first, plus the full set when any proposal exists."""
+    if len(candidates) < 2:
+        return []
+    problem = encode_problem(candidates, instance_types)
+    return propose_problem_anneal(problem, device, seed=seed, max_proposals=max_proposals)
 
 
 def propose_problem_anneal(problem: ConsolidationProblem, device=None, *, streams=None, seed: int = 0,

@@ -33,6 +33,7 @@ solve is handled by the host FFD path (the reference-behavior oracle).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from operator import attrgetter
 
@@ -1943,6 +1944,24 @@ class EncodeCache:
         # cluster reads stamps instead of rebuilding 100k tuples
         return pod_signature_cached(pod)
 
+    # the legacy arm's layer (KARPENTER_ENCODE_COLUMNAR=0): the per-cache
+    # (uid, resourceVersion)-keyed dict as it was before stamps existed — a
+    # fresh cache (new solver) rebuilds every signature
+    _LEGACY_MAX_ENTRIES = 200_000
+
+    def _legacy_signature(self, pod) -> tuple:
+        d = self.__dict__.get("pod_sig")
+        if d is None:
+            d = self.__dict__["pod_sig"] = {}
+        key = (pod.metadata.uid, pod.metadata.resource_version)
+        sig = d.get(key)
+        if sig is None:
+            sig = _pod_signature_reference(pod)
+            if len(d) >= self._LEGACY_MAX_ENTRIES:
+                d.clear()  # bound memory; repopulates in one solve
+            d[key] = sig
+        return sig
+
 
 def _try_delta_encode(snap, cache: EncodeCache):
     """Pod-delta fast path: returns an EncodedSnapshot reusing the previous
@@ -3007,6 +3026,13 @@ def _build_rows(snap, rnames: list[str], rl_to_vec, dom_keys: list[str]) -> _Row
     )
 
 
+def _columnar_enabled() -> bool:
+    """KARPENTER_ENCODE_COLUMNAR (default on): the columnar signature pass
+    with pod stamps; "0", "false" or "off" is the reference's legacy arm,
+    read at each encode. The encodes are identical in both arms."""
+    return os.environ.get("KARPENTER_ENCODE_COLUMNAR", "1").strip().lower() not in ("0", "false", "off")
+
+
 def encode(snap, cache: EncodeCache | None = None) -> EncodedSnapshot:
     # -- whole-encode delta: previous pod set + appended known shapes ---------
     if cache is not None:
@@ -3016,8 +3042,15 @@ def encode(snap, cache: EncodeCache | None = None) -> EncodedSnapshot:
 
     # -- signature grouping (the hot O(P) pass: columnar — cheap tuple
     # building only, pod-object stamps skip even that, and everything heavy
-    # below runs per unique signature)
-    if cache is not None:
+    # below runs per unique signature). KARPENTER_ENCODE_COLUMNAR=0 is the
+    # exact-reference escape hatch: the structure-literal signature builder
+    # runs per pod with no stamping (the legacy cold-encode arm).
+    columnar = _columnar_enabled()
+    if not columnar:
+        # the exact signature path: per-cache (uid, resourceVersion) memo
+        # dict when a cache exists, bare reference builder otherwise
+        sig_of = cache._legacy_signature if cache is not None else _pod_signature_reference
+    elif cache is not None:
         sig_of = pod_signature_cached
     else:
         sig_of = pod_signature
@@ -3025,10 +3058,10 @@ def encode(snap, cache: EncodeCache | None = None) -> EncodedSnapshot:
     # call); only misses go through sig_of. Plain encode(snap) without a
     # cache never stamps — in-place pod mutation between uncached encodes
     # stays visible, exactly as before.
-    use_stamp = cache is not None
+    use_stamp = columnar and cache is not None
     # grouping probes: stamped signatures are interned (equal content = same
     # object), so the per-pod dict probe hashes id() — an int — instead of a
-    # nested tuple; the uncached path probes by content
+    # nested tuple; the uncached/legacy paths probe by content as before
     sig_ids: dict = {}
     rep_keys: list[tuple] = []  # signature key per rep (content, for classes)
     rep_pods: list = []
@@ -3046,6 +3079,7 @@ def encode(snap, cache: EncodeCache | None = None) -> EncodedSnapshot:
     # partitioner; None marks snapshot-global ones (fallback.py decides tier)
     vol_issues: list[tuple[int | None, str]] = []
     pvc_owner: dict[str, tuple[str, int | None]] = {}  # pvc id -> (pod key, sig)
+    from .volumes import has_pvc_volumes  # legacy arm's per-pod volume walk
 
     grouped, garts = _columnar_group(snap.pods) if use_stamp and P0 else (None, None)
     if grouped is None:
@@ -3079,8 +3113,10 @@ def encode(snap, cache: EncodeCache | None = None) -> EncodedSnapshot:
         else:
             k = sig_of(pod)
             # the signature's volume column already says whether the pod
-            # carries PVC-backed volumes — no second per-pod spec walk
-            pvc = _sig_has_claims(k[8])
+            # carries PVC-backed volumes — no second per-pod spec walk (the
+            # legacy arm keeps the reference's per-pod walk so its timing
+            # stays faithful)
+            pvc = _sig_has_claims(k[8]) if columnar else has_pvc_volumes(pod)
             probe = k
         comp = None
         pod_pvc_ids = ()
@@ -3217,11 +3253,11 @@ def encode(snap, cache: EncodeCache | None = None) -> EncodedSnapshot:
         row_key = _row_cache_key(snap, rnames, dom_keys)
         if cache.row_key == row_key:
             rows = cache.rows
-        else:
+        elif columnar:
             # like the signature stamps, row artifacts survive solver
             # restarts and cache clears: the content-addressed global table
             # hands a fresh EncodeCache the rows an earlier solver built for
-            # the same cluster generation
+            # the same cluster generation (legacy arm: per-cache only)
             rows = _ROW_GLOBAL.get(row_key)
         # growth guard: pod-side interning widens the shared vocab; churn
         # with ever-new requirement values would widen the S x K x Vmax
@@ -3235,9 +3271,10 @@ def encode(snap, cache: EncodeCache | None = None) -> EncodedSnapshot:
         rows = _build_rows(snap, rnames, rl_to_vec, dom_keys)
     if cache is not None and cache.rows is not rows:
         cache.row_key, cache.rows = row_key, rows
-        if len(_ROW_GLOBAL) >= 8 and row_key not in _ROW_GLOBAL:
-            _ROW_GLOBAL.clear()  # bound: a handful of live row keys
-        _ROW_GLOBAL[row_key] = rows
+        if columnar:
+            if len(_ROW_GLOBAL) >= 8 and row_key not in _ROW_GLOBAL:
+                _ROW_GLOBAL.clear()  # bound: a handful of live row keys
+            _ROW_GLOBAL[row_key] = rows
     vocab = rows.vocab
     dom_values = rows.dom_values
     dom_ids = rows.dom_ids

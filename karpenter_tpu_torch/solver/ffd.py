@@ -2,9 +2,12 @@
 residual path — the same Scheduler run against a node state pre-seeded with
 a tensor solve's placements (the decode's minValues repair).
 
-Signature-batched FFD: every host-scheduler consumer gets the fast path
-through `build_scheduler`. The monotonicity argument the per-solve fit memo
-relies on:
+Signature-batched FFD (KARPENTER_FFD_BATCH=1, default on; =0 is the exact-
+reference escape hatch, read by each `Scheduler` built, placements
+bit-identical either way). Every host-scheduler consumer — the full
+fallback, `solve_residual` (the hybrid tail and the decode repair), and the
+consolidation simulations — gets the fast path through `build_scheduler`.
+The monotonicity argument the per-solve fit memo relies on:
 
   Within one `Scheduler.solve()`, node labels/taints are fixed and node state
   only ever TIGHTENS — remaining resources shrink, requirements narrow (add()

@@ -17,8 +17,9 @@ result; a pod delta of the previous hybrid snapshot packs only the delta,
 snapshot; otherwise pack it on the device, as a delta of the resident carry
 where the encoder linked it to the resident encoding, else in full; then
 `_finish`: the relaxation check, `fast_validate`, the decode into node
-claims (`_decode`, with the slot-reuse memo of the previous decode and the
-minValues repair through `ffd.solve_residual`) and, only after a successful
+claims (`_decode`, with the slot-reuse memo of the previous decode unless
+`KARPENTER_SOLVER_FASTDECODE` is off, and the minValues repair through
+`ffd.solve_residual`) and, only after a successful
 decode, the resident carry for the next delta (dropped again after a
 repair).
 
@@ -44,8 +45,9 @@ The trace's spans carry the reference's names (`encode`, `pack`,
 (`PORT_SPANS`) are child spans inside them.
 
 `GPUSolver(mesh=...)` (reference :253-262, :337-365) packs in full on a
-mesh of shards (`parallel/sharded.py`): "auto", the default, is None (the
-single-device path) until a mesh over distinct cards has its exchange
+mesh of shards (`parallel/sharded.py`): "auto", the default, follows
+`default_mesh()` (`KARPENTER_SOLVER_MESH`), and is None (the single-device
+path) on one card, and over distinct cards until their exchange exists
 (ROADMAP Queue 1 item 9); an explicit such mesh raises. The meshed full
 pack pads the slot axis to a mesh multiple, runs K1 once per shard and the
 slot-sharded K2 under a `shard_exchange` span, and keeps its carry per
@@ -199,6 +201,15 @@ def _requests_from_sigs(enc, sig_counts: dict[int, int]) -> dict:
         for k, q in enc.sig_requests[s].items():
             acc[k] = acc.get(k, 0) + q.milli * n
     return {k: Quantity(v) for k, v in acc.items()}
+
+
+def _fastdecode_enabled() -> bool:
+    """KARPENTER_SOLVER_FASTDECODE (default on): on delta solves, reuse the
+    previous decode's per-slot materializations for slots whose assignment
+    rows did not change. "0", "false" or "off" is the reference's exact arm:
+    every slot re-materializes from scratch, the memo is neither read nor
+    saved. The Results are identical in both arms."""
+    return os.environ.get("KARPENTER_SOLVER_FASTDECODE", "1").strip().lower() not in ("0", "false", "off")
 
 
 class _NullTopology:
@@ -1260,8 +1271,9 @@ class GPUSolver:
         # decode-delta carry: consume the delta handoff (if any) and the
         # previous decode's memo; both are re-established on a successful
         # decode, so any raising path below leaves no stale carry behind
+        fastdecode = _fastdecode_enabled()
         delta_ctx, self._decode_delta_ctx = self._decode_delta_ctx, None
-        memo, self._decode_memo = self._decode_memo, None
+        memo, self._decode_memo = (self._decode_memo if fastdecode else None), None
 
         assignment = np.asarray(assignment)
         slot_basis = np.asarray(slot_basis)
@@ -1395,9 +1407,9 @@ class GPUSolver:
         new_claims: list[SchedulingNodeClaim] = []
 
         # the NEXT memo, built alongside this decode (carried entries for
-        # reused slots, fresh entries for materialized ones); off under
-        # reservations
-        save_new: dict[int, dict] | None = {} if reservation_manager is None else None
+        # reused slots, fresh entries for materialized ones); off with the
+        # switch off or under reservations
+        save_new: dict[int, dict] | None = {} if fastdecode and reservation_manager is None else None
         save_existing: dict[int, dict] | None = {} if save_new is not None else None
         avail_sig_cache: dict[int, tuple] = {}
 

@@ -56,10 +56,19 @@ simulator, so executed commands never depend on this reuse at all.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..controllers.provisioning.scheduling.scheduler import SchedulerRoundSeed
 from ..utils import pods as pod_utils
+
+
+def _shared_sched_enabled() -> bool:
+    """KARPENTER_SIM_SHARED_SCHED (default on), read at each round's
+    simulator: "0", "false" or "off" builds every scratch probe's scheduler
+    from nothing (`sched_seed` None)."""
+    return os.environ.get("KARPENTER_SIM_SHARED_SCHED", "1").strip().lower() not in ("0", "false", "off")
 
 
 def _pending_and_deleting(provisioner, cluster, exclude_names: set) -> tuple[list, list, list]:
@@ -110,9 +119,10 @@ class ConsolidationSimulator:
         # one SchedulerRoundSeed shared by every scratch probe of this round:
         # probe-invariant host-scheduler layers (PodData, signatures, and
         # version-0 static rejects) carry across builds instead of being
-        # re-derived per probe (placements are identical either way — the
-        # carry only skips re-deriving verdicts that cannot differ)
-        self.sched_seed = SchedulerRoundSeed()
+        # re-derived per probe. KARPENTER_SIM_SHARED_SCHED=0 is the exact-
+        # reference escape hatch (placements are identical either way — the
+        # carry only skips re-deriving verdicts that cannot differ).
+        self.sched_seed = SchedulerRoundSeed() if _shared_sched_enabled() else None
 
     @property
     def why_scratch(self) -> str:

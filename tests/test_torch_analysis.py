@@ -5,10 +5,9 @@
   each rule of the port reports the reference rule's findings: the same
   lines, rule names and messages (the port's messages name its own
   pyproject table, `[tool.solverlint-torch]`, and its own modules, where
-  the reference's name `[tool.solverlint]` and the JAX package's). One
-  fixture differs by design: on `env_branch.py`
-  the port also reports `KARPENTER_SOLVER_MESH`, a knob the port does not
-  read and so does not register.
+  the reference's name `[tool.solverlint]` and the JAX package's). The
+  port registers the reference's knobs, so on `env_branch.py` too its
+  findings are the reference's exactly.
 - The rules that name JAX in the reference have torch counterparts, held to
   fixtures of the port's own (`tests/torch_solverlint_fixtures/`), with the
   lines each must report stated below: the host copies `.cpu()`,
@@ -113,12 +112,6 @@ def test_rule_reproduces_reference_findings(rule):
     want = view(ref_run_analysis(rules=[rule], paths=[fixture]))
     got = view(run_analysis(rules=[rule], paths=[fixture]))
     assert want, f"{rule}: the reference reports nothing on its own fixture"
-    if rule == "env-dependent-branch":
-        # the one difference by design: the port registers only the knobs it reads
-        src = fixture.read_text().splitlines()
-        extra = [g for g in got if g not in want]
-        assert [src[ln - 1].strip() for ln, _r, _m in extra] == ['a = os.environ.get("KARPENTER_SOLVER_MESH", "")']
-        got = [g for g in got if g in want]
     assert got == want
 
 
@@ -186,7 +179,10 @@ def test_config_names_the_port():
         assert _match_globs(ROOT, cls().globs(cfg)), f"{name} scans nothing"
     assert not any(p.startswith(("jax", "jnp", "lax")) for p in cfg.device_producers)
     assert "synchronize" in cfg.lock_blocking_calls
-    assert "KARPENTER_SOLVER_MESH" not in cfg.env_knobs
+    # the reference's registered knobs, in its order
+    from karpenter_tpu.analysis.config import Config as RefConfig
+
+    assert cfg.env_knobs == RefConfig().env_knobs
 
 
 def test_config_reads_its_own_table(tmp_path):

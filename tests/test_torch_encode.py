@@ -4,8 +4,10 @@ the reference's, on the CPU.
 - Every scenario of `tests/test_torch_scheduler.py` (up to 300 pods) and the
   benchmark snapshot at 1000 pods x 20 instance types, carried over into the
   port's classes (`testing.carry_over.snapshot_from_reference`), encodes to
-  the reference's encoding (its default, columnar arm; the reference's own
-  tests hold its other arm equal to that one): every numpy array with its dtype and exact values, every name list, and
+  the reference's encoding (its default, columnar arm; the legacy arm,
+  `KARPENTER_ENCODE_COLUMNAR=0`, is held to it by
+  `tests/test_torch_twins_switches.py` and `tests/test_torch_switches.py`):
+  every numpy array with its dtype and exact values, every name list, and
   every other field in canonical form (pods by key and uid, rows by node,
   template, instance type and offering, requirements and requests by
   content).

@@ -8,8 +8,11 @@ CPU: `tests/test_mesh_default.py` carried through the port.
   Queue 1 item 9): `mesh="auto"` then also takes the single-device path,
   and every meshed entry given such a mesh raises `NotImplementedError`.
   An explicit None overrides "auto"; a one-shard mesh degenerates to the
-  single-device path. The reference's `KARPENTER_SOLVER_MESH=0` kill
-  switch has no counterpart.
+  single-device path. `KARPENTER_SOLVER_MESH` is read as the reference
+  reads it (`tests/test_mesh_default.py:46-59`): "auto", the default,
+  engages the mesh over several devices; 0, off, false, none, disable and
+  disabled give None (the test suite's conftest sets it to 0, so the cases
+  that want the default set "auto").
 - Parity: the port on `make_mesh(["cpu"] * S)` (the plain multi-shard arm)
   and the reference on `make_mesh(jax.devices()[:S])` solve the same
   snapshots step by step, full, delta (an addition and a removal), hybrid
@@ -92,6 +95,7 @@ def test_default_mesh_is_none_on_the_cpu():
 
 
 def test_one_card_returns_none(monkeypatch):
+    monkeypatch.setenv("KARPENTER_SOLVER_MESH", "auto")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert sh.default_mesh() is None
     assert GPUSolver(device="cpu").mesh is None
@@ -104,6 +108,7 @@ def test_distinct_cards_mesh_raises_not_implemented(monkeypatch):
     path, as on one card."""
     from karpenter_tpu_torch.controllers.provisioning.provisioner import Provisioner
 
+    monkeypatch.setenv("KARPENTER_SOLVER_MESH", "auto")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     mesh = sh.default_mesh()
     assert mesh is not None and mesh.size == 2 and mesh.axis_name == "batch"
@@ -125,6 +130,37 @@ def test_distinct_cards_mesh_raises_not_implemented(monkeypatch):
     assert Provisioner(None, None, None, None).solver.mesh is None
     # an explicit None overrides "auto"
     assert GPUSolver(device="cpu", mesh=None).mesh is None
+
+
+def test_engages_on_multi_device(monkeypatch):
+    """The reference's `test_engages_on_multi_device`: with the switch at
+    "auto" and several devices the default is a mesh over all of them."""
+    monkeypatch.setenv("KARPENTER_SOLVER_MESH", "auto")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    mesh = sh.default_mesh()
+    assert mesh is not None and mesh.size == 3
+    assert jsh.default_mesh() is not None and jsh.default_mesh().size == len(jax.devices())
+
+
+@pytest.mark.parametrize("value", ["0", "off", "false", "none", "disable", "disabled", " OFF ", "Disabled"])
+def test_env_kill_switch(monkeypatch, value):
+    """The reference's `test_env_kill_switch`, in each of its off
+    spellings (stripped, any case): None where "auto" gives a mesh, in both
+    packages."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("KARPENTER_SOLVER_MESH", value)
+    assert sh.default_mesh() is None
+    assert jsh.default_mesh() is None
+    assert GPUSolver(device="cpu").mesh is None and TPUSolver().mesh is None
+    monkeypatch.setenv("KARPENTER_SOLVER_MESH", "auto")
+    assert sh.default_mesh() is not None and jsh.default_mesh() is not None
+
+
+def test_explicit_none_overrides_auto(monkeypatch):
+    monkeypatch.setenv("KARPENTER_SOLVER_MESH", "auto")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert GPUSolver(device="cpu", mesh=None).mesh is None
+    assert TPUSolver(mesh=None).mesh is None
 
 
 def test_mesh_on_another_device_is_refused():

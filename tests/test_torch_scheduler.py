@@ -13,8 +13,9 @@ form: per new claim its nodepool, its sorted pod keys and its sorted
 instance-type names; per existing node its sorted pod keys; every pod error,
 key and message. Tolerance: exact.
 
-The port's scheduler is the signature-batched one (the reference's default
-arm; the reference's own tests hold its other arm equal to that one). With
+The port's scheduler runs the signature-batched arm here (the reference's
+default; `tests/test_torch_switches.py` runs these scenarios with
+`KARPENTER_FFD_BATCH=0`, the unbatched arm, against the reference's). With
 the DynamicResources gate on, the scheduler builds the port's DRA allocator
 (`tests/test_torch_dra.py` holds its cases); a metrics registry on the
 snapshot counts as the reference's does.

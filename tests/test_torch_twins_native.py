@@ -3,21 +3,29 @@ twins on the port (`torch_twins`): the fuzz against `Requirements.intersects`,
 the catalog, unseen query values and two negatives, each run on the
 reference's table and on the port's. Tolerance: exact.
 
-One class cannot run as it is, and a test of the same claim stands in for
-it here:
+One class cannot run as it is, and tests of the same claim stand in for it
+here:
 
 - `TestSchedulerUsesNative.test_ffd_solve_matches_with_and_without_native`
   runs its FFD solve in two child processes whose script inserts a fixed
-  checkout path and switches the table off with `KARPENTER_DISABLE_NATIVE`,
-  a switch the port does not keep (it keeps only the reference's default
-  arm). Its claim, that the FFD's placements are the same with and without
-  the table, is `test_ffd_solve_matches_with_and_without_table` below: the
-  script's recipe (120 pods, seed 5, uids pinned) in this process over 1000
-  instance types (its 400 leave 100 compatible types, below the 200 rows
-  from which the table is used), the port with the table (its filter count
-  above 0) and with the threshold patched above 1000 rows (count 0), both
-  equal to the reference's FFD. `tests/test_torch_native.py` holds the same
-  claim for the seeded hybrid shape, FFD and `GPUSolver` both.
+  checkout path into `sys.path`, so a twin of it would import the port and
+  the tests of whatever tree lies at that path, not of its own checkout. Its
+  400 assorted instance types also leave 100 compatible ones, below the 200
+  rows from which the table is used, so both of its runs would take the
+  Python algebra. Its claim, that the FFD's placements are the same with and
+  without the table, is made here over 1000 instance types, where the table
+  is used:
+  - `test_ffd_solve_matches_with_and_without_table`: the script's recipe
+    (120 pods, seed 5, uids pinned) in this process, the port with the
+    table (its filter count above 0) and with the threshold patched above
+    1000 rows (count 0), both equal to the reference's FFD.
+  - `test_disable_native_switch`: the same solve under
+    `KARPENTER_DISABLE_NATIVE=1`, the switch the script sets, builds no
+    table, `load_error()` names the switch, and the placements are the
+    reference's; unset again, the next solve uses the table.
+
+`tests/test_torch_native.py` holds the same claim for the seeded hybrid
+shape, FFD and `GPUSolver` both.
 """
 
 from __future__ import annotations
@@ -105,3 +113,20 @@ def test_ffd_solve_matches_with_and_without_table():
     without, no_counts = _ffd("karpenter_tpu_torch", 1000, threshold=1001)
     assert with_table == without == want
     assert counts["filters"] > 0 and no_counts == {"tables": 0, "filters": 0}
+
+
+def test_disable_native_switch(monkeypatch):
+    from karpenter_tpu_torch import native
+
+    want, _ = _ffd("karpenter_tpu", 1000)
+    monkeypatch.setenv("KARPENTER_DISABLE_NATIVE", "1")
+    assert native.disabled() and not native.available()
+    assert native.load_error() == native.DISABLED == "disabled via KARPENTER_DISABLE_NATIVE"
+    with pytest.raises(native.NativeBuildError, match="KARPENTER_DISABLE_NATIVE"):
+        native.ReqTable([])
+    off, off_counts = _ffd("karpenter_tpu_torch", 1000)
+    assert off == want and off_counts == {"tables": 0, "filters": 0}
+    monkeypatch.delenv("KARPENTER_DISABLE_NATIVE")
+    assert native.load_error() is None
+    on, on_counts = _ffd("karpenter_tpu_torch", 1000)
+    assert on == want and on_counts["filters"] > 0

@@ -4,20 +4,14 @@ over the port's own tree and over the reference's seeded fixtures
 (`tests/solverlint_fixtures/`), the CLI's exit codes, the pragma and
 stale-pragma machinery, the seeded regressions of the port's store,
 encoder and prestager, and the runtime shape contracts and shared-array
-freeze of the port's encoder. Tolerance: exact.
+freeze of the port's encoder. Tolerance: exact. The port registers the
+reference's env knobs, so `TestRuleFixtures.test_env_dependent_branch` runs
+as it is; `tests/test_torch_analysis.py` also holds that rule to the port's
+own fixture (`tests/torch_solverlint_fixtures/env_branch.py`).
 
-Two cases cannot run as they are, and a test of the same claim stands in
-for each here:
+One case cannot run as it is, and a test of the same claim stands in for
+it here:
 
-- `TestRuleFixtures.test_env_dependent_branch` expects
-  `KARPENTER_SOLVER_MESH` to be a registered knob. The port keeps only the
-  reference's default arm of that switch and registers only the knobs it
-  reads, so on the port that line is one more finding.
-  `test_env_dependent_branch_on_the_reference_fixture` holds the port's
-  findings on the fixture to the reference's plus that one line;
-  `tests/test_torch_analysis.py` holds the rule to the port's own fixture
-  (`karpenter_tpu_torch/fixtures/solverlint/env_branch.py`, with a knob the
-  port reads in that line).
 - `TestRuleFixtures.test_unordered_iter_catches_seeded_encode_reverts`
   reverts a sort in `solver/tpu.py`, which the port names `solver/gpu.py`.
   `test_unordered_iter_catches_seeded_reverts` reverts the same sorts in the
@@ -31,8 +25,7 @@ import pytest
 from torch_twins import assert_every_case_covered, assert_twin_case, params_of, reference_cases
 
 MODULES = ("test_solverlint",)
-NOT_AS_IS = ("TestRuleFixtures.test_env_dependent_branch",
-             "TestRuleFixtures.test_unordered_iter_catches_seeded_encode_reverts")
+NOT_AS_IS = ("TestRuleFixtures.test_unordered_iter_catches_seeded_encode_reverts",)
 CASES = [(m, c) for m in MODULES for c in reference_cases(m) if c not in NOT_AS_IS]
 
 
@@ -44,24 +37,6 @@ def test_reference_case_matches(module, case):
 def test_every_case_is_covered():
     assert_every_case_covered(MODULES)
     assert set(NOT_AS_IS) <= set(reference_cases("test_solverlint"))
-
-
-def test_env_dependent_branch_on_the_reference_fixture():
-    from pathlib import Path
-
-    from karpenter_tpu.analysis import run_analysis as ref_run
-    from karpenter_tpu_torch.analysis import run_analysis
-
-    fixture = Path(__file__).parent / "solverlint_fixtures" / "env_branch.py"
-    src = fixture.read_text().splitlines()
-    want = [(f.line, f.message) for f in ref_run(rules=["env-dependent-branch"], paths=[fixture])]
-    got = [(f.line, f.message.replace("solverlint-torch", "solverlint"))
-           for f in run_analysis(rules=["env-dependent-branch"], paths=[fixture])]
-    mesh = [ln for ln, text in enumerate(src, 1) if "KARPENTER_SOLVER_MESH" in text]
-    assert len(want) == 8 and len(mesh) == 1
-    extra = [g for g in got if g not in want]
-    assert [g for g in got if g in want] == want
-    assert [ln for ln, _ in extra] == mesh and "'KARPENTER_SOLVER_MESH'" in extra[0][1]
 
 
 def test_unordered_iter_catches_seeded_reverts(tmp_path):

@@ -41,7 +41,12 @@ on a fleet of identical candidates the relaxed solve's fractional deletions
 tie to the last bits, where K5's plain version and XLA's order them
 differently); always, the digests every shard router's `run_all` and `rehome_tenants`
 returned (their workers replay under a `FakeClock`). A module's autouse
-fixtures run around each case; `tmp_path` is a fresh directory.
+fixtures run around each case, its other fixtures are called for the cases
+that name them; `tmp_path` is a fresh directory. While a port case runs,
+the port's `resolve_device(None)` names the CPU, so a solver, provisioner
+or proposer the case builds with no device runs there. A suite that imports
+helpers from one of `TWIN_DEPS` (the consolidation suites, the minValues
+suite, besides serving's) gets that suite's own twin.
 
 Only the port's twin tests import this module; nothing of it is in the
 package.
@@ -81,7 +86,7 @@ TEST_SOLVER_SHIM = "_twin_port_test_solver"
 MODEL_SHIM = "_twin_port_model"
 # reference suites whose helpers other suites import: the port's twin of a
 # suite imports their port twins
-TWIN_DEPS = ("test_churn_loop", "test_fleet")
+TWIN_DEPS = ("test_churn_loop", "test_fleet", "test_consolidation_tpu", "test_consolidation_lp", "test_minvalues_tensor")
 SERVING_MODULES = ("churn", "faults", "fleet", "loop", "prestage", "shard")
 
 
@@ -148,7 +153,7 @@ def port_rewrite(src: str) -> str:
                  lambda mt: f"{mt[1]}from {SERVING_SHIM}{'_' + mt[2] if mt[2] else ''} import", src, flags=re.M)
     src = re.sub(r"^(\s*)from karpenter_tpu\.models\.scheduler_model(_grouped)? import (make_tensors|item_pad_targets)$",
                  rf"\1from {MODEL_SHIM} import \3", src, flags=re.M)
-    src = re.sub(r"^(\s*)from test_solver import make_snapshot", rf"\1from {TEST_SOLVER_SHIM} import make_snapshot",
+    src = re.sub(r"^(\s*)from test_solver import (.*\bmake_snapshot\b.*)$", rf"\1from {TEST_SOLVER_SHIM} import \2",
                  src, flags=re.M)
     src = re.sub(rf"^(\s*)from ({'|'.join(TWIN_DEPS)}) import", rf"\1from _twin_{PORT}_\2 import", src, flags=re.M)
     src = re.sub(r"\bkarpenter_tpu\b", PORT, src)
@@ -156,8 +161,12 @@ def port_rewrite(src: str) -> str:
 
 
 def _fixtures(src: str) -> str:
-    """Autouse fixtures become functions the twin runs around each case."""
-    return src.replace("@pytest.fixture(autouse=True)\n", "@_twin_autouse\n")
+    """Autouse fixtures become functions the twin runs around each case;
+    the other fixtures (a class's or a module's, any scope) functions it
+    calls for the cases that name them."""
+    src = src.replace("@pytest.fixture(autouse=True)\n", "@_twin_autouse\n")
+    return re.sub(r"^(\s*)@pytest\.fixture(\(scope=\"(class|module|function)\"\))?\n", r"\1@_twin_fixture\n", src,
+                  flags=re.M)
 
 
 @functools.lru_cache(maxsize=None)
@@ -284,9 +293,44 @@ def _install_serving_shims() -> None:
     model.make_tensors, model.item_pad_targets = view_make_tensors, view_item_pad_targets
     sys.modules[MODEL_SHIM] = model
 
+    from karpenter_tpu_torch.apis import labels as wk
+
     ts = types.ModuleType(TEST_SOLVER_SHIM)
     ts.make_snapshot = make_snapshot
+    ts.LINUX_AMD64 = [{"key": wk.ARCH_LABEL_KEY, "operator": "In", "values": ["amd64"]},
+                      {"key": wk.OS_LABEL_KEY, "operator": "In", "values": ["linux"]}]
     sys.modules[TEST_SOLVER_SHIM] = ts
+
+
+def _mark_fixture(fn):
+    fn._twin_fixture = True
+    return fn
+
+
+@contextlib.contextmanager
+def cpu_by_default():
+    """While it lasts, the port's `resolve_device(None)` names the CPU, as
+    the twin's solvers, provisioners and proposers built with no device run
+    there (the serving shims' devices); every binding of the name in the
+    port's modules, those imported meanwhile too, is the real one again
+    afterwards."""
+    dev_mod = importlib.import_module(f"{PORT}.device")
+    real = dev_mod.resolve_device
+
+    def on_cpu(device=None):
+        return real("cpu" if device is None else device)
+
+    def rebind(old, new):
+        for name, mod in list(sys.modules.items()):
+            if (name == PORT or name.startswith(PORT + ".")) and mod is not None \
+                    and mod.__dict__.get("resolve_device") is old:
+                mod.resolve_device = new
+
+    rebind(real, on_cpu)
+    try:
+        yield
+    finally:
+        rebind(on_cpu, real)
 
 
 def load_twin(pkg: str, name: str) -> types.ModuleType:
@@ -302,6 +346,7 @@ def load_twin(pkg: str, name: str) -> types.ModuleType:
     mod.__file__ = str(TESTS / f"{name}.py")
     mod._TWIN_AUTOUSE = []
     mod._twin_autouse = lambda fn: mod._TWIN_AUTOUSE.append(fn) or fn
+    mod._twin_fixture = _mark_fixture
     sys.modules[mod.__name__] = mod
     exec(_twin_code(name, pkg), mod.__dict__)
     return mod
@@ -570,8 +615,11 @@ def run_case(pkg: str, module: str, case: str) -> tuple:
         stack.enter_context(seeded_uids())
         log = stack.enter_context(recording(pkg))
         mp = stack.enter_context(pytest.MonkeyPatch.context())
+        if pkg == PORT:
+            stack.enter_context(cpu_by_default())
         mod = load_twin(pkg, module)
-        fn = getattr(getattr(mod, owner)(), fn_name) if owner else getattr(mod, fn_name)
+        inst = getattr(mod, owner)() if owner else None
+        fn = getattr(inst, fn_name) if owner else getattr(mod, fn_name)
         wanted = [a.arg for a in fn_node.args.args]
         args = dict(params)
         if "monkeypatch" in wanted:
@@ -582,6 +630,10 @@ def run_case(pkg: str, module: str, case: str) -> tuple:
             gen = fx()
             next(gen)
             stack.callback(next, gen, None)
+        for arg in wanted:
+            fixture = getattr(inst if inst is not None and hasattr(inst, arg) else mod, arg, None)
+            if arg not in args and getattr(fixture, "_twin_fixture", False):
+                args[arg] = fixture()
         try:
             fn(**args)
         except pytest.skip.Exception as e:
