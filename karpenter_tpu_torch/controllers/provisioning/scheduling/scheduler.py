@@ -311,7 +311,31 @@ class Scheduler:
         return "flexible" if len(matched) > 1 else "none"
 
     def solve(self, pods: list) -> Results:
+        from ....obs.trace import trace_span
+
+        with trace_span("ffd_prepare"):
+            q, pods_by_zone = self._prepare(pods)
         pod_errors: dict[str, tuple] = {}  # uid -> (pod, error)
+        with trace_span("ffd_queue") as loop:
+            timed_out = self._drain(q, pod_errors)
+        with trace_span("ffd_finalize"):
+            for nc in self.new_node_claims:
+                nc.finalize()
+            if self.registry is not None:
+                self._flush_solve_metrics()
+        self._flush_trace(loop)
+
+        return Results(
+            new_node_claims=list(self.new_node_claims),
+            existing_nodes=list(self.existing_nodes),
+            pod_errors={p.key(): e for p, e in pod_errors.values()},
+            timed_out=timed_out,
+            pending_pods_by_effective_zone=pods_by_zone,
+        )
+
+    def _prepare(self, pods: list):
+        """The solve's set-up: topology groups, per-pod data, the zone
+        metric's counts and the queue. Returns (queue, pods by zone)."""
         self.topology.prepare(pods)
         from ....apis.capacitybuffer import is_virtual_pod
 
@@ -358,7 +382,11 @@ class Scheduler:
             # reduces to an O(shift) bubble
             self.new_node_claims.sort(key=lambda m: len(m.pods))
 
-        q = Queue(pods, self.cached_pod_data)
+        return Queue(pods, self.cached_pod_data), pods_by_zone
+
+    def _drain(self, q: Queue, pod_errors: dict) -> bool:
+        """The queue loop: each pod through the relaxation loop until the
+        queue empties or the timeout passes. Returns whether it timed out."""
         start = self.clock.now()
         timed_out = False
         while True:
@@ -381,21 +409,7 @@ class Scheduler:
                 q.push(pod)
             else:
                 pod_errors.pop(pod.metadata.uid, None)
-
-        for nc in self.new_node_claims:
-            nc.finalize()
-
-        if self.registry is not None:
-            self._flush_solve_metrics()
-        self._flush_trace()
-
-        return Results(
-            new_node_claims=list(self.new_node_claims),
-            existing_nodes=list(self.existing_nodes),
-            pod_errors={p.key(): e for p, e in pod_errors.values()},
-            timed_out=timed_out,
-            pending_pods_by_effective_zone=pods_by_zone,
-        )
+        return timed_out
 
     def _flush_solve_metrics(self) -> None:
         from .... import metrics as m
@@ -409,19 +423,25 @@ class Scheduler:
         phases.observe(self.phase_seconds["inflight"], phase="inflight")
         phases.observe(self.phase_seconds["new_claim"], phase="new_claim")
 
-    def _flush_trace(self) -> None:
+    def _flush_trace(self, loop) -> None:
         """Attach this solve's per-phase split and fit-memo attribution to
         the ambient SolveTrace, if one is active (a GPU fallback/residual or
-        a flight-recorded FFD solve). The per-pod phase accumulation itself
-        stays counter-based — a span per pod would be the overhead the trace
-        layer promises not to add — so the totals land as back-dated spans."""
+        a flight-recorded FFD solve), under the span that was open when the
+        solve began. The per-pod phase accumulation itself stays
+        counter-based — a span per pod would be the overhead the trace layer
+        promises not to add — so the three totals are laid end to end from
+        the start of `loop`, the queue loop's span they were measured in:
+        inside it, and overlapping one another nowhere."""
         from ....obs.trace import current_trace
 
         tr = current_trace()
         if tr is None or not tr.enabled:
             return
+        t = loop.t0
         for phase in ("existing", "inflight", "new_claim"):
-            tr.add_phase(f"ffd.{phase}", self.phase_seconds[phase])
+            dur = self.phase_seconds[phase]
+            tr.add_phase(f"ffd.{phase}", t, dur)
+            t += dur
         tr.note(ffd_memo=dict(self.memo_stats))
 
     def _memo_put(self, key, entry) -> None:

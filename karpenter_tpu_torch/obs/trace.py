@@ -15,9 +15,16 @@ exporter.
 Overhead contract: recording must never change placements (tests pin
 bit-identical results tracing on vs off). The span API times with bare
 `time.perf_counter()` pairs; a disabled recorder (KARPENTER_SOLVETRACE=0)
-skips the span tree, ring, sentinel, and quantile publication but keeps the
-flat per-phase totals so the `last_phase_seconds` surface stays truthful
-either way.
+skips the span tree, ring, sentinel, collector hook and quantile
+publication but keeps the flat per-phase totals so the
+`last_phase_seconds` surface stays truthful either way.
+
+The cyclic collector's pauses land in the trace of the thread they stop:
+the first enabled `TraceRecorder.begin` installs one process-wide
+`gc.callbacks` hook, which records a generation-2 pause as a `gc2` span
+under the innermost open span and adds generation-0 and -1 pauses to the
+`gc0` / `gc1` totals only (thousands of them a solve; a span each would
+grow every trace the collector walks).
 
 This module imports neither torch nor numpy: the sentinel reads the kernel
 library's load counter through `sys.modules`, so building a trace never
@@ -26,11 +33,12 @@ initializes a device.
 
 from __future__ import annotations
 
+import gc
 import os
 import sys
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 from ..utils.ringbuffer import RingBuffer
 from .racecheck import make_lock
@@ -136,8 +144,7 @@ class _SpanHandle:
     def __enter__(self) -> Span:
         tr = self._trace
         if tr.enabled:
-            parent = tr._stack[-1] if tr._stack else None
-            (parent.children if parent is not None else tr.spans).append(self.span)
+            tr._attach(self.span)
             tr._stack.append(self.span)
         self.span.t0 = time.perf_counter()
         return self.span
@@ -174,6 +181,7 @@ class SolveTrace:
         "_stack",
         "recompiles",
         "jit_before",
+        "_gc_t0",
     )
 
     def __init__(self, seq: int = 0, enabled: bool = False, n_pods: int = 0):
@@ -193,22 +201,28 @@ class SolveTrace:
         self._stack: list[Span] = []
         self.recompiles: dict[str, int] = {}
         self.jit_before: dict[str, int] | None = None
+        # the start of the collection now running on this trace's thread
+        self._gc_t0: float | None = None
 
     # -- recording -----------------------------------------------------------
     def span(self, name: str, **attrs) -> _SpanHandle:
         return _SpanHandle(self, Span(name, attrs))
 
-    def add_phase(self, name: str, dur: float, **attrs) -> None:
-        """Record an already-measured phase (the host FFD accumulates its
-        per-pod phase split in counters; this folds the totals in as spans
-        back-dated by their duration)."""
+    def add_phase(self, name: str, t0: float, dur: float, **attrs) -> None:
+        """Record an already-measured phase as a span from `t0` (a
+        perf_counter stamp) lasting `dur`, under the innermost open span.
+        The host FFD accumulates its per-pod phase split in counters; the
+        caller places each total inside the interval it was measured in."""
         self.phase_totals[name] = self.phase_totals.get(name, 0.0) + dur
         if self.enabled:
             s = Span(name, attrs)
-            s.t0 = time.perf_counter() - dur
+            s.t0 = t0
             s.dur = dur
-            parent = self._stack[-1] if self._stack else None
-            (parent.children if parent is not None else self.spans).append(s)
+            self._attach(s)
+
+    def _attach(self, s: Span) -> None:
+        parent = self._stack[-1] if self._stack else None
+        (parent.children if parent is not None else self.spans).append(s)
 
     def note(self, **kv) -> None:
         """Attach cache-hit / fallback / repair attribution facts."""
@@ -305,6 +319,53 @@ def current_trace() -> SolveTrace | None:
     return getattr(_tls, "trace", None)
 
 
+def trace_span(name: str, **attrs):
+    """A span on this thread's trace, or a context that does nothing when
+    no solve is being traced: how the layers below the solver open their
+    own spans."""
+    tr = getattr(_tls, "trace", None)
+    return tr.span(name, **attrs) if tr is not None else nullcontext()
+
+
+_GC_TOTALS = ("gc0", "gc1", "gc2")
+_gc_hook_lock = make_lock("gc_hook")
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """`gc.callbacks` hook: one pause of the cyclic collector, on the thread
+    it stopped, recorded in that thread's trace when it is enabled. A
+    generation-2 pause becomes a `gc2` span (with the objects it
+    `collected`) under the innermost open span; every pause adds to its
+    generation's total."""
+    tr = getattr(_tls, "trace", None)
+    if tr is None or not tr.enabled:
+        return
+    now = time.perf_counter()
+    if phase == "start":
+        tr._gc_t0 = now
+        return
+    t0, tr._gc_t0 = tr._gc_t0, None
+    if t0 is None:
+        # the trace began while a finalizer ran inside this pause
+        return
+    gen = info["generation"]
+    name = _GC_TOTALS[gen]
+    tr.phase_totals[name] = tr.phase_totals.get(name, 0.0) + (now - t0)
+    if gen == 2:
+        s = Span(name, {"collected": info["collected"]})
+        s.t0 = t0
+        s.dur = now - t0
+        tr._attach(s)
+
+
+def _install_gc_hook() -> None:
+    """Add `_on_gc` to `gc.callbacks` unless it is there (the first enabled
+    trace of the process installs it; it stays for the process's life)."""
+    with _gc_hook_lock:
+        if _on_gc not in gc.callbacks:
+            gc.callbacks.append(_on_gc)
+
+
 def _env_enabled() -> bool:
     return os.environ.get("KARPENTER_SOLVETRACE", "1").strip().lower() not in ("0", "false", "off")
 
@@ -333,6 +394,8 @@ class TraceRecorder:
         with self._lock:
             self.seq += 1
             seq = self.seq
+        if self.enabled:
+            _install_gc_hook()
         tr = SolveTrace(seq=seq, enabled=self.enabled, n_pods=n_pods)
         _tls.trace = tr
         return tr
@@ -421,33 +484,6 @@ class TraceRecorder:
                 "n": len(samples),
                 **{qn: quantile(samples, _QUANTILE_POINTS[qn], assume_sorted=True) for qn in QUANTILE_NAMES},
             }
-        return out
-
-    def summary_since(self, seq: int) -> dict:
-        """Aggregate of traces recorded after `seq` (bench attaches this per
-        scenario): solve count, modes served, total recompiles by fn, and the
-        newest trace's per-phase split."""
-        traces = [t for t in self.traces() if t.seq > seq]
-        modes: dict[str, int] = {}
-        recompiles: dict[str, int] = {}
-        for t in traces:
-            modes[t.mode or "none"] = modes.get(t.mode or "none", 0) + 1
-            for fn, n in t.recompiles.items():
-                recompiles[fn] = recompiles.get(fn, 0) + n
-        out = {"n_solves": len(traces), "modes": modes, "recompiles": recompiles}
-        if traces:
-            last = traces[-1]
-            out["last_phases"] = {k: round(v, 6) for k, v in last.phase_totals.items()}
-            out["last_duration_s"] = round(last.duration, 6)
-            # the tail shares: what fraction of the window's solve
-            # wall the decode and exact-validate phases claim — the two
-            # columns the decode-delta memo and the ranked-ladder validation
-            # exist to shrink
-            total = sum(t.duration for t in traces)
-            if total > 0:
-                for phase in ("decode", "validate"):
-                    spent = sum(t.phase_totals.get(phase, 0.0) for t in traces)
-                    out[f"{phase}_share"] = round(spent / total, 4)
         return out
 
     def dump(self, limit: int | None = None) -> dict:

@@ -65,13 +65,6 @@ def build_scheduler(snap: SolverSnapshot, collect_zone_metrics: bool | None = No
 class FFDSolver:
     name = "ffd"
 
-    def __init__(self):
-        # per-solve observability snapshots (bench + dashboards). Only the two
-        # small dicts are kept — retaining the Scheduler itself would pin the
-        # whole solve's state (memo, caches, claims) for the solver's lifetime
-        self.last_memo_stats: dict | None = None
-        self.last_phase_seconds: dict | None = None
-
     def solve(self, snap: SolverSnapshot) -> Results:
         from ..obs.trace import current_trace, default_recorder
 
@@ -84,12 +77,9 @@ class FFDSolver:
             trace = rec.begin(n_pods=len(snap.pods))
             trace.mode = "ffd"
             trace.backend = self.name
-        scheduler = build_scheduler(snap)
         try:
-            return scheduler.solve(snap.pods)
+            return build_scheduler(snap).solve(snap.pods)
         finally:
-            self.last_memo_stats = dict(scheduler.memo_stats)
-            self.last_phase_seconds = dict(scheduler.phase_seconds)
             if rec is not None:
                 rec.commit(trace, registry=getattr(snap, "registry", None))
 
@@ -109,18 +99,21 @@ def solve_residual(snap: SolverSnapshot, residual_pods: list, tensor_results: Re
     Topology through the host's own counting rule — so a SPREAD group whose
     selector spans both halves sees the true combined per-domain counts
     (`GPUSolver._seam_records` builds the list)."""
-    # the zone metric would cover only the residual half — skip computing it
-    # and mark it uncomputed rather than misreported (Results contract)
-    scheduler = build_scheduler(snap, collect_zone_metrics=False)
-    _adopt_tensor_state(scheduler, snap, tensor_results)
-    if seam_records:
-        # build the residual pods' topology groups now so the records land in
-        # them (prepare() is idempotent — scheduler.solve re-entering it only
-        # re-registers owners). Adoption above already added hostname
-        # requirements to the tensor claims, so hostname-keyed groups count.
-        scheduler.topology.prepare(residual_pods)
-        for pod, taints, reqs in seam_records:
-            scheduler.topology.record(pod, taints, reqs)
+    from ..obs.trace import trace_span
+
+    with trace_span("ffd_adopt"):
+        # the zone metric would cover only the residual half — skip computing
+        # it and mark it uncomputed rather than misreported (Results contract)
+        scheduler = build_scheduler(snap, collect_zone_metrics=False)
+        _adopt_tensor_state(scheduler, snap, tensor_results)
+        if seam_records:
+            # build the residual pods' topology groups now so the records land
+            # in them (prepare() is idempotent — scheduler.solve re-entering it
+            # only re-registers owners). Adoption above already added hostname
+            # requirements to the tensor claims, so hostname-keyed groups count.
+            scheduler.topology.prepare(residual_pods)
+            for pod, taints, reqs in seam_records:
+                scheduler.topology.record(pod, taints, reqs)
     results = scheduler.solve(residual_pods)
     results.pod_errors.update(tensor_results.pod_errors)
     results.pending_pods_by_effective_zone = None

@@ -150,7 +150,8 @@ _TENANT_LABELED = frozenset({m.SOLVER_SOLVE_TOTAL})
 # the port's own stages, recorded as child spans inside the reference's
 # spans (a trace's tree without them is the reference's tree)
 PORT_SPANS = frozenset({"copy", "build_items", "make_tensors", "scan", "assignment", "carry_edits", "recredit",
-                        "item_build", "merge", "delta_validate", "mask_encode"})
+                        "item_build", "merge", "delta_validate", "mask_encode", "seam_records", "ffd_adopt",
+                        "ffd_prepare", "ffd_queue", "ffd_finalize", "gc2"})
 
 
 def _ports_fit(group_usage, pod_ports: list) -> bool:
@@ -1105,9 +1106,9 @@ class GPUSolver:
         the merged solve under its mode."""
         self._trace.note(residual_pods=len(residual_pods))
         with self._span("residual"):
-            results = solve_residual(
-                snap, residual_pods, tensor_results, seam_records=self._seam_records(enc, keep, tensor_results)
-            )
+            with self._span("seam_records"):
+                records = self._seam_records(enc, keep, tensor_results)
+            results = solve_residual(snap, residual_pods, tensor_results, seam_records=records)
         self.last_backend = "hybrid"
         self.last_solve_mode = mode
         self.last_fallback_reasons = enc.fallback_reasons

@@ -14,10 +14,12 @@ families, every attribution note (`encode_mode`, `row_cache`,
 (`test_torch_metrics.registry_view`). Tracing on and off give bit-identical
 Results. Then the reference's own cases (`tests/test_solvetrace.py:71-339`)
 on the port: the quantile helper, the ring and its dropped counter, the
-rolling quantiles, `summary_since`, `dump`, the raising solve's record, the
+rolling quantiles, `dump`, the raising solve's record, the
 kernel-library sentinel (rewritten for the port: no load on the CPU, a
 load counted once and never on a warm solve), the exports and the CLI,
-`explain()`. All exact.
+`explain()`. All exact. Last, the port's own: the host residual's spans
+tile it, the FFD's phase totals lie inside its queue loop, and the
+collector's pauses land in the trace of an enabled recorder only.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ torch.set_num_threads(1)
 
 # notes whose values are wall times
 TIMED_NOTES = frozenset({"event_batch"})
+# the collector's pause totals, by generation
+GC_TOTALS = frozenset({"gc0", "gc1", "gc2"})
 
 
 def span_tree(spans, port: bool) -> list:
@@ -306,14 +310,6 @@ class TestRingAndStats:
             pass
         assert rec.last() is t2 and t2.recompiles == {} and t2.mode == ""
 
-    def test_summary_since(self):
-        rec = TraceRecorder(capacity=8, enabled=True)
-        self._commit(rec, mode="full")
-        mark = rec.seq
-        self._commit(rec, mode="hybrid")
-        s = rec.summary_since(mark)
-        assert s["n_solves"] == 1 and s["modes"] == {"hybrid": 1} and "last_phases" in s
-
 
 class TestKernelLibrarySentinel:
     """The port's recompile sentinel counts builds and loads of the kernel
@@ -488,15 +484,18 @@ class TestExplainAndAttribution:
         solver = GPUSolver(device="cpu", recorder=TraceRecorder(enabled=True))
         clear_globals()
         solver.solve(snapshot_from_reference(make_snapshot([make_pod(cpu="500m", name=f"p{i}") for i in range(4)])))
-        top = [s.name for s in solver._trace.spans]
-        assert top == ["encode", "pack"]
-        pack = solver._trace.spans[1]
-        assert [c.name for c in pack.children] == ["copy", "build_items", "make_tensors", "scan", "assignment",
-                                                   "validate", "decode"]
+        # a `gc2` span lands wherever the collector happened to pause
+        top = [s for s in solver._trace.spans if s.name != "gc2"]
+        assert [s.name for s in top] == ["encode", "pack"]
+        pack = top[1]
+        assert [c.name for c in pack.children if c.name != "gc2"] == ["copy", "build_items", "make_tensors", "scan",
+                                                                      "assignment", "validate", "decode"]
         stages = solver.last_stages
-        assert stages["pack"] >= stages["scan"] and set(stages) == {"encode", "pack", "copy", "build_items",
-                                                                     "make_tensors", "scan", "assignment",
-                                                                     "validate", "decode"}
+        # the collector's totals are there when it paused in the solve
+        assert stages["pack"] >= stages["scan"] and set(stages) - GC_TOTALS == {"encode", "pack", "copy",
+                                                                                "build_items", "make_tensors",
+                                                                                "scan", "assignment", "validate",
+                                                                                "decode"}
 
     def test_standalone_ffd_solver_records_a_trace(self):
         rec = default_recorder()
@@ -510,3 +509,106 @@ class TestExplainAndAttribution:
     def test_trace_object_defaults(self):
         t = SolveTrace()
         assert t.mode == "" and t.phase_totals == {} and t.explain()
+
+
+class TestResidualSpansAndCollector:
+    """The port's spans inside the host residual, the FFD's phase totals
+    laid inside its queue loop, and the collector's pauses in the trace."""
+
+    RESIDUAL_CHILDREN = ["seam_records", "ffd_adopt", "ffd_prepare", "ffd_queue", "ffd_finalize"]
+    AGGREGATES = ["ffd.existing", "ffd.inflight", "ffd.new_claim"]
+
+    @staticmethod
+    def _inside(span, outer) -> bool:
+        return outer.t0 <= span.t0 and span.t0 + span.dur <= outer.t0 + outer.dur
+
+    def test_hybrid_residual_children_tile_it(self):
+        solver = GPUSolver(device="cpu", recorder=TraceRecorder(enabled=True))
+        clear_globals()
+        solver.solve(snapshot_from_reference(make_snapshot([make_pod(cpu="500m", name=f"p{i}")
+                                                            for i in range(4)] + [_odd_pod()])))
+        tr = solver._trace
+        assert tr.mode == "hybrid"
+        residual = next(s for s in tr.spans if s.name == "residual")
+        real = [c for c in residual.children if c.name not in self.AGGREGATES]
+        assert [c.name for c in real if c.name != "gc2"] == self.RESIDUAL_CHILDREN
+        assert all(self._inside(c, residual) for c in residual.children)
+        for a, b in zip(real, real[1:]):
+            assert a.t0 + a.dur <= b.t0, (a.name, b.name)
+        # the aggregates stay children of `residual`, laid end to end inside the queue loop
+        loop = next(c for c in real if c.name == "ffd_queue")
+        agg = [c for c in residual.children if c.name in self.AGGREGATES]
+        assert [c.name for c in agg] == self.AGGREGATES and agg[0].t0 == loop.t0
+        assert all(self._inside(c, loop) for c in agg)
+        for a, b in zip(agg, agg[1:]):
+            assert b.t0 == a.t0 + a.dur
+        assert all(tr.phase_totals[c.name] == c.dur for c in agg)
+        assert sum(c.dur for c in real) <= residual.dur
+
+    def test_a_forced_collection_is_a_gc2_span_and_young_ones_are_totals(self):
+        import gc
+
+        rec = TraceRecorder(capacity=4, enabled=True)
+        with rec.flight() as tr:
+            with tr.span("outer") as outer:
+                gc.collect()
+                gc.collect(0)
+                gc.collect(1)
+        (gc2,) = [c for c in outer.children if c.name == "gc2"]
+        assert isinstance(gc2.attrs["collected"], int) and gc2.dur > 0 and self._inside(gc2, outer)
+        assert not [c for c in outer.children if c.name in ("gc0", "gc1")]
+        assert tr.phase_totals["gc0"] > 0 and tr.phase_totals["gc1"] > 0
+        assert tr.phase_totals["gc2"] >= gc2.dur
+        assert "gc2" in PORT_SPANS
+
+    def test_a_disabled_recorder_adds_no_hook_and_no_gc_totals(self):
+        import gc
+
+        from karpenter_tpu_torch.obs import trace as trace_mod
+
+        hooked = trace_mod._on_gc in gc.callbacks
+        if hooked:
+            gc.callbacks.remove(trace_mod._on_gc)
+        try:
+            solver = GPUSolver(device="cpu", recorder=TraceRecorder(enabled=False))
+            clear_globals()
+            solver.solve(snapshot_from_reference(make_snapshot([make_pod(cpu="500m", name=f"p{i}")
+                                                                for i in range(4)] + [_odd_pod()])))
+            assert trace_mod._on_gc not in gc.callbacks
+            # with the hook in place, a disabled trace still gets nothing
+            trace_mod._install_gc_hook()
+            with TraceRecorder(enabled=False).flight() as tr:
+                gc.collect()
+                gc.collect(0)
+            assert not GC_TOTALS & set(tr.phase_totals) and tr.spans == []
+            assert not GC_TOTALS & set(solver._trace.phase_totals) and solver.last_solve_mode == "hybrid"
+        finally:
+            if hooked:
+                trace_mod._install_gc_hook()
+
+    def test_standalone_ffd_spans_and_placements_traced_and_untraced(self):
+        """A host FFD solve under an enabled flight record (spans at the top
+        level, the totals inside its loop) and under no trace at all (the
+        spans do nothing) places every pod alike."""
+        from karpenter_tpu_torch.obs.trace import current_trace
+        from karpenter_tpu_torch.solver.ffd import build_scheduler
+
+        ref = make_snapshot([make_pod(cpu="500m", name=f"p{i}") for i in range(6)] + [_odd_pod()])
+
+        def placed(results):
+            return (sorted((sorted(p.metadata.name for p in nc.pods), sorted(it.name for it in nc.instance_type_options))
+                           for nc in results.new_node_claims), sorted(results.pod_errors))
+
+        clear_globals()
+        snap = snapshot_from_reference(ref)
+        assert current_trace() is None
+        untraced = placed(build_scheduler(snap).solve(snap.pods))
+        clear_globals()
+        snap = snapshot_from_reference(ref)
+        with TraceRecorder(enabled=True).flight() as tr:
+            traced = placed(build_scheduler(snap).solve(snap.pods))
+        assert traced == untraced and traced[0]
+        top = [s for s in tr.spans if s.name != "gc2"]
+        assert [s.name for s in top] == ["ffd_prepare", "ffd_queue", "ffd_finalize"] + self.AGGREGATES
+        loop = top[1]
+        assert all(self._inside(s, loop) for s in top[3:]) and set(self.AGGREGATES) <= set(tr.phase_totals)
