@@ -1867,12 +1867,15 @@ def operator_start(nodeclaim) -> None:
 def solve_view(tr) -> dict:
     """A solve's trace as the fixture keeps it: mode, backend (the port's
     "gpu" read as the reference's "tpu"), pods, signatures, fallback
-    reasons and notes (wall times left out)."""
+    reasons and notes (wall times and the port's own notes,
+    `solver.gpu.PORT_NOTES`, left out)."""
+    from karpenter_tpu_torch.solver.gpu import PORT_NOTES
     from karpenter_tpu_torch.testing.canonical import json_form
 
     return json_form(dict(mode=tr.mode, backend={"gpu": "tpu"}.get(tr.backend, tr.backend), n_pods=tr.n_pods,
                           n_sigs=tr.n_sigs, reasons=list(tr.fallback_reasons),
-                          notes={k: v for k, v in tr.attribution.items() if k not in TIMED_NOTES}))
+                          notes={k: v for k, v in tr.attribution.items()
+                                 if k not in TIMED_NOTES and k not in PORT_NOTES}))
 
 
 def operator_launches(solves: list) -> dict:

@@ -188,17 +188,28 @@ class SchedulingNodeClaim:
         into an acceptance later, so the scheduler's fit memo caches it
         permanently per pod signature. Returns (base_requirements, None) or
         (None, err)."""
-        err = taints_tolerate_pod(self.template.taints, pod, include_prefer_no_schedule=True)
+        err = self.static_error(pod, pod_data)
         if err is not None:
             return None, err
+        return self.static_base(pod_data), None
 
+    def static_error(self, pod, pod_data) -> str | None:
+        """can_add_static's verdict without its copy of the requirements."""
+        err = taints_tolerate_pod(self.template.taints, pod, include_prefer_no_schedule=True)
+        if err is not None:
+            return err
+        cerr = self.requirements.compatible(pod_data.requirements, allow_undefined=wk.WELL_KNOWN_LABELS)
+        if cerr is not None:
+            return f"incompatible requirements, {cerr}"
+        return None
+
+    def static_base(self, pod_data) -> Requirements:
+        """can_add_static's base once static_error passed: this claim's
+        requirements and the pod's, in a fresh Requirements."""
         base = Requirements()
         base.add(*self.requirements.values())
-        cerr = base.compatible(pod_data.requirements, allow_undefined=wk.WELL_KNOWN_LABELS)
-        if cerr is not None:
-            return None, f"incompatible requirements, {cerr}"
         base.add(*pod_data.requirements.values())
-        return base, None
+        return base
 
     def can_add_dynamic(self, pod, pod_data, base: Requirements, relax_min_values: bool = False):
         """The suffix of can_add: volume alternatives, topology, instance-type

@@ -24,7 +24,7 @@ from .existingnode import ExistingNode
 from .nodeclaim import DaemonOverheadGroup, NodeClaimTemplate, SchedulingNodeClaim
 from .preferences import Preferences
 from .queue import Queue
-from .topology import Topology
+from .topology import TYPE_SPREAD, Topology
 from .volumetopology import VolumeTopology
 
 
@@ -172,6 +172,9 @@ class Scheduler:
         # loop (no placements happen there, so topology state is frozen)
         self._zone_by_sig: dict = {}
         self.memo_stats = {"hit": 0, "miss": 0, "invalidate": 0}
+        # in-flight claims the batched probe loop passed over for a spread
+        # and the claims it reached (a port-only trace note)
+        self.spread_skip = {"skipped": 0, "reached": 0}
         self.phase_seconds = {"existing": 0.0, "inflight": 0.0, "new_claim": 0.0}
         # the PreferNoSchedule toleration relaxation arms whenever some pool
         # taints with that effect (scheduler.go:144-153 — policy-independent)
@@ -350,6 +353,7 @@ class Scheduler:
             self._fit_memo = {k: v for k, v in self._fit_memo.items() if k[1] not in tmpl_ids}
         # per-solve observability (flushed to the registry once per solve)
         self.memo_stats = {"hit": 0, "miss": 0, "invalidate": 0}
+        self.spread_skip = {"skipped": 0, "reached": 0}
         self.phase_seconds = {"existing": 0.0, "inflight": 0.0, "new_claim": 0.0}
         pods_by_zone: dict[str, int] | None = None
         if self.collect_zone_metrics:
@@ -424,9 +428,10 @@ class Scheduler:
         phases.observe(self.phase_seconds["new_claim"], phase="new_claim")
 
     def _flush_trace(self, loop) -> None:
-        """Attach this solve's per-phase split and fit-memo attribution to
-        the ambient SolveTrace, if one is active (a GPU fallback/residual or
-        a flight-recorded FFD solve), under the span that was open when the
+        """Attach this solve's per-phase split, fit-memo attribution and
+        spread pass-over counts (`ffd_spread_skip`, a port-only note:
+        solver.gpu.PORT_NOTES) to the ambient SolveTrace, if one is active
+        (a GPU fallback/residual or a flight-recorded FFD solve), under the span that was open when the
         solve began. The per-pod phase accumulation itself stays
         counter-based — a span per pod would be the overhead the trace layer
         promises not to add — so the three totals are laid end to end from
@@ -442,7 +447,7 @@ class Scheduler:
             dur = self.phase_seconds[phase]
             tr.add_phase(f"ffd.{phase}", t, dur)
             t += dur
-        tr.note(ffd_memo=dict(self.memo_stats))
+        tr.note(ffd_memo=dict(self.memo_stats), ffd_spread_skip=dict(self.spread_skip))
 
     def _memo_put(self, key, entry) -> None:
         memo = self._fit_memo
@@ -618,9 +623,19 @@ class Scheduler:
         # pod counts move (fewest-first), so a positional resume point is
         # unsound here — instead every permanently-rejected claim costs one
         # dict lookup and everything else resumes exactly where the last
-        # identical pod left its verdicts
+        # identical pod left its verdicts.
+        # Spread pass-over: no topology count moves within one pod's scan
+        # (only the add that ends it records), so the domains each of the
+        # pod's non-hostname spread groups admits are fixed for the scan. A
+        # claim whose requirement on that key allows none of them fails
+        # Topology.add_requirements on every volume alternative — the probe
+        # only narrows the claim's requirements (pod, then volume ones) — so
+        # it is passed over before the copy and the topology walk. The memo
+        # is consulted and filled first, exactly as without the pass-over,
+        # and the per-claim error is discarded either way.
         pod_data = self.cached_pod_data[pod.metadata.uid]
         sig = self._sig_by_uid.get(pod.metadata.uid) if self.batch_enabled else None
+        spread = self._spread_domains(pod, pod_data) if sig is not None else ()
         claims = self.new_node_claims
         for i in range(len(claims)):
             nc = claims[i]
@@ -641,13 +656,20 @@ class Scheduler:
                         self.memo_stats["invalidate"] += 1
                     else:
                         self.memo_stats["miss"] += 1
-                    base, serr = nc.can_add_static(pod, pod_data)
+                    serr = nc.static_error(pod, pod_data)
                     if serr is not None:
                         # taints are fixed and claim requirements only ever
                         # tighten: a static rejection is permanent
                         self._memo_put(key, ("reject", serr))
                         continue
-                    self._memo_put(key, ("pass", nc._version, base))
+                    base = None  # built below, only for a claim probed further
+                    self._memo_put(key, ("pass", nc._version, None))
+                if spread and _spread_rules_out(spread, nc.requirements):
+                    self.spread_skip["skipped"] += 1
+                    continue
+                if base is None:
+                    base = nc.static_base(pod_data)
+                    self._fit_memo[key] = ("pass", nc._version, base)
                 reqs, its, err, permanent = nc.can_add_dynamic(pod, pod_data, base, relax_min_values=False)
                 if err is not None and permanent:
                     # capacity-exhausted: no option of this claim has the raw
@@ -656,10 +678,25 @@ class Scheduler:
                     self._memo_put(key, ("reject", err))
             if err is None:
                 nc.add(pod, pod_data, reqs, its)
+                if sig is not None:
+                    self.spread_skip["reached"] += i + 1
                 if self.batch_enabled:
                     self._bubble_claim_right(i)
                 return None
+        if sig is not None:
+            self.spread_skip["reached"] += len(claims)
         return "failed scheduling pod to inflight nodes"
+
+    def _spread_domains(self, pod, pod_data) -> tuple:
+        """(key, admitted domains) for each non-hostname spread group the pod
+        owns (TopologyGroup.spread_domains); empty for most pods. Hostname
+        groups are left out: a claim is a hostname domain of its own."""
+        uid = pod.metadata.uid
+        out = ()
+        for tg in self.topology.topology_groups.values():
+            if tg.type == TYPE_SPREAD and tg.key != wk.HOSTNAME_LABEL_KEY and tg.is_owned_by(uid):
+                out += ((tg.key, tg.spread_domains(pod, pod_data.strict_requirements.get(tg.key))),)
+        return out
 
     def _add_to_new_node_claim(self, pod) -> str | None:
         pod_data = self.cached_pod_data[pod.metadata.uid]
@@ -752,6 +789,16 @@ class Scheduler:
             claims[j] = claims[j - 1]
             j -= 1
         claims[j] = c
+
+
+def _spread_rules_out(spread: tuple, requirements: Requirements) -> bool:
+    """Whether a claim of these requirements admits none of the domains of
+    some (key, domains) pair of Scheduler._spread_domains."""
+    for key, domains in spread:
+        req = requirements.get(key)
+        if not any(req.has(d) for d in domains):
+            return True
+    return False
 
 
 def _volume_zone_req(volume_reqs: list) -> Requirement | None:

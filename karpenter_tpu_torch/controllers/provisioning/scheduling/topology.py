@@ -222,13 +222,26 @@ class TopologyGroup:
         )
         for domain in candidates:
             count = self.domains[domain] + (1 if self_selecting else 0)
-            if count - min_count <= self.max_skew:
+            if self._within_skew(count, min_count):
                 valid.add(domain)
                 if count < best_count:
                     best_domain, best_count = domain, count
         if best_domain is None:
             return Requirement(self.key, Operator.DOES_NOT_EXIST), valid
         return Requirement(self.key, Operator.IN, [best_domain]), valid
+
+    def _within_skew(self, count: int, min_count: int) -> bool:
+        """The spread's test of one domain: `count` already holds the pod
+        itself when the group selects it."""
+        return count - min_count <= self.max_skew
+
+    def spread_domains(self, pod, pod_domains: Requirement) -> list[str]:
+        """Every domain `_next_domain_spread` would find valid for the pod on
+        a node that allowed them all (the non-hostname branch). Counts move
+        only when a pod is recorded, so the list holds until the next add."""
+        min_count = self._domain_min_count(pod_domains)
+        incr = 1 if self.selects(pod) else 0
+        return [d for d, c in self.domains.items() if self._within_skew(c + incr, min_count)]
 
     def _domain_min_count(self, pod_domains: Requirement) -> int:
         if self.key == wk.HOSTNAME_LABEL_KEY:

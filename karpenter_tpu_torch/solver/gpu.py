@@ -152,6 +152,8 @@ _TENANT_LABELED = frozenset({m.SOLVER_SOLVE_TOTAL})
 PORT_SPANS = frozenset({"copy", "build_items", "make_tensors", "scan", "assignment", "carry_edits", "recredit",
                         "item_build", "merge", "delta_validate", "mask_encode", "seam_records", "ffd_adopt",
                         "ffd_prepare", "ffd_queue", "ffd_finalize", "gc2"})
+# the port's own trace notes (the reference's trace has none of them)
+PORT_NOTES = frozenset({"ffd_spread_skip"})
 
 
 def _ports_fit(group_usage, pod_ports: list) -> bool:

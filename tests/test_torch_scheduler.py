@@ -5,8 +5,8 @@ Each scenario builds a reference `SolverSnapshot` with the reference's own
 builders (`bench.build_snapshot` at 300 pods x 20 instance types, plain and
 with its affinity, PVC, fallback and minValues options; the test suite's
 topology-spread, anti-affinity, host-port, existing-node, daemonset and
-reserved-capacity shapes; the small provisioning corpus of
-`tests/test_torch_fixtures.py`), carries it over into the port's classes
+reserved-capacity shapes; upstream's diverse-pod mix at 300 pods; the
+small provisioning corpus of `tests/test_torch_fixtures.py`), carries it over into the port's classes
 with `testing.carry_over.snapshot_from_reference` (every name, uid and
 timestamp kept) and solves both. The `Results` must be equal in canonical
 form: per new claim its nodepool, its sorted pod keys and its sorted
@@ -129,6 +129,38 @@ def _reserved():
     return make_snapshot(pods, node_pools=pools, types=catalog.construct_instance_types(include_reserved=True))
 
 
+def _upstream_mix(n=300):
+    """upstream's `makeDiversePods` fifths (scheduling_benchmark_test.go),
+    shuffled: generic pods, zone spread and hostname spread over `my-label`
+    selectors (maxSkew 1; a pod's selector drawn apart from its label),
+    required zone pod affinity, hostname anti-affinity; over the 36 linux
+    amd64 types of the catalog's families and sizes, in three zones. The FFD
+    opens claims in several zones, so a zone-spread pod passes over the
+    claims its spread rules out."""
+    rng = random.Random(25)
+    values = "abcdefg"
+    kinds = ("generic", "zone_spread", "hostname_spread", "zone_affinity", "hostname_anti_affinity")
+    pods = []
+    for i in range(n):
+        kind = kinds[i * len(kinds) // n]
+        kw = dict(cpu=f"{rng.choice((100, 250, 500, 1000, 1500))}m",
+                  memory=f"{rng.choice((100, 256, 512, 1024, 2048))}Mi")
+        if kind in ("generic", "zone_spread", "hostname_spread"):
+            kw["labels"] = {"my-label": rng.choice(values)}
+        if kind in ("zone_spread", "hostname_spread"):
+            kw["tsc"] = [spread(ZONE if kind == "zone_spread" else HOST, 1, _sel(**{"my-label": rng.choice(values)}))]
+        elif kind == "zone_affinity":
+            kw["labels"] = {"my-affinity": rng.choice(values)}
+            kw["pod_affinity"] = [PodAffinityTerm(label_selector=_sel(**kw["labels"]), topology_key=ZONE)]
+        elif kind == "hostname_anti_affinity":
+            kw["labels"] = {"app": "nginx"}
+            kw["anti_affinity"] = [hostname_anti_affinity(_sel(app="nginx"))]
+        pods.append(make_pod(**kw))
+    rng.shuffle(pods)
+    types = [catalog.make_instance_type(f, cpu, zones=catalog.ZONES[:3]) for f in catalog.FAMILIES for cpu in catalog.SIZES]
+    return make_snapshot(pods, types=types)
+
+
 def _bench(**kw):
     return lambda: bench.build_snapshot(300, 20, **kw)
 
@@ -145,6 +177,7 @@ SCENARIOS = {
     "existing_nodes": _existing_nodes,
     "daemonsets": _daemonsets,
     "reserved": _reserved,
+    "upstream_mix": _upstream_mix,
     **{name: CORPUS[name] for name in sorted(CORPUS) if name.startswith("small_")},
 }
 

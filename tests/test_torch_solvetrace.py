@@ -9,7 +9,7 @@ traces must agree on the mode, the backend (the port's "gpu" is the
 reference's "tpu"), the pod and signature counts, the fallback reasons and
 families, every attribution note (`encode_mode`, `row_cache`,
 `delta_reject`, `delta_added`, `residual_pods`, `decode_mode`, the FFD memo,
-...) and the span tree — the port's with its own finer stages
+...; the port's own notes, `solver.gpu.PORT_NOTES`, left out) and the span tree — the port's with its own finer stages
 (`solver.gpu.PORT_SPANS`) taken out — and both registries on every counter
 (`test_torch_metrics.registry_view`). Tracing on and off give bit-identical
 Results. Then the reference's own cases (`tests/test_solvetrace.py:71-339`)
@@ -45,7 +45,7 @@ from karpenter_tpu_torch.obs import (
 )
 from karpenter_tpu_torch.obs.export import parse_dump, to_jsonl, to_trace_events
 from karpenter_tpu_torch.solver.ffd import FFDSolver
-from karpenter_tpu_torch.solver.gpu import PORT_SPANS, GPUSolver
+from karpenter_tpu_torch.solver.gpu import PORT_NOTES, PORT_SPANS, GPUSolver
 from karpenter_tpu_torch.testing.carry_over import SnapshotMirror, snapshot_from_reference
 from test_solver import make_snapshot
 from test_solvetrace import _global_pod, _odd_pod
@@ -76,7 +76,7 @@ def trace_view(tr, port: bool) -> dict:
     backend = {"gpu": "tpu"}.get(tr.backend, tr.backend) if port else tr.backend
     return dict(mode=tr.mode, backend=backend, n_pods=tr.n_pods, n_sigs=tr.n_sigs,
                 reasons=list(tr.fallback_reasons), families=tr.families, spans=span_tree(tr.spans, port),
-                notes={k: v for k, v in tr.attribution.items() if k not in TIMED_NOTES})
+                notes={k: v for k, v in tr.attribution.items() if k not in TIMED_NOTES and not (port and k in PORT_NOTES)})
 
 
 def assert_same_trace(got, want, what: str) -> None:
@@ -184,6 +184,49 @@ def test_scenario_traces_and_counts_as_the_reference(name):
     chain = TracedChain(SOLVE_SCENARIOS[name]())
     chain.step(name)
     chain.step(f"{name} resubmit")
+
+
+@pytest.mark.parametrize("name,engages", [("upstream_mix", True), ("anti_affinity", False)])
+def test_ffd_spread_pass_over_counts_as_the_reference(name, engages):
+    """A flight-recorded host FFD solve on each side: the same Results and
+    the same fit-memo counts as the reference's, and the port's own
+    `ffd_spread_skip` note says the in-flight loop passed over claims on
+    upstream's mix and over none where no pod spreads."""
+    from karpenter_tpu.solver.ffd import FFDSolver as RefFFDSolver
+    from test_torch_scheduler import SCENARIOS, canonical
+
+    ref_snap = SCENARIOS[name]()
+    port_snap = snapshot_from_reference(ref_snap)
+    start = next_start()
+    views = []
+    for rec, solver, snap in ((RefRecorder(enabled=True), RefFFDSolver(), ref_snap),
+                              (TraceRecorder(enabled=True), FFDSolver(), port_snap)):
+        same_state(start)
+        tr = rec.begin(n_pods=len(snap.pods))
+        try:
+            results = canonical(solver.solve(snap))
+        finally:
+            rec.commit(tr)
+        views.append((results, tr.attribution))
+    (want, ref_notes), (got, notes) = views
+    assert got == want
+    assert notes["ffd_memo"] == ref_notes["ffd_memo"] and "ffd_spread_skip" not in ref_notes
+    skip = notes["ffd_spread_skip"]
+    assert (skip["skipped"] > 0) == engages and skip["reached"] >= skip["skipped"]
+    assert set(notes) - set(ref_notes) == PORT_NOTES
+
+
+def test_hybrid_residual_passes_over_spread_claims():
+    """Upstream's mix through GPUSolver: its spread pods take the hybrid
+    residual, whose in-flight loop passes over the device's claims in the
+    zones their spreads rule out; the trace, the fit memo among its notes,
+    equals the reference's."""
+    from test_torch_solve import SOLVE_SCENARIOS
+
+    chain = TracedChain(SOLVE_SCENARIOS["upstream_mix"]())
+    chain.step("upstream_mix")
+    tr = chain.gpu._trace
+    assert tr.mode == "hybrid" and tr.attribution["ffd_spread_skip"]["skipped"] > 0
 
 
 def test_sim_probe_traces_as_the_reference():
